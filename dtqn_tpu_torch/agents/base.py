@@ -1,0 +1,355 @@
+"""DDQN agent core: act / observe / learn (``dtqn_tpu/agents/base.py``).
+
+The transformer branch (DTQN, no bag): acts on the full context window and
+takes the argmax of the newest timestep's Q (dtqn.py:76-107); trains
+seq-to-seq with the DDQN target and loss over the last ``history``
+timesteps (dtqn.py:162-269).  Other model kinds are not ported yet.
+
+Everything stays on the device and no step reads a value back to the host:
+the update is gated by ``can_sample & isfinite(grad_norm)`` with
+``torch.where``, and clip + Adam are written out over one flat parameter
+vector (as ``optax.flatten`` does) so the gate covers the optimizer state
+too.  The state is updated in place.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from dtqn_tpu_torch import replay
+from dtqn_tpu_torch.envs.core import Environment
+from dtqn_tpu_torch.models import build_network
+from dtqn_tpu_torch.models.dtqn import DTQN
+from dtqn_tpu_torch.utils.device import resolve_device
+from dtqn_tpu_torch.utils.metrics import TrainDiagnostics
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam defaults
+
+
+@dataclasses.dataclass(frozen=True)
+class AgentConfig:
+    """Static hyperparameters (reference defaults from run.py:16-184)."""
+
+    model: str = "DTQN"
+    num_envs: int = 1
+    # Learning (dqn.py:35-41)
+    learning_rate: float = 3e-4
+    batch_size: int = 32
+    context_len: int = 50
+    history: int = 50
+    gamma: float = 0.99
+    grad_norm_clip: float = 1.0
+    target_update_frequency: int = 10_000
+    buffer_size: int = 500_000
+    # Architecture (run.py:92-175)
+    action_dim: int = 0
+    inner_embed: int = 128
+    num_heads: int = 8
+    num_layers: int = 2
+    dropout: float = 0.0
+    gate: str = "res"
+    identity: bool = False
+    pos: str = "learned"
+    bag_size: int = 0
+
+
+@dataclasses.dataclass
+class AdamState:
+    """optax.adam's state over the flat parameter vector."""
+
+    mu: torch.Tensor  # [P] f32
+    nu: torch.Tensor  # [P] f32
+    count: torch.Tensor  # int32 scalar
+
+
+@dataclasses.dataclass
+class AgentState:
+    """Complete on-device learner+actor state.
+
+    ``network`` / ``target_network`` are the policy and target DTQNs; their
+    parameters are views into the flat vectors ``params`` / ``target_params``.
+    """
+
+    network: DTQN
+    target_network: DTQN
+    params: torch.Tensor  # [P] f32
+    target_params: torch.Tensor  # [P] f32
+    opt_state: AdamState
+    buffer: replay.BufferState
+    context: replay.ContextState
+    env_state: Any
+    obs: torch.Tensor  # [E, *obs_shape] current observations
+    generator: torch.Generator
+    env_steps: torch.Tensor  # int64 scalar
+    train_steps: torch.Tensor  # int32 scalar: gradient updates applied
+    epsilon: torch.Tensor  # f32 scalar
+    diagnostics: TrainDiagnostics
+    nonfinite_grads: torch.Tensor  # int32 scalar
+
+
+def flatten_parameters(module: nn.Module) -> torch.Tensor:
+    """Moves every parameter of ``module`` into one flat vector, returned;
+    the parameters become views of it."""
+    params = list(module.parameters())
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    offset = 0
+    for p in params:
+        n = p.numel()
+        p.data = flat[offset:offset + n].view_as(p)
+        offset += n
+    return flat
+
+
+def clip_adam_update(
+    params: torch.Tensor,
+    grads: torch.Tensor,
+    gnorm: torch.Tensor,
+    opt: AdamState,
+    apply: torch.Tensor,
+    learning_rate: float,
+    max_norm: float,
+) -> None:
+    """``optax.chain(clip_by_global_norm, adam)`` then ``apply_updates``,
+    written into ``params`` and ``opt`` only where ``apply`` (device bool).
+
+    ``gnorm`` is the global norm of ``grads``.  The clip leaves g as it is
+    when gnorm < max_norm, else scales it by max_norm / gnorm (no epsilon,
+    unlike ``clip_grad_norm_``).
+    """
+    g = torch.where(gnorm < max_norm, grads, grads / gnorm * max_norm)
+    count = opt.count + 1
+    mu = (1 - ADAM_B1) * g + ADAM_B1 * opt.mu
+    nu = (1 - ADAM_B2) * g * g + ADAM_B2 * opt.nu
+    countf = count.to(torch.float32)
+    mu_hat = mu / (1 - torch.pow(ADAM_B1, countf))
+    nu_hat = nu / (1 - torch.pow(ADAM_B2, countf))
+    new_params = params + (-learning_rate) * (
+        mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
+    )
+    params.copy_(torch.where(apply, new_params, params))
+    opt.mu.copy_(torch.where(apply, mu, opt.mu))
+    opt.nu.copy_(torch.where(apply, nu, opt.nu))
+    opt.count = torch.where(apply, count, opt.count)
+
+
+class Agent:
+    """Builds the act / observe / learn functions for a config + env pair.
+
+    Runs on ``cuda`` unless ``device`` says otherwise; raises when no GPU
+    is found and the caller did not ask for the CPU.
+    """
+
+    def __init__(self, config: AgentConfig, env: Environment,
+                 device: Optional[str] = None):
+        if config.model != "DTQN" or config.bag_size > 0:
+            raise NotImplementedError(
+                f"model {config.model!r} with bag_size {config.bag_size} is "
+                "not ported yet (DTQN without bag is); see ROADMAP.md queue 1"
+            )
+        if not 1 <= config.history <= config.context_len:
+            # Clip history into [1, context_len] (agent_utils.py:101-105).
+            config = dataclasses.replace(
+                config,
+                history=int(min(max(config.history, 1), config.context_len)),
+            )
+        self.config = config
+        self.env = env
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------ init
+    def build_network(self, generator: Optional[torch.Generator] = None):
+        """A fresh DTQN on the CPU, weights drawn from ``generator``."""
+        cfg = self.config
+        return build_network(
+            cfg.model,
+            self.env,
+            action_dim=cfg.action_dim,
+            inner_embed=cfg.inner_embed,
+            num_heads=cfg.num_heads,
+            num_layers=cfg.num_layers,
+            context_len=cfg.context_len,
+            dropout=cfg.dropout,
+            gate=cfg.gate,
+            identity=cfg.identity,
+            pos=cfg.pos,
+            generator=generator,
+        )
+
+    def init_state(self, seed: int) -> AgentState:
+        """Initial state: weights from a CPU generator seeded with ``seed``
+        (device-independent), run-time draws from a device generator."""
+        cfg, env, device = self.config, self.env, self.device
+        network = self.build_network(
+            torch.Generator().manual_seed(seed)
+        ).to(device)
+        target_network = copy.deepcopy(network)
+        params = flatten_parameters(network)
+        target_params = flatten_parameters(target_network)
+        generator = torch.Generator(device=device).manual_seed(seed)
+        obs, env_state = env.reset_vec(generator, cfg.num_envs, device)
+        context = replay.init_context(
+            generator, cfg.num_envs, cfg.context_len, tuple(env.obs_shape),
+            env.obs_dtype, env.obs_mask, env.num_actions, obs,
+        )
+        buffer = replay.init_buffer(
+            num_envs=cfg.num_envs,
+            buffer_size=cfg.buffer_size,
+            max_episode_steps=env.max_episode_steps,
+            context_len=cfg.context_len,
+            obs_shape=tuple(env.obs_shape),
+            obs_dtype=env.obs_dtype,
+            obs_mask=env.obs_mask,
+            device=device,
+        )
+        replay.store_first_obs(
+            buffer, obs,
+            torch.ones((cfg.num_envs,), dtype=torch.bool, device=device),
+            env.obs_mask,
+        )
+
+        def scalar(value, dtype):
+            return torch.tensor(value, dtype=dtype, device=device)
+
+        return AgentState(
+            network=network,
+            target_network=target_network,
+            params=params,
+            target_params=target_params,
+            opt_state=AdamState(
+                mu=torch.zeros_like(params),
+                nu=torch.zeros_like(params),
+                count=scalar(0, torch.int32),
+            ),
+            buffer=buffer,
+            context=context,
+            env_state=env_state,
+            obs=obs,
+            generator=generator,
+            env_steps=scalar(0, torch.int64),
+            train_steps=scalar(0, torch.int32),
+            epsilon=scalar(1.0, torch.float32),
+            diagnostics=TrainDiagnostics.create(100, device),
+            nonfinite_grads=scalar(0, torch.int32),
+        )
+
+    # ------------------------------------------------------------- acting
+    @torch.no_grad()
+    def greedy_actions(
+        self, network: DTQN, context: replay.ContextState
+    ) -> torch.Tensor:
+        """Greedy action [E] per env: Q of the newest row of the full padded
+        context (causality makes this the reference's truncated forward)."""
+        q = network(context.obs, context.action)
+        q_last = q[torch.arange(q.shape[0], device=q.device),
+                   context.last_index.to(torch.int64)]
+        return torch.argmax(q_last, dim=-1)
+
+    def select_actions(self, state: AgentState, epsilon) -> torch.Tensor:
+        """Epsilon-greedy (dqn.py:117-131)."""
+        n, gen = self.config.num_envs, state.generator
+        greedy = self.greedy_actions(state.network, state.context)
+        explore = torch.rand((n,), generator=gen,
+                             device=self.device) < epsilon
+        randoms = torch.randint(0, self.env.num_actions, (n,), generator=gen,
+                                device=self.device)
+        return torch.where(explore, randoms, greedy)
+
+    # ----------------------------------------------------------- observing
+    def observe(self, state: AgentState, action, next_obs, reward,
+                buffer_done) -> AgentState:
+        """Context append + replay store (dtqn.py:116-160)."""
+        state.context, _, _, _ = replay.add_transition(
+            state.context, next_obs, action, reward, buffer_done
+        )
+        replay.store_step(state.buffer, next_obs, action, reward, buffer_done)
+        return state
+
+    def handle_resets(self, state: AgentState, done,
+                      reset_obs) -> AgentState:
+        """Flush finished episodes and start fresh contexts
+        (run.py:293-296 + context_reset dtqn.py:109-114)."""
+        replay.flush(state.buffer, done)
+        replay.store_first_obs(state.buffer, reset_obs, done,
+                               self.env.obs_mask)
+        state.context = replay.reset_context(
+            state.context, state.generator, reset_obs, done,
+            self.env.obs_mask, self.env.num_actions,
+        )
+        return state
+
+    # ------------------------------------------------------------- learning
+    def sample_batch(self, buffer: replay.BufferState,
+                     generator: torch.Generator) -> replay.Batch:
+        cfg = self.config
+        return replay.sample(buffer, generator, cfg.batch_size,
+                             cfg.context_len)
+
+    def learn(self, state: AgentState) -> AgentState:
+        """One gated DDQN gradient step (dtqn.py:162-269, dqn.py:142-206)."""
+        batch = self.sample_batch(state.buffer, state.generator)
+        return self.apply_update(state, batch)
+
+    def apply_update(self, state: AgentState, batch: replay.Batch):
+        """The gradient step on a given batch (dtqn.py:196-269)."""
+        cfg = self.config
+        ok = replay.can_sample(state.buffer, cfg.batch_size)
+        hist = cfg.history
+
+        # DDQN target: policy-net argmax selector, target-net value
+        # (dtqn.py:221-238), both without gradients.
+        with torch.no_grad():
+            next_q_policy = state.network(batch.next_obs, batch.next_action)
+            next_q_target = state.target_network(
+                batch.next_obs, batch.next_action
+            )
+            next_act = torch.argmax(next_q_policy, dim=-1)
+            next_q = torch.gather(
+                next_q_target, -1, next_act[..., None]
+            )[..., 0].to(torch.float32)
+            dones = batch.done.to(torch.float32)
+            targets = batch.reward + (1.0 - dones) * cfg.gamma * next_q
+
+        q_all = state.network(batch.obs, batch.action)
+        q_taken = torch.gather(
+            q_all, -1, batch.action.to(torch.int64)[..., None]
+        )[..., 0].to(torch.float32)
+        q_h = q_taken[:, -hist:]
+        t_h = targets[:, -hist:]
+        loss = torch.mean(torch.square(q_h - t_h))
+        params = list(state.network.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        flat_grads = torch.cat([
+            (g if g is not None else torch.zeros_like(p)).reshape(-1)
+            for g, p in zip(grads, params)
+        ])
+
+        with torch.no_grad():
+            gnorm = torch.linalg.vector_norm(flat_grads)
+            finite = torch.isfinite(gnorm)
+            apply = ok & finite  # apply only when sampling was legal
+            clip_adam_update(
+                state.params, flat_grads, gnorm, state.opt_state, apply,
+                cfg.learning_rate, cfg.grad_norm_clip,
+            )
+            state.train_steps = state.train_steps + apply.to(torch.int32)
+            # Hard target swap every target_update_frequency applied steps
+            # (dqn.py:205-210).
+            swap = apply & (
+                state.train_steps % cfg.target_update_frequency == 0
+            )
+            state.target_params.copy_(
+                torch.where(swap, state.params, state.target_params)
+            )
+            state.diagnostics.update(
+                apply, td=loss.detach(), gnorm=gnorm, q=q_h.detach(),
+                targets=t_h,
+            )
+            state.nonfinite_grads = state.nonfinite_grads + (
+                ok & ~finite
+            ).to(torch.int32)
+        return state

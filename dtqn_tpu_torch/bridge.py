@@ -1,0 +1,120 @@
+"""Parameter bridge between ``dtqn_tpu``'s flax tree and the port's modules.
+
+``params_from_jax`` maps a DTQN parameter tree (nested dicts of numpy
+arrays, as ``flax.serialization.msgpack_restore`` or ``jax.device_get``
+give it) to a ``state_dict`` of ``dtqn_tpu_torch.models.DTQN``:
+
+    ContinuousObsEmbedding_0/Dense_0   -> obs_embedding.dense_0
+    action_embed/Embed_0/embedding     -> action_embed.embedding.weight
+    position/embedding [1, L, F]       -> position.embedding
+    layer_{i}/attention/qkv, out       -> layers.{i}.attention.qkv, out
+    layer_{i}/ffn/Dense_0, Dense_1     -> layers.{i}.ffn.dense_0, dense_1
+    layer_{i}/layernorm{1,2}           -> layers.{i}.layernorm{1,2}
+    head_hidden, head_out              -> head_hidden, head_out
+
+A Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``;
+LayerNorm ``scale`` becomes ``weight``.  The older separate
+query/key/value projections are fused into ``qkv`` in q, k, v order, as
+``tools/convert_policy_qkv.py`` does.  Reading a msgpack file is the
+caller's job, which keeps this package free of flax.
+``params_to_jax`` is the inverse (always the fused layout).
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_MODULES = {
+    "ContinuousObsEmbedding_0": "obs_embedding",
+    "Dense_0": "dense_0",
+    "Dense_1": "dense_1",
+    "Embed_0": "embedding",
+}
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+           "embedding": "weight"}
+
+
+def _fuse_qkv(tree: Mapping) -> Dict:
+    """Separate query/key/value Dense layers -> one fused ``qkv``."""
+    if not isinstance(tree, Mapping):
+        return tree
+    out = {k: _fuse_qkv(v) for k, v in tree.items()}
+    if {"query", "key", "value"} <= set(out) and "qkv" not in out:
+        parts = [out.pop(name) for name in ("query", "key", "value")]
+        out["qkv"] = {
+            leaf: np.concatenate([p[leaf] for p in parts], axis=-1)
+            for leaf in ("kernel", "bias")
+        }
+    return out
+
+
+def _torch_name(path) -> str:
+    *mods, leaf = path
+    names = []
+    for m in mods:
+        if m.startswith("layer_"):
+            names += ["layers", m[len("layer_"):]]
+        else:
+            names.append(_MODULES.get(m, m))
+    if mods == ["position"] and leaf == "embedding":
+        return "position.embedding"
+    if leaf not in _LEAVES:
+        raise KeyError(f"unknown parameter leaf {'/'.join(path)!r}")
+    names.append(_LEAVES[leaf])
+    return ".".join(n for n in names if n)
+
+
+def params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """flax DTQN parameter tree (numpy leaves) -> torch ``state_dict``."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    state = OrderedDict()
+
+    def walk(node, path):
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                walk(val, path + (key,))
+                continue
+            arr = np.asarray(val, dtype=np.float32)
+            if key == "kernel":
+                arr = arr.T
+            state[_torch_name(path + (key,))] = torch.tensor(arr)
+
+    walk(_fuse_qkv(tree), ())
+    return state
+
+
+_JAX_MODULES = {v: k for k, v in _MODULES.items()}
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """torch ``state_dict`` -> flax DTQN parameter tree (numpy leaves)."""
+    tree: Dict = {}
+    for name, tensor in state_dict.items():
+        arr = tensor.detach().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts = [f"layer_{parts[1]}"] + parts[2:]
+        *mods, leaf = parts
+        if mods == ["position"]:
+            path, arr_leaf = ["position"], "embedding"
+        elif mods == ["action_embed", "embedding"]:
+            path, arr_leaf = ["action_embed", "Embed_0"], "embedding"
+        else:
+            path = [_JAX_MODULES.get(m, m) for m in mods]
+            is_norm = path[-1].startswith("layernorm")
+            if leaf == "weight":
+                arr_leaf = "scale" if is_norm else "kernel"
+                if not is_norm:
+                    arr = arr.T
+            else:
+                arr_leaf = leaf
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[arr_leaf] = np.ascontiguousarray(arr)
+    return tree

@@ -1,0 +1,120 @@
+"""Car Flag, batched (``dtqn_tpu/envs/car_flag.py``).
+
+A car on [-1.1, 1.1] with velocity clamped to +-0.07 accelerates with force
++-0.0015; heaven is at +1 or -1 each episode (hell opposite); a priest near
+x = 0.5 (+-0.2) reveals heaven's side in the third obs component.  Reward
++1 at heaven, -1 at hell; the episode ends at either.  Obs = [position,
+velocity, priest_hint]; actions {0, 1, 2} -> force {-1, 0, 1}.  200-step cap.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from dtqn_tpu_torch.envs.core import Environment, ObsKind
+
+
+@dataclasses.dataclass
+class CarFlagState:
+    position: torch.Tensor  # [E] f32
+    velocity: torch.Tensor  # [E] f32
+    heaven: torch.Tensor  # [E] f32, +1.0 or -1.0
+    t: torch.Tensor  # [E] int32, steps taken this episode
+
+
+class CarFlag(Environment):
+    """Discrete-action Car Flag (the continuous-force mode is not ported)."""
+
+    name = "DiscreteCarFlag-v0"
+    num_actions = 3
+    max_episode_steps = 200
+    obs_kind = ObsKind.CONTINUOUS
+    obs_shape = (3,)
+    obs_dtype = torch.float32
+
+    max_position = 1.1
+    max_speed = 0.07
+    power = 0.0015
+    priest_position = 0.5
+    priest_delta = 0.2
+    goal_position = 1.0
+
+    def __init__(self, discrete: bool = True):
+        if not discrete:
+            raise NotImplementedError(
+                "CarFlag-continuous-v0 is not ported yet; see ROADMAP.md "
+                "queue 1"
+            )
+
+    @property
+    def obs_mask(self) -> float:
+        return -5.0  # below any real observation (env_processing.py:110-116)
+
+    def _observe(self, state: CarFlagState) -> torch.Tensor:
+        near_priest = (
+            (state.position >= self.priest_position - self.priest_delta)
+            & (state.position <= self.priest_position + self.priest_delta)
+        )
+        hint = torch.where(near_priest, state.heaven,
+                           torch.zeros_like(state.heaven))
+        return torch.stack([state.position, state.velocity, hint], dim=-1)
+
+    def reset_with(
+        self, heaven_left: torch.Tensor, position: torch.Tensor
+    ) -> Tuple[torch.Tensor, CarFlagState]:
+        """Fresh episodes from given draws: ``heaven_left`` [E] bool puts
+        heaven at -1, ``position`` [E] f32 in [-0.2, 0.2)."""
+        heaven = torch.where(
+            heaven_left,
+            torch.full_like(position, -1.0),
+            torch.full_like(position, 1.0),
+        )
+        state = CarFlagState(
+            position=position,
+            velocity=torch.zeros_like(position),
+            heaven=heaven,
+            t=torch.zeros(position.shape, dtype=torch.int32,
+                          device=position.device),
+        )
+        return self._observe(state), state
+
+    def reset_env(self, generator, num_envs: int, device):
+        draws = torch.rand((2, num_envs), generator=generator, device=device)
+        return self.reset_with(draws[0] < 0.5, draws[1] * 0.4 - 0.2)
+
+    def step_env(self, generator, state: CarFlagState, action):
+        del generator  # dynamics are deterministic
+        force = action.to(torch.float32) - 1.0
+        velocity = torch.clamp(
+            state.velocity + force * self.power, -self.max_speed,
+            self.max_speed,
+        )
+        position = torch.clamp(
+            state.position + velocity, -self.max_position, self.max_position
+        )
+        # Left wall is sticky: hitting it zeroes negative velocity.
+        velocity = torch.where(
+            (position == -self.max_position) & (velocity < 0),
+            torch.zeros_like(velocity),
+            velocity,
+        )
+        at_plus = position >= self.goal_position
+        at_minus = position <= -self.goal_position
+        terminated = at_plus | at_minus
+        heaven_right = state.heaven > 0
+        one = torch.ones_like(position)
+        reward = torch.where(
+            at_plus,
+            torch.where(heaven_right, one, -one),
+            torch.where(at_minus, torch.where(heaven_right, -one, one),
+                        torch.zeros_like(position)),
+        )
+        new_state = CarFlagState(
+            position=position, velocity=velocity, heaven=state.heaven,
+            t=state.t + 1,
+        )
+        info = {"is_success": reward > 0}
+        return self._observe(new_state), new_state, reward, terminated, info

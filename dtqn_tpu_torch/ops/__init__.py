@@ -1,0 +1,1 @@
+"""Attention: hand-written CUDA kernels and their plain PyTorch versions."""

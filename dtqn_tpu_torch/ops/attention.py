@@ -1,0 +1,69 @@
+"""Attention primitives on the packed [B, L, H*D] layout.
+
+Counterpart of ``dtqn_tpu/ops/attention.py``.  There is no global backend
+selector: ``dot_product_attention`` dispatches on the tensor's device.  A
+CUDA tensor goes through the hand-written kernels of ``ops/cuda_attention``
+(forward and recompute backward); a CPU tensor goes through the same
+``torch.autograd.Function`` with the kernels' plain PyTorch versions.
+
+``plain_attention_packed`` is the plain reference of the JAX package's XLA
+path (``_xla_attention``): scores masked with ``finfo.min`` under a
+bottom-right-aligned causal mask, differentiated by autograd.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from dtqn_tpu_torch.ops.cuda_attention import cuda_attention_packed
+
+
+def plain_attention_packed(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    causal: bool = False,
+) -> torch.Tensor:
+    """``_xla_attention`` in plain PyTorch: q [B, Lq, E], k/v [B, Lk, E]."""
+    b, lq, e = q.shape
+    lk = k.shape[1]
+    d = e // num_heads
+    qh = q.reshape(b, lq, num_heads, d)
+    kh = k.reshape(b, lk, num_heads, d)
+    vh = v.reshape(b, lk, num_heads, d)
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=q.dtype))
+    scores = torch.einsum("blhd,bmhd->bhlm", qh, kh) * scale
+    if causal:
+        mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril(
+            lk - lq
+        )
+        scores = torch.where(
+            mask, scores, torch.finfo(scores.dtype).min
+        )
+    weights = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhlm,bmhd->blhd", weights, vh).reshape(b, lq, e)
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    num_heads: int,
+    causal: bool = False,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Multi-head attention core, packed layout: [B, Lq, E] out.
+
+    CUDA tensors launch the attention kernels; CPU tensors run their plain
+    versions.  ``kv_mask`` (the masked-bag ablation) is not ported.
+    """
+    if kv_mask is not None:
+        raise NotImplementedError(
+            "kv_mask (masked bag attention) is not ported yet; see "
+            "ROADMAP.md queue 1"
+        )
+    return cuda_attention_packed(q, k, v, num_heads, causal)

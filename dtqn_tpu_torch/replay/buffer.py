@@ -1,0 +1,236 @@
+"""Episode-major replay ring buffer on the device (``dtqn_tpu/replay/buffer.py``).
+
+  - storage is episode-major: ``obs[R, T+1, ...]`` keeps s and s' in one
+    tensor; actions get the same +1 slot; rewards / dones are [R, T]; dones
+    start all True so padded tails never bootstrap
+  - the FIFO of ``buffer_size // max_episode_steps`` episodes becomes a
+    ring of rows partitioned per env, so E lockstep envs write without
+    contention
+  - the in-progress episode is excluded from sampling by a per-row validity
+    bit: set on flush, cleared when a row is cleansed for reuse
+  - ``sample`` draws a uniform valid episode and a uniform window start in
+    [0, max(0, ep_len - L)] per sample
+  - episode lengths are int32
+
+Unlike the JAX package, the write functions update the buffer's tensors in
+place (and also return the buffer).  The bag functions are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from dtqn_tpu_torch.envs.core import where_batch
+
+
+@dataclasses.dataclass
+class BufferState:
+    obs: torch.Tensor  # [R, T+1, *obs_shape]
+    action: torch.Tensor  # [R, T+1] int32
+    reward: torch.Tensor  # [R, T] float32
+    done: torch.Tensor  # [R, T] bool
+    ep_len: torch.Tensor  # [R] int32
+    ep_valid: torch.Tensor  # [R] bool: completed episode, samplable
+    write_pos: torch.Tensor  # [E] int32: step cursor in current episode
+    ep_count: torch.Tensor  # [E] int32: episodes started per env
+    flushed_total: torch.Tensor  # int32 scalar: completed episodes
+
+    @property
+    def num_envs(self) -> int:
+        return self.write_pos.shape[0]
+
+    @property
+    def rows_per_env(self) -> int:
+        return self.obs.shape[0] // self.num_envs
+
+    @property
+    def max_episode_steps(self) -> int:
+        return self.reward.shape[1]
+
+    @property
+    def current_rows(self) -> torch.Tensor:
+        """Row owned by each env for its in-progress episode (int64)."""
+        rpe = self.rows_per_env
+        env = torch.arange(self.num_envs, device=self.ep_count.device)
+        return env * rpe + (self.ep_count % rpe).to(torch.int64)
+
+
+@dataclasses.dataclass
+class Batch:
+    """One training batch of context windows (replay_buffer.py:160-168)."""
+
+    obs: torch.Tensor  # [B, L, *obs_shape]
+    action: torch.Tensor  # [B, L]
+    reward: torch.Tensor  # [B, L]
+    next_obs: torch.Tensor  # [B, L, *obs_shape]
+    next_action: torch.Tensor  # [B, L]
+    done: torch.Tensor  # [B, L]
+    ep_len: torch.Tensor  # [B] clipped to L
+
+
+def init_buffer(
+    *,
+    num_envs: int,
+    buffer_size: int,
+    max_episode_steps: int,
+    context_len: int,
+    obs_shape: Tuple[int, ...],
+    obs_dtype: torch.dtype,
+    obs_mask: float,
+    device,
+) -> BufferState:
+    if context_len > max_episode_steps:
+        raise ValueError(
+            f"context_len {context_len} > max_episode_steps "
+            f"{max_episode_steps}: sampled windows would overrun episodes"
+        )
+    total_rows = max(buffer_size // max_episode_steps, 2 * num_envs)
+    rows_per_env = max(total_rows // num_envs, 2)
+    rows = rows_per_env * num_envs
+    t = max_episode_steps
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return BufferState(
+        obs=torch.full((rows, t + 1, *obs_shape), obs_mask, dtype=obs_dtype,
+                       device=device),
+        action=zeros((rows, t + 1), torch.int32),
+        reward=zeros((rows, t), torch.float32),
+        done=torch.ones((rows, t), dtype=torch.bool, device=device),
+        ep_len=zeros((rows,), torch.int32),
+        ep_valid=zeros((rows,), torch.bool),
+        write_pos=zeros((num_envs,), torch.int32),
+        ep_count=zeros((num_envs,), torch.int32),
+        flushed_total=zeros((), torch.int32),
+    )
+
+
+def _masked_row_update(arr, rows, mask, new_rows) -> None:
+    """arr[rows] = new_rows where mask (per-env bool), in place."""
+    arr[rows] = where_batch(mask, new_rows, arr[rows])
+
+
+def store_first_obs(
+    buf: BufferState, obs: torch.Tensor, mask: torch.Tensor, obs_mask: float
+) -> BufferState:
+    """Cleanse each masked env's current row and store the episode's first
+    observation (replay_buffer.py:88-92 + cleanse_episode:100-135)."""
+    rows = buf.current_rows
+    e, t = buf.num_envs, buf.max_episode_steps
+    device = obs.device
+    clean_obs = torch.full((e, t + 1, *buf.obs.shape[2:]), obs_mask,
+                           dtype=buf.obs.dtype, device=device)
+    clean_obs[:, 0] = obs.to(buf.obs.dtype)
+    _masked_row_update(buf.obs, rows, mask, clean_obs)
+    _masked_row_update(
+        buf.action, rows, mask,
+        torch.zeros((e, t + 1), dtype=torch.int32, device=device),
+    )
+    _masked_row_update(
+        buf.reward, rows, mask,
+        torch.zeros((e, t), dtype=torch.float32, device=device),
+    )
+    _masked_row_update(
+        buf.done, rows, mask,
+        torch.ones((e, t), dtype=torch.bool, device=device),
+    )
+    _masked_row_update(buf.ep_len, rows, mask, torch.zeros_like(buf.ep_len[rows]))
+    _masked_row_update(buf.ep_valid, rows, mask,
+                       torch.zeros_like(buf.ep_valid[rows]))
+    buf.write_pos = torch.where(mask, torch.zeros_like(buf.write_pos),
+                                buf.write_pos)
+    return buf
+
+
+def store_step(
+    buf: BufferState,
+    obs: torch.Tensor,
+    action: torch.Tensor,
+    reward: torch.Tensor,
+    done: torch.Tensor,
+) -> BufferState:
+    """Store one transition for every env (replay_buffer.py:71-86).
+
+    ``obs`` is the post-step observation, written at slot pos+1 so s and s'
+    share one tensor; the episode length tracks the running step count.
+    """
+    rows = buf.current_rows
+    pos = buf.write_pos.to(torch.int64)
+    buf.obs[rows, pos + 1] = obs.to(buf.obs.dtype)
+    buf.action[rows, pos] = action.to(torch.int32)
+    buf.reward[rows, pos] = reward.to(torch.float32)
+    buf.done[rows, pos] = done.to(torch.bool)
+    buf.write_pos = buf.write_pos + 1
+    buf.ep_len[rows] = buf.write_pos
+    return buf
+
+
+def flush(buf: BufferState, mask: torch.Tensor) -> BufferState:
+    """Finish the masked envs' episodes: mark samplable, advance the ring
+    (replay_buffer.py:97-98)."""
+    rows = buf.current_rows
+    buf.ep_valid[rows] = buf.ep_valid[rows] | mask
+    buf.ep_count = buf.ep_count + mask.to(torch.int32)
+    buf.write_pos = torch.where(mask, torch.zeros_like(buf.write_pos),
+                                buf.write_pos)
+    buf.flushed_total = buf.flushed_total + mask.sum().to(torch.int32)
+    return buf
+
+
+def can_sample(buf: BufferState, batch_size: int) -> torch.Tensor:
+    """batch_size < completed episodes (replay_buffer.py:94-95): a device
+    bool, never read on the host by the learner."""
+    return buf.flushed_total > batch_size
+
+
+def _draw_windows(buf: BufferState, generator, batch_size, context_len):
+    """Uniform valid rows (Gumbel-max over the validity logits, as
+    ``jax.random.categorical``) and uniform window starts."""
+    device = buf.ep_valid.device
+    logits = torch.where(
+        buf.ep_valid,
+        torch.zeros((), device=device),
+        torch.full((), -float("inf"), device=device),
+    )
+    u = torch.rand((batch_size, logits.shape[0]), generator=generator,
+                   device=device)
+    rows = torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    max_start = torch.clamp_min(buf.ep_len[rows] - context_len, 0)
+    u_start = torch.rand((batch_size,), generator=generator, device=device)
+    starts = torch.floor(u_start * (max_start + 1).to(torch.float32))
+    starts = torch.minimum(starts.to(torch.int32), max_start)
+    return rows, starts
+
+
+def _gather_windows(buf: BufferState, rows, starts, context_len):
+    """Batched context-window gather: one indexing op per storage tensor."""
+    t_idx = starts.to(torch.int64)[:, None] + torch.arange(
+        context_len + 1, device=starts.device
+    )[None, :]
+    rows_b = rows.to(torch.int64)[:, None]
+    obs_slice = buf.obs[rows_b, t_idx]
+    act_slice = buf.action[rows_b, t_idx]
+    rew = buf.reward[rows_b, t_idx[:, :context_len]]
+    don = buf.done[rows_b, t_idx[:, :context_len]]
+    return obs_slice, act_slice, rew, don
+
+
+def sample(
+    buf: BufferState, generator, batch_size: int, context_len: int
+) -> Batch:
+    """Uniform (valid episode, window start) batch (replay_buffer.py:137-168)."""
+    rows, starts = _draw_windows(buf, generator, batch_size, context_len)
+    obs_s, act_s, rew, don = _gather_windows(buf, rows, starts, context_len)
+    return Batch(
+        obs=obs_s[:, :context_len],
+        action=act_s[:, :context_len],
+        reward=rew,
+        next_obs=obs_s[:, 1:],
+        next_action=act_s[:, 1:],
+        done=don,
+        ep_len=torch.clamp(buf.ep_len[rows], 0, context_len),
+    )

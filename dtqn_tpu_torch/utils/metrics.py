@@ -1,0 +1,87 @@
+"""On-device windowed running averages (``dtqn_tpu/utils/metrics.py``).
+
+The reference's ``RunningAverage`` over the last N values, kept as tensors on
+the device so the training loop never syncs to the host for diagnostics.
+Unlike the JAX package, updates happen in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+DIAGNOSTIC_NAMES = (
+    "losses/TD_Error",
+    "losses/Grad_Norm",
+    "losses/Max_Q_Value",
+    "losses/Mean_Q_Value",
+    "losses/Min_Q_Value",
+    "losses/Max_Target_Value",
+    "losses/Mean_Target_Value",
+    "losses/Min_Target_Value",
+)
+
+
+@dataclasses.dataclass
+class RunningAverage:
+    """Ring of the last ``window`` values; each value may be a vector."""
+
+    buf: torch.Tensor  # [window, *value_shape] float32
+    idx: torch.Tensor  # int64 scalar, next write slot
+    count: torch.Tensor  # int64 scalar, total values seen
+
+    @classmethod
+    def create(
+        cls, window: int = 100, value_shape: Tuple[int, ...] = (), device="cpu"
+    ) -> "RunningAverage":
+        return cls(
+            buf=torch.zeros((window, *value_shape), dtype=torch.float32,
+                            device=device),
+            idx=torch.zeros((), dtype=torch.int64, device=device),
+            count=torch.zeros((), dtype=torch.int64, device=device),
+        )
+
+    def add_if(self, pred: torch.Tensor, value: torch.Tensor) -> None:
+        """Write ``value`` at the next slot when ``pred`` (a device bool)."""
+        slot = self.idx.reshape(1)
+        old = self.buf.index_select(0, slot)
+        new = value.to(torch.float32).reshape(old.shape)
+        self.buf.index_copy_(0, slot, torch.where(pred, new, old))
+        self.idx = torch.where(pred, (self.idx + 1) % self.buf.shape[0],
+                               self.idx)
+        self.count = self.count + pred.to(torch.int64)
+
+    def mean(self) -> torch.Tensor:
+        n = torch.clamp_max(self.count, self.buf.shape[0])
+        total = self.buf.sum(dim=0) / torch.clamp_min(n, 1)
+        return torch.where(n > 0, total, torch.zeros_like(total))
+
+
+@dataclasses.dataclass
+class TrainDiagnostics:
+    """The 8 loss/Q diagnostics the reference logs (run.py:303-312).
+
+    One ``RunningAverage`` over 8-vectors, in ``DIAGNOSTIC_NAMES`` order,
+    so an update costs one write instead of eight.
+    """
+
+    averages: RunningAverage
+
+    @classmethod
+    def create(cls, window: int = 100, device="cpu") -> "TrainDiagnostics":
+        return cls(RunningAverage.create(window, (8,), device))
+
+    def update(self, pred, *, td, gnorm, q, targets) -> None:
+        self.averages.add_if(
+            pred,
+            torch.stack([
+                td, gnorm, q.max(), q.mean(), q.min(),
+                targets.max(), targets.mean(), targets.min(),
+            ]),
+        )
+
+    def means(self) -> Dict[str, torch.Tensor]:
+        values = self.averages.mean()
+        return {name: values[i] for i, name in enumerate(DIAGNOSTIC_NAMES)}

@@ -1,0 +1,81 @@
+"""The port stands alone: no module of ``dtqn_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, flax, optax or the JAX package, and entry
+points refuse to fall back to the CPU silently."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dtqn_tpu")
+
+
+def port_sources():
+    root = os.path.join(REPO, "dtqn_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d != "_build"]  # built, git-ignored
+        paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax():
+    paths = port_sources()
+    assert len(paths) > 20
+    offenders = {
+        os.path.relpath(p, REPO): root
+        for p in paths for root in imported_roots(p) if root in FORBIDDEN
+    }
+    assert not offenders
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.envs import make_env
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    env = make_env("DiscreteCarFlag-v0")
+    cfg = AgentConfig(num_envs=2, inner_embed=16, num_heads=2,
+                      context_len=4, history=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Agent(cfg, env)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Agent(cfg, env, device="cuda")
+    assert Agent(cfg, env, device="cpu").device.type == "cpu"
+
+
+def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
+    """A CUDA tensor launches the kernel or raises: with no nvcc the build
+    raises instead of running the plain version."""
+    from dtqn_tpu_torch.ops import cuda_attention
+
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setattr(cuda_attention, "_lib", None)
+    monkeypatch.setattr(cuda_attention.shutil, "which", lambda _: None)
+    monkeypatch.setattr(cuda_attention, "_BUILD_DIR",
+                        cuda_attention._BUILD_DIR / "absent")
+    monkeypatch.setattr(cuda_attention, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(cuda_attention, "plain_attention_fwd",
+                        lambda *a: pytest.fail("plain path taken"))
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 0)
+
+    q = torch.zeros(1, 4, 8).as_subclass(FakeCuda)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_attention.attention_fwd(q, q, q, 2, True)
