@@ -5,10 +5,12 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the attention kernels from dtqn_tpu_torch/csrc with nvcc;
+  2. build the attention kernels from dtqn_tpu_torch/csrc with nvcc and
+     print each instance's registers and spills (-Xptxas -v);
   3. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at unaligned and cross-attention shapes
-     (float32, TF32 off; atol 2e-5 forward, 5e-5 gradients);
+     main path's shapes and at the edges of every kernel instance
+     (PARITY_CASES; float32, TF32 off; atol 2e-5 forward, 5e-5
+     gradients), and check that two backward launches are bit-equal;
   4. drive the main path through the port's entry points at the flagless
      bench.py configuration (DiscreteCarFlag-v0, DTQN in_embed 64, 8 heads,
      2 layers, context 50, batch 32, 64 envs, buffer 500k, target update
@@ -74,34 +76,59 @@ def rand(gen, *shape):
 
 
 # ------------------------------------------------------------------ parity
+# (B, Lq, Lk, heads, causal, E): the main path's act and update shapes;
+# unaligned and cross-attention shapes; Lk at the keys-per-lane edges
+# (1, 32, 33, 64, 65); B = 1; causal L = 1; head widths 16, 32 and 64; and
+# head widths 4 and 12, which the kernels pad and load a float at a time.
+# Between them they reach every kernel instance.
+PARITY_CASES = [
+    (64, 50, 50, 8, True, 64), (32, 50, 50, 8, True, 64),
+    (4, 7, 3, 8, False, 64), (4, 1, 50, 8, False, 64),
+    (4, 50, 10, 8, False, 64),
+    (4, 50, 1, 8, False, 64), (4, 50, 32, 8, False, 64),
+    (4, 50, 33, 8, False, 64), (4, 50, 64, 8, False, 64),
+    (4, 50, 65, 8, False, 64), (2, 64, 64, 8, True, 64),
+    (2, 65, 65, 8, True, 64),
+    (1, 50, 50, 8, True, 64), (4, 1, 1, 8, True, 64),
+    (2, 20, 20, 4, False, 64), (3, 50, 50, 4, True, 64),
+    (2, 100, 100, 2, True, 64), (2, 50, 50, 1, True, 64),
+    (2, 7, 65, 1, False, 64),
+    (2, 30, 30, 16, True, 64), (2, 40, 40, 4, True, 48),
+]
+
+
 def parity(ca):
-    """Each kernel against its plain version on the same card inputs."""
+    """Each kernel against its plain version on the same card inputs, and
+    two backward launches against each other (bit-equal)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"attention_fwd": 0.0, "attention_bwd": 0.0}
-    # (B, Lq, Lk, heads, causal) at E = 64: the main path's act and update
-    # shapes, unaligned and cross-attention shapes, head_dim 16, and
-    # head_dim 32 at L = 100, where both kernels need more than 48 KB of
-    # shared memory.
-    cases = [(64, 50, 50, 8, True), (32, 50, 50, 8, True),
-             (4, 7, 3, 8, False), (4, 1, 50, 8, False), (4, 50, 10, 8, False),
-             (3, 50, 50, 4, True), (2, 100, 100, 2, True)]
-    for b, lq, lk, h, causal in cases:
-        q, dout = rand(gen, b, lq, 64), rand(gen, b, lq, 64)
-        k, v = rand(gen, b, lk, 64), rand(gen, b, lk, 64)
+    covered = set()
+    for b, lq, lk, h, causal, e in PARITY_CASES:
+        for kind in errs:
+            cfg = ca.launch_config(kind, lq, lk, e // h)
+            covered.add((cfg.head_dim_pad, cfg.keys_per_lane))
+        q, dout = rand(gen, b, lq, e), rand(gen, b, lq, e)
+        k, v = rand(gen, b, lk, e), rand(gen, b, lk, e)
         out = ca.attention_fwd(q, k, v, h, causal)
         ref = ca.plain_attention_fwd(q, k, v, h, causal)
         grads = ca.attention_bwd(q, k, v, dout, h, causal)
+        again = ca.attention_bwd(q, k, v, dout, h, causal)
         ref_grads = ca.plain_attention_bwd(q, k, v, dout, h, causal)
         torch.cuda.synchronize()
         e_fwd = (out - ref).abs().max().item()
         e_bwd = max((a - r).abs().max().item()
                     for a, r in zip(grads, ref_grads))
-        log(f"parity B={b} Lq={lq} Lk={lk} H={h} causal={causal}: "
-            f"fwd {e_fwd:.3e} bwd {e_bwd:.3e}")
+        log(f"parity B={b} Lq={lq} Lk={lk} H={h} D={e // h} "
+            f"causal={causal}: fwd {e_fwd:.3e} bwd {e_bwd:.3e}")
         check(e_fwd <= FWD_ATOL, f"attention_fwd disagrees: {e_fwd}")
         check(e_bwd <= GRAD_ATOL, f"attention_bwd disagrees: {e_bwd}")
+        check(all(torch.equal(a, r) for a, r in zip(grads, again)),
+              "two attention_bwd launches on the same inputs differ")
         errs["attention_fwd"] = max(errs["attention_fwd"], e_fwd)
         errs["attention_bwd"] = max(errs["attention_bwd"], e_bwd)
+    check(covered == set(ca.INSTANCES),
+          f"parity reaches instances {sorted(covered)}, not all of "
+          f"{sorted(ca.INSTANCES)}")
     # The act path and the DDQN selector take the first maximum, as
     # jnp.argmax does.
     ties = torch.tensor([[1.0, 3.0, 3.0], [2.0, 2.0, 2.0]], device="cuda")
@@ -221,11 +248,17 @@ def profile_iteration(state, train_iter, updates=64, top=12):
     device_us = sum(us for _, us in by_name.values())
     launches = sum(n for n, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    attention = {}
+    for kind in ("attention_fwd", "attention_bwd"):
+        hits = [nu for name, nu in by_name.items() if f"{kind}_kernel" in name]
+        attention[kind] = {"count": sum(n for n, _ in hits),
+                           "device_us": sum(us for _, us in hits)}
     result = {
         "profiled_wall_us": wall_us,
         "device_busy_us": device_us,
         "device_busy_share": device_us / wall_us,
         "device_ops_per_update": launches / updates,
+        "attention_kernels": attention,
         "top_kernels": [
             {"name": name[:80], "count": n, "device_us": us}
             for name, (n, us) in ranked
@@ -341,6 +374,11 @@ def run(seed):
     t0 = time.perf_counter()
     ca.build(verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    usage = ca.ptxas_usage()
+    for u in usage:
+        log(f"ptxas: {json.dumps(u)}")
+    check(len(usage) == 2 * len(ca.INSTANCES),
+          f"ptxas reported {len(usage)} kernels")
     errs = parity(ca)
     main, state, train_iter = main_path(seed, ca)
     t_main = timings(ca, 32)  # each update's batch
@@ -365,7 +403,7 @@ def run(seed):
         })
     prof = profile_iteration(state, train_iter)
     print(json.dumps({"main_path": main, "timings_b64": t_act,
-                      "profile": prof}), flush=True)
+                      "profile": prof, "ptxas": usage}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

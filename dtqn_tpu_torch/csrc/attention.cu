@@ -11,215 +11,506 @@
 //   dV = P^T dO, dP = dO V^T, dS = P * (dP - rowsum(dP * P)), masked and
 //   scaled, dQ = dS K, dK = dS^T Q.
 //
-// Design: one block per (batch element, head).  The head's [L, D] slices of
-// Q, K, V (and dO) are copied from the packed layout into shared memory, and
-// the [Lq, Lk] score matrix stays there too, so scores never reach device
-// memory.  Every block owns its slices of O, dQ, dK and dV, so there are no
-// atomics and no second pass.  Sums run in float32 with FMA on the CUDA
-// cores: at DTQN's shapes (L = 50, D = 8) a call moves a few MB and does a
-// few tens of MFLOP, so it is bound by launch latency and memory, not by the
-// tensor cores.  wgmma, TMA and tiling are left for later work.
+// What bounds it on an H100: at DTQN's shapes (B = 32..64, L = 50, H = 8,
+// D = 8) a call reads and writes 1-2 MB, well under a microsecond at
+// 3.35 TB/s, and does a few MFLOP.  The time goes to the launch and to the
+// latency of each warp's dependent chain (load, dot, shuffle, exp), so the
+// design keeps that chain short and keeps many warps in flight.  Above
+// these shapes (long rows, wide heads) the bytes of K and V re-read per
+// query row through L1 become the bound.
+//
+// Design: keys on lanes.  A warp takes query rows of one (batch, head);
+// lane t owns keys j = t, t + 32, ...  A row's scores live in the lanes'
+// registers: the row max, the row sum and rowsum(dP * P) are warp shuffles,
+// and P V (or dS K) is a per-lane partial of the D columns that a butterfly
+// reduce-scatter leaves one column to a lane.  No score matrix exists
+// anywhere.  Causally masked keys (j > i) are skipped, which is exact:
+// exp(-1e30 - m) is 0 in float32, and key 0 is always live.
+//   - Register instances (KPL = 1, 2 keys per lane, KPL * D <= 16): each
+//     lane holds its keys' K and V rows (and, backward, its dK and dV sums)
+//     in registers for the whole block, loaded once with 16-byte loads.
+//     Forward: one block per (batch, head, tile of query rows), a few rows
+//     per warp, no shared memory and no barrier.  Backward: one block per
+//     (batch, head), the warps share its query rows, and the warps' dK / dV
+//     partials are summed through shared memory in warp order after the one
+//     barrier, so two launches give bit-equal gradients (no atomics).
+//   - Streamed instances (KPL = 0, any Lk, D up to 64): a lane re-reads its
+//     keys' rows through L1 for each query row, 32 keys at a time, and the
+//     row takes two passes (max, then exp / sum / P V); the backward takes
+//     four for dQ, keeps each row's max, sum and rowsum(dP * P) in shared
+//     memory, and after the one barrier gives each thread a key whose dK and
+//     dV it sums over the rows in order.
+// No tensor cores and no TMA: TF32 mma / wgmma keeps about three digits,
+// which breaks float32 parity with the plain version, and at D = 8 a
+// 64-row wgmma tile would be mostly padding; a TMA box needs a tensor map
+// encoded on the host for every call, on a path the host already bounds.
 //
 // Plain C interface (built with nvcc into a shared library and loaded with
-// ctypes).  Each entry point launches on the given stream and returns
+// ctypes).  The caller works out the launch configuration (instance, warps,
+// rows per block, shared bytes; ops/cuda_attention.py `launch_config`).
+// Each entry point launches on the given stream and returns
 // cudaGetLastError() as an int; the caller raises when it is not 0.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+// The (head width, keys per lane) instances; KPL 0 is the streamed form.
+// ops/cuda_attention.py INSTANCES lists the same pairs.
+#define DTQN_INSTANCES(X) \
+  X(8, 1) X(8, 2) X(16, 1) X(8, 0) X(16, 0) X(32, 0) X(64, 0)
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr float kMaskValue = -1e30f;
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Dims {
+  int lq, lk, heads, d, causal, rows_per_block, vec;
+  float scale;
+};
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int off = 16; off > 0; off >>= 1) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
   }
   return x;
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(0xffffffffu, x, off);
+    x += __shfl_xor_sync(kFull, x, off);
   }
   return x;
 }
 
-// Copies one head's [rows, d] slice out of a packed [rows, e] matrix.
-__device__ void load_head(const float* __restrict__ src, float* dst, int rows,
-                          int e, int d, int col0) {
-  for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
-    const int r = idx / d;
-    const int c = idx - r * d;
-    dst[idx] = src[(size_t)r * e + col0 + c];
+// One head's row of DP floats (the first d real, the rest 0).  `vec` holds
+// when d == DP and every base pointer is 16-byte aligned.
+template <int DP>
+__device__ __forceinline__ void load_row(const float* __restrict__ src, int d,
+                                         bool vec, float (&r)[DP]) {
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < DP; c += 4) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(src + c));
+      r[c] = x.x;
+      r[c + 1] = x.y;
+      r[c + 2] = x.z;
+      r[c + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < DP; ++c) r[c] = c < d ? __ldg(src + c) : 0.f;
   }
 }
 
-// p <- softmax(mask(qs ks^T * scale)) row by row, as `_softmax_scores`.
-// Ends with a block barrier.
-__device__ void softmax_probs(const float* qs, const float* ks, float* p,
-                              int lq, int lk, int d, bool causal,
-                              float scale) {
-  for (int idx = threadIdx.x; idx < lq * lk; idx += blockDim.x) {
-    const int i = idx / lk;
-    const int j = idx - i * lk;
-    float acc = 0.f;
-    for (int c = 0; c < d; ++c) acc = fmaf(qs[i * d + c], ks[j * d + c], acc);
-    acc *= scale;
-    p[idx] = (!causal || j <= i) ? acc : kMaskValue;
+template <int DP>
+__device__ __forceinline__ float dot(const float (&a)[DP],
+                                     const float (&b)[DP]) {
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < DP; ++c) acc = fmaf(a[c], b[c], acc);
+  return acc;
+}
+
+// Butterfly reduce-scatter of v[0..N) over the lanes at xor offsets O, O/2,
+// ..., 1: each step hands half of the live values to the partner lane.
+// Afterwards v[0..max(DP/32, 1)) hold full warp sums of columns col0, col0+1,
+// ... (the return value); for DP < 32, 32/DP neighbouring lanes hold the
+// same column.  The order is fixed, so results repeat bit for bit.
+template <int N, int O, int DP>
+__device__ __forceinline__ int reduce_scatter(float (&v)[DP], int lane) {
+  if constexpr (O == 0) {
+    return 0;
+  } else if constexpr (N == 1) {
+    v[0] += __shfl_xor_sync(kFull, v[0], O);
+    return reduce_scatter<1, O / 2>(v, lane);
+  } else {
+    constexpr int H = N / 2;
+    const bool upper = (lane & O) != 0;
+#pragma unroll
+    for (int c = 0; c < H; ++c) {
+      const float send = upper ? v[c] : v[c + H];
+      const float keep = upper ? v[c + H] : v[c];
+      v[c] = keep + __shfl_xor_sync(kFull, send, O);
+    }
+    return (upper ? H : 0) + reduce_scatter<H, O / 2>(v, lane);
   }
-  __syncthreads();
+}
+
+// Sums acc over the warp and writes the row's d columns, divided by `norm`.
+template <int DP>
+__device__ __forceinline__ void write_row(float (&acc)[DP], int lane,
+                                          float* __restrict__ dst, int d,
+                                          float norm) {
+  constexpr int kCols = DP >= 32 ? DP / 32 : 1;
+  constexpr int kSpan = DP >= 32 ? 1 : 32 / DP;
+  const int col0 = reduce_scatter<DP, 16>(acc, lane);
+  if ((lane & (kSpan - 1)) == 0) {
+#pragma unroll
+    for (int x = 0; x < kCols; ++x) {
+      if (col0 + x < d) dst[col0 + x] = acc[x] / norm;
+    }
+  }
+}
+
+template <int DP, int KPL>
+__global__ void __launch_bounds__(128)
+attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     Dims s) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  for (int i = warp; i < lq; i += warps) {
-    float* row = p + (size_t)i * lk;
-    float m = -INFINITY;
-    for (int j = lane; j < lk; j += 32) m = fmaxf(m, row[j]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int j = lane; j < lk; j += 32) {
-      const float x = expf(row[j] - m);
-      row[j] = x;
-      s += x;
+  const int b = blockIdx.x / s.heads;
+  const int h = blockIdx.x - b * s.heads;
+  const int e = s.heads * s.d;
+  const int row0 = blockIdx.y * s.rows_per_block;
+  const int row_end = min(s.lq, row0 + s.rows_per_block);
+  const size_t q_base = (size_t)b * s.lq * e + (size_t)h * s.d;
+  const float* kh = k + (size_t)b * s.lk * e + (size_t)h * s.d;
+  const float* vh = v + (size_t)b * s.lk * e + (size_t)h * s.d;
+  const bool vec = s.vec != 0;
+
+  constexpr int kSlots = KPL > 0 ? KPL : 1;
+  float kr[kSlots][DP];
+  float vr[kSlots][DP];
+  if constexpr (KPL > 0) {
+    // Keys that some row of this block sees.
+    const int nk = s.causal ? min(s.lk, row_end) : s.lk;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      const int j = lane + 32 * m;
+      if (j < nk) {
+        load_row(kh + (size_t)j * e, s.d, vec, kr[m]);
+        load_row(vh + (size_t)j * e, s.d, vec, vr[m]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < DP; ++c) kr[m][c] = vr[m][c] = 0.f;
+      }
     }
-    s = warp_sum(s);
-    for (int j = lane; j < lk; j += 32) row[j] = row[j] / s;
   }
-  __syncthreads();
+
+  for (int i = row0 + warp; i < row_end; i += warps) {
+    float qr[DP];
+    load_row(q + q_base + (size_t)i * e, s.d, vec, qr);
+    const int live = s.causal ? min(s.lk, i + 1) : s.lk;  // keys [0, live)
+    float acc[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+    float mx = -INFINITY;
+    float sum = 0.f;
+    float norm;
+    if constexpr (KPL > 0) {
+      float p[KPL];
+#pragma unroll
+      for (int m = 0; m < KPL; ++m) {
+        p[m] = -INFINITY;
+        if (lane + 32 * m < live) p[m] = dot(qr, kr[m]) * s.scale;
+        mx = fmaxf(mx, p[m]);
+      }
+      mx = warp_max(mx);
+#pragma unroll
+      for (int m = 0; m < KPL; ++m) {
+        p[m] = lane + 32 * m < live ? expf(p[m] - mx) : 0.f;
+        sum += p[m];
+      }
+      sum = warp_sum(sum);
+#pragma unroll
+      for (int m = 0; m < KPL; ++m) {
+        if (lane + 32 * m < live) {
+          const float pm = p[m] / sum;
+#pragma unroll
+          for (int c = 0; c < DP; ++c) acc[c] = fmaf(pm, vr[m][c], acc[c]);
+        }
+      }
+      norm = 1.f;
+    } else {
+      for (int j = lane; j < live; j += 32) {
+        float kk[DP];
+        load_row(kh + (size_t)j * e, s.d, vec, kk);
+        mx = fmaxf(mx, dot(qr, kk) * s.scale);
+      }
+      mx = warp_max(mx);
+      for (int j = lane; j < live; j += 32) {
+        float kk[DP], vv[DP];
+        load_row(kh + (size_t)j * e, s.d, vec, kk);
+        load_row(vh + (size_t)j * e, s.d, vec, vv);
+        const float x = expf(dot(qr, kk) * s.scale - mx);
+        sum += x;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) acc[c] = fmaf(x, vv[c], acc[c]);
+      }
+      norm = warp_sum(sum);
+    }
+    write_row(acc, lane, o + q_base + (size_t)i * e, s.d, norm);
+  }
 }
 
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     int lq, int lk, int heads, int d, int causal,
-                     float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x - b * heads;
-  const int e = heads * d;
-  float* qs = smem;
-  float* ks = qs + lq * d;
-  float* vs = ks + lk * d;
-  float* p = vs + lk * d;
+// Backward with each lane's keys (K, V, dK, dV) in registers.  Shared
+// memory: the warps' dK and dV partials, [2][warps][Lk][DP].
+template <int DP, int KPL>
+__device__ __forceinline__ void bwd_registers(
+    const float* __restrict__ qh, const float* __restrict__ kh,
+    const float* __restrict__ vh, const float* __restrict__ doh,
+    float* __restrict__ dqh, float* __restrict__ dkh, float* __restrict__ dvh,
+    const Dims& s, int e, float* smem) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const bool vec = s.vec != 0;
+  float kr[KPL][DP], vr[KPL][DP];
+  float dkr[KPL][DP] = {};
+  float dvr[KPL][DP] = {};
+#pragma unroll
+  for (int m = 0; m < KPL; ++m) {
+    const int j = lane + 32 * m;
+    if (j < s.lk) {
+      load_row(kh + (size_t)j * e, s.d, vec, kr[m]);
+      load_row(vh + (size_t)j * e, s.d, vec, vr[m]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < DP; ++c) kr[m][c] = vr[m][c] = 0.f;
+    }
+  }
 
-  load_head(q + (size_t)b * lq * e, qs, lq, e, d, h * d);
-  load_head(k + (size_t)b * lk * e, ks, lk, e, d, h * d);
-  load_head(v + (size_t)b * lk * e, vs, lk, e, d, h * d);
+  for (int i = warp; i < s.lq; i += warps) {
+    float qr[DP], gr[DP];
+    load_row(qh + (size_t)i * e, s.d, vec, qr);
+    load_row(doh + (size_t)i * e, s.d, vec, gr);
+    const int live = s.causal ? min(s.lk, i + 1) : s.lk;
+    float p[KPL], ds[KPL];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      p[m] = -INFINITY;
+      if (lane + 32 * m < live) p[m] = dot(qr, kr[m]) * s.scale;
+      mx = fmaxf(mx, p[m]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      p[m] = lane + 32 * m < live ? expf(p[m] - mx) : 0.f;
+      sum += p[m];
+    }
+    sum = warp_sum(sum);
+    float rd = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      ds[m] = 0.f;
+      if (lane + 32 * m < live) {
+        p[m] = p[m] / sum;
+        ds[m] = dot(gr, vr[m]);  // dP
+        rd += p[m] * ds[m];
+      }
+    }
+    rd = warp_sum(rd);
+    float acc[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      if (lane + 32 * m < live) {
+        ds[m] = p[m] * (ds[m] - rd) * s.scale;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) {
+          acc[c] = fmaf(ds[m], kr[m][c], acc[c]);
+          dkr[m][c] = fmaf(ds[m], qr[c], dkr[m][c]);
+          dvr[m][c] = fmaf(p[m], gr[c], dvr[m][c]);
+        }
+      }
+    }
+    write_row(acc, lane, dqh + (size_t)i * e, s.d, 1.f);
+  }
+
+  float* part_k = smem;
+  float* part_v = smem + (size_t)warps * s.lk * DP;
+#pragma unroll
+  for (int m = 0; m < KPL; ++m) {
+    const int j = lane + 32 * m;
+    if (j < s.lk) {
+      const size_t at = ((size_t)warp * s.lk + j) * DP;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        part_k[at + c] = dkr[m][c];
+        part_v[at + c] = dvr[m][c];
+      }
+    }
+  }
   __syncthreads();
-  softmax_probs(qs, ks, p, lq, lk, d, causal != 0, scale);
-
-  float* out = o + (size_t)b * lq * e + h * d;
-  for (int idx = threadIdx.x; idx < lq * d; idx += blockDim.x) {
-    const int i = idx / d;
-    const int c = idx - i * d;
-    const float* prow = p + (size_t)i * lk;
-    float acc = 0.f;
-    for (int j = 0; j < lk; ++j) acc = fmaf(prow[j], vs[j * d + c], acc);
-    out[(size_t)i * e + c] = acc;
+  for (int idx = threadIdx.x; idx < s.lk * s.d; idx += blockDim.x) {
+    const int j = idx / s.d;
+    const int c = idx - j * s.d;
+    float sk = 0.f, sv = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      const size_t at = ((size_t)w * s.lk + j) * DP + c;
+      sk += part_k[at];
+      sv += part_v[at];
+    }
+    dkh[(size_t)j * e + c] = sk;
+    dvh[(size_t)j * e + c] = sv;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Backward for any Lk.  Shared memory: each row's max, sum and
+// rowsum(dP * P), [3][Lq].
+template <int DP>
+__device__ __forceinline__ void bwd_streamed(
+    const float* __restrict__ qh, const float* __restrict__ kh,
+    const float* __restrict__ vh, const float* __restrict__ doh,
+    float* __restrict__ dqh, float* __restrict__ dkh, float* __restrict__ dvh,
+    const Dims& s, int e, float* smem) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const bool vec = s.vec != 0;
+  float* row_max = smem;
+  float* row_sum = smem + s.lq;
+  float* row_dot = smem + 2 * s.lq;
+
+  // dQ, rows on warps, keys on lanes.
+  for (int i = warp; i < s.lq; i += warps) {
+    float qr[DP], gr[DP];
+    load_row(qh + (size_t)i * e, s.d, vec, qr);
+    load_row(doh + (size_t)i * e, s.d, vec, gr);
+    const int live = s.causal ? min(s.lk, i + 1) : s.lk;
+    float mx = -INFINITY;
+    for (int j = lane; j < live; j += 32) {
+      float kk[DP];
+      load_row(kh + (size_t)j * e, s.d, vec, kk);
+      mx = fmaxf(mx, dot(qr, kk) * s.scale);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < live; j += 32) {
+      float kk[DP];
+      load_row(kh + (size_t)j * e, s.d, vec, kk);
+      sum += expf(dot(qr, kk) * s.scale - mx);
+    }
+    sum = warp_sum(sum);
+    float rd = 0.f;
+    for (int j = lane; j < live; j += 32) {
+      float kk[DP], vv[DP];
+      load_row(kh + (size_t)j * e, s.d, vec, kk);
+      load_row(vh + (size_t)j * e, s.d, vec, vv);
+      const float p = expf(dot(qr, kk) * s.scale - mx) / sum;
+      rd += p * dot(gr, vv);
+    }
+    rd = warp_sum(rd);
+    float acc[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+    for (int j = lane; j < live; j += 32) {
+      float kk[DP], vv[DP];
+      load_row(kh + (size_t)j * e, s.d, vec, kk);
+      load_row(vh + (size_t)j * e, s.d, vec, vv);
+      const float p = expf(dot(qr, kk) * s.scale - mx) / sum;
+      const float ds = p * (dot(gr, vv) - rd) * s.scale;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) acc[c] = fmaf(ds, kk[c], acc[c]);
+    }
+    write_row(acc, lane, dqh + (size_t)i * e, s.d, 1.f);
+    if (lane == 0) {
+      row_max[i] = mx;
+      row_sum[i] = sum;
+      row_dot[i] = rd;
+    }
+  }
+  __syncthreads();
+
+  // dK and dV, one key per thread, summed over the rows in order.
+  for (int j = threadIdx.x; j < s.lk; j += blockDim.x) {
+    float kk[DP], vv[DP];
+    load_row(kh + (size_t)j * e, s.d, vec, kk);
+    load_row(vh + (size_t)j * e, s.d, vec, vv);
+    float dka[DP], dva[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) dka[c] = dva[c] = 0.f;
+    for (int i = s.causal ? j : 0; i < s.lq; ++i) {
+      float qr[DP], gr[DP];
+      load_row(qh + (size_t)i * e, s.d, vec, qr);
+      load_row(doh + (size_t)i * e, s.d, vec, gr);
+      const float p = expf(dot(qr, kk) * s.scale - row_max[i]) / row_sum[i];
+      const float ds = p * (dot(gr, vv) - row_dot[i]) * s.scale;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        dka[c] = fmaf(ds, qr[c], dka[c]);
+        dva[c] = fmaf(p, gr[c], dva[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < DP; ++c) {
+      if (c < s.d) {
+        dkh[(size_t)j * e + c] = dka[c];
+        dvh[(size_t)j * e + c] = dva[c];
+      }
+    }
+  }
+}
+
+template <int DP, int KPL>
+__global__ void __launch_bounds__(256)
 attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout, float* __restrict__ dq,
-                     float* __restrict__ dk, float* __restrict__ dv, int lq,
-                     int lk, int heads, int d, int causal, float scale) {
+                     float* __restrict__ dk, float* __restrict__ dv, Dims s) {
   extern __shared__ float smem[];
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x - b * heads;
-  const int e = heads * d;
-  float* qs = smem;
-  float* ks = qs + lq * d;
-  float* vs = ks + lk * d;
-  float* dos = vs + lk * d;
-  float* p = dos + lq * d;
-  float* ds = p + lq * lk;
-  float* rowdot = ds + lq * lk;
-
-  load_head(q + (size_t)b * lq * e, qs, lq, e, d, h * d);
-  load_head(k + (size_t)b * lk * e, ks, lk, e, d, h * d);
-  load_head(v + (size_t)b * lk * e, vs, lk, e, d, h * d);
-  load_head(dout + (size_t)b * lq * e, dos, lq, e, d, h * d);
-  __syncthreads();
-  softmax_probs(qs, ks, p, lq, lk, d, causal != 0, scale);
-
-  // dP = dO V^T
-  for (int idx = threadIdx.x; idx < lq * lk; idx += blockDim.x) {
-    const int i = idx / lk;
-    const int j = idx - i * lk;
-    float acc = 0.f;
-    for (int c = 0; c < d; ++c) acc = fmaf(dos[i * d + c], vs[j * d + c], acc);
-    ds[idx] = acc;
-  }
-  __syncthreads();
-
-  // rowsum(dP * P)
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  for (int i = warp; i < lq; i += warps) {
-    float s = 0.f;
-    for (int j = lane; j < lk; j += 32) s += ds[i * lk + j] * p[i * lk + j];
-    s = warp_sum(s);
-    if (lane == 0) rowdot[i] = s;
-  }
-  __syncthreads();
-
-  // dS = P * (dP - rowsum), masked, times scale
-  for (int idx = threadIdx.x; idx < lq * lk; idx += blockDim.x) {
-    const int i = idx / lk;
-    const int j = idx - i * lk;
-    const float x = p[idx] * (ds[idx] - rowdot[i]);
-    ds[idx] = (!causal || j <= i) ? x * scale : 0.f;
-  }
-  __syncthreads();
-
-  // dV = P^T dO and dK = dS^T Q, one (key row, column) per thread step
-  const size_t kv_off = (size_t)b * lk * e + h * d;
-  for (int idx = threadIdx.x; idx < lk * d; idx += blockDim.x) {
-    const int j = idx / d;
-    const int c = idx - j * d;
-    float acc_v = 0.f;
-    float acc_k = 0.f;
-    for (int i = 0; i < lq; ++i) {
-      acc_v = fmaf(p[i * lk + j], dos[i * d + c], acc_v);
-      acc_k = fmaf(ds[i * lk + j], qs[i * d + c], acc_k);
-    }
-    dv[kv_off + (size_t)j * e + c] = acc_v;
-    dk[kv_off + (size_t)j * e + c] = acc_k;
-  }
-
-  // dQ = dS K
-  const size_t q_off = (size_t)b * lq * e + h * d;
-  for (int idx = threadIdx.x; idx < lq * d; idx += blockDim.x) {
-    const int i = idx / d;
-    const int c = idx - i * d;
-    float acc = 0.f;
-    for (int j = 0; j < lk; ++j) acc = fmaf(ds[i * lk + j], ks[j * d + c], acc);
-    dq[q_off + (size_t)i * e + c] = acc;
+  const int b = blockIdx.x / s.heads;
+  const int h = blockIdx.x - b * s.heads;
+  const int e = s.heads * s.d;
+  const size_t q_off = (size_t)b * s.lq * e + (size_t)h * s.d;
+  const size_t kv_off = (size_t)b * s.lk * e + (size_t)h * s.d;
+  if constexpr (KPL > 0) {
+    bwd_registers<DP, KPL>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
+                           dq + q_off, dk + kv_off, dv + kv_off, s, e, smem);
+  } else {
+    bwd_streamed<DP>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
+                     dq + q_off, dk + kv_off, dv + kv_off, s, e, smem);
   }
 }
 
-size_t fwd_smem_bytes(int lq, int lk, int d) {
-  return sizeof(float) * ((size_t)(lq + 2 * lk) * d + (size_t)lq * lk);
+using FwdKernel = void (*)(const float*, const float*, const float*, float*,
+                           Dims);
+using BwdKernel = void (*)(const float*, const float*, const float*,
+                           const float*, float*, float*, float*, Dims);
+
+FwdKernel fwd_instance(int dp, int kpl) {
+#define DTQN_PICK(D, K) \
+  if (dp == D && kpl == K) return attention_fwd_kernel<D, K>;
+  DTQN_INSTANCES(DTQN_PICK)
+#undef DTQN_PICK
+  return nullptr;
 }
 
-size_t bwd_smem_bytes(int lq, int lk, int d) {
-  return sizeof(float) *
-         ((size_t)(2 * lq + 2 * lk) * d + 2 * (size_t)lq * lk + lq);
+BwdKernel bwd_instance(int dp, int kpl) {
+#define DTQN_PICK(D, K) \
+  if (dp == D && kpl == K) return attention_bwd_kernel<D, K>;
+  DTQN_INSTANCES(DTQN_PICK)
+#undef DTQN_PICK
+  return nullptr;
 }
 
 // Above 48 KB a block's dynamic shared memory has to be opted into.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+Dims make_dims(int lq, int lk, int heads, int head_dim, int causal,
+               float scale, int dp, int rows_per_block, uintptr_t ptr_bits) {
+  Dims s;
+  s.lq = lq;
+  s.lk = lk;
+  s.heads = heads;
+  s.d = head_dim;
+  s.causal = causal;
+  s.rows_per_block = rows_per_block;
+  s.vec = head_dim == dp && (ptr_bits & 15u) == 0;
+  s.scale = scale;
+  return s;
 }
 
 }  // namespace
@@ -228,29 +519,40 @@ extern "C" {
 
 int dtqn_attention_fwd(const void* q, const void* k, const void* v, void* o,
                        int batch, int lq, int lk, int heads, int head_dim,
-                       int causal, float scale, void* stream) {
-  const size_t smem = fwd_smem_bytes(lq, lk, head_dim);
-  cudaError_t err = allow_smem(attention_fwd_kernel, smem);
+                       int causal, float scale, int dp, int kpl, int warps,
+                       int rows_per_block, int smem_bytes, void* stream) {
+  const FwdKernel kernel = fwd_instance(dp, kpl);
+  if (kernel == nullptr || rows_per_block < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  attention_fwd_kernel<<<batch * heads, kThreads, smem,
-                         (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, lq, lk,
-      heads, head_dim, causal, scale);
+  const Dims s = make_dims(
+      lq, lk, heads, head_dim, causal, scale, dp, rows_per_block,
+      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v);
+  const dim3 grid(batch * heads, (lq + rows_per_block - 1) / rows_per_block);
+  kernel<<<grid, warps * 32, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, s);
   return (int)cudaGetLastError();
 }
 
 int dtqn_attention_bwd(const void* q, const void* k, const void* v,
                        const void* dout, void* dq, void* dk, void* dv,
                        int batch, int lq, int lk, int heads, int head_dim,
-                       int causal, float scale, void* stream) {
-  const size_t smem = bwd_smem_bytes(lq, lk, head_dim);
-  cudaError_t err = allow_smem(attention_bwd_kernel, smem);
+                       int causal, float scale, int dp, int kpl, int warps,
+                       int rows_per_block, int smem_bytes, void* stream) {
+  const BwdKernel kernel = bwd_instance(dp, kpl);
+  if (kernel == nullptr || rows_per_block != lq) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = allow_smem(kernel, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  attention_bwd_kernel<<<batch * heads, kThreads, smem,
-                         (cudaStream_t)stream>>>(
+  const Dims s = make_dims(
+      lq, lk, heads, head_dim, causal, scale, dp, rows_per_block,
+      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout);
+  kernel<<<batch * heads, warps * 32, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (float*)dq, (float*)dk, (float*)dv, lq, lk, heads, head_dim, causal,
-      scale);
+      (float*)dq, (float*)dk, (float*)dv, s);
   return (int)cudaGetLastError();
 }
 

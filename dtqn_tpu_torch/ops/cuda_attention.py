@@ -10,13 +10,20 @@ with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 with a plain C interface at first use, under ``dtqn_tpu_torch/_build/``
 keyed by a hash of the source and the flags, and loaded with ctypes.
 
-What bounds them on an H100: at the main path's shapes (B = 64, L = 50,
-E = 64, float32) q, k, v and o come to about 3.3 MB, about 1 us at
-3.35 TB/s, and the work is about 41 MFLOP, under 1 us at the 67 TFLOP/s of
-float32 outside the tensor cores.  So a call is bound by launch latency and
-memory, not by the tensor cores.  The design keeps each head's score matrix
-in shared memory (one block per batch element and head), so the only device
-traffic is the packed inputs read once and the outputs written once.
+What bounds them on an H100: at the main path's shapes (B = 32..64,
+L = 50, E = 64, float32) a call moves 1-2 MB, under a microsecond at
+3.35 TB/s, and does a few MFLOP, so the time goes to the launch and to the
+latency of each warp's dependent chain; above those shapes (long rows, wide
+heads) the bytes of K and V re-read per query row become the bound.  The
+design puts keys on lanes: a warp takes query rows of one (batch, head),
+each lane holds its keys' scores in registers, the softmax sums are warp
+shuffles and no score matrix exists anywhere.  ``launch_config`` picks the
+instance (head width padded to 8, 16, 32 or 64; keys per lane 1 or 2 with
+K and V in registers, or 0 for the streamed form that takes any Lk), the
+warps, the query rows per block and the shared memory, and the C entry
+point launches that instance.  No tensor cores (TF32 keeps about three
+digits, and at D = 8 a wgmma tile is mostly padding) and no TMA (a tensor
+map would be encoded on the host for every call).
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version, which
 repeats the kernels' math (``plain_attention_fwd`` / ``plain_attention_bwd``);
@@ -26,19 +33,30 @@ a CUDA tensor launches the kernel or raises.  There is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 MASK_VALUE = -1e30  # pallas_attention.py:55
 MAX_HEAD_DIM = 64
 MAX_SMEM_BYTES = 232_448  # what one block may use on sm_90 (227 KB)
+
+# (head width, keys per lane) pairs built in csrc/attention.cu
+# (DTQN_INSTANCES); keys per lane 0 is the streamed form, which takes any Lk.
+INSTANCES = ((8, 1), (8, 2), (16, 1), (8, 0), (16, 0), (32, 0), (64, 0))
+# A lane holds its keys' K and V rows (and, backward, their dK and dV sums)
+# in registers when keys per lane times the head width is at most this.
+REGISTER_KEY_FLOATS = 16
+FWD_WARPS, FWD_ROWS_PER_WARP = 4, 2
+BWD_MAX_WARPS, BWD_ROWS_PER_WARP = 8, 4
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "attention.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -133,7 +151,7 @@ def check_shapes(q, k, v, num_heads: int, causal: bool) -> Tuple[int, ...]:
     return b, lq, lk, num_heads, e // num_heads
 
 
-def _check_cuda(tensors, b, lq, lk, d, smem_bytes):
+def _check_cuda(tensors, b, lq, lk):
     device = tensors[0].device
     for t in tensors:
         if t.device != device:
@@ -144,21 +162,47 @@ def _check_cuda(tensors, b, lq, lk, d, smem_bytes):
             raise ValueError("attention kernels take contiguous tensors")
     if min(b, lq, lk) < 1:
         raise ValueError("attention kernels need B, Lq, Lk >= 1")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM}")
-    if smem_bytes > MAX_SMEM_BYTES:
+
+
+class LaunchConfig(NamedTuple):
+    """What the C entry point launches: the instance (``head_dim_pad``,
+    ``keys_per_lane``), ``warps`` per block, query rows per block (the grid
+    is B*H by ceil(Lq / rows_per_block)) and dynamic shared bytes."""
+
+    head_dim_pad: int
+    keys_per_lane: int
+    warps: int
+    rows_per_block: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def launch_config(kind: str, lq: int, lk: int, d: int) -> LaunchConfig:
+    """The launch of ``kind`` ("attention_fwd" or "attention_bwd") at
+    Lq, Lk and head width d; raises ValueError past the kernels' limits."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} is not in [1, {MAX_HEAD_DIM}]")
+    dp = max(8, 1 << (d - 1).bit_length())
+    kpl = -(-lk // 32)
+    if kpl * dp > REGISTER_KEY_FLOATS:
+        kpl = 0
+    if kind == "attention_fwd":
+        warps = min(FWD_WARPS, -(-lq // FWD_ROWS_PER_WARP))
+        rows, smem = warps * FWD_ROWS_PER_WARP, 0
+    elif kind == "attention_bwd":
+        # One block per (batch, head) owns its dK and dV: the warps' partials
+        # ([2][warps][Lk][dp]) or each row's max, sum and rowsum(dP * P).
+        warps = min(BWD_MAX_WARPS, -(-lq // BWD_ROWS_PER_WARP))
+        rows = lq
+        smem = 4 * (2 * warps * lk * dp if kpl else 3 * lq)
+    else:
+        raise ValueError(f"unknown kernel {kind!r}")
+    if smem > MAX_SMEM_BYTES:
         raise ValueError(
-            f"Lq={lq}, Lk={lk}, D={d} needs {smem_bytes} bytes of shared "
-            f"memory, more than the {MAX_SMEM_BYTES} a block may use"
+            f"{kind} at Lq={lq}, Lk={lk}, D={d} needs {smem} bytes of "
+            f"shared memory, more than the {MAX_SMEM_BYTES} a block may use"
         )
-
-
-def fwd_smem_bytes(lq: int, lk: int, d: int) -> int:
-    return 4 * ((lq + 2 * lk) * d + lq * lk)
-
-
-def bwd_smem_bytes(lq: int, lk: int, d: int) -> int:
-    return 4 * ((2 * lq + 2 * lk) * d + 2 * lq * lk + lq)
+    return LaunchConfig(dp, kpl, warps, rows, smem)
 
 
 # -------------------------------------------------------------------- build
@@ -186,17 +230,48 @@ def build(verbose: bool = False) -> ctypes.CDLL:
             )
         if verbose:
             print(proc.stdout + proc.stderr, flush=True)
+        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, lib_path)  # atomic: concurrent builds agree
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.dtqn_attention_fwd.argtypes = [ptr] * 4 + [i32] * 6 + [f32, ptr]
+    lib.dtqn_attention_fwd.argtypes = (
+        [ptr] * 4 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
     lib.dtqn_attention_fwd.restype = i32
-    lib.dtqn_attention_bwd.argtypes = [ptr] * 7 + [i32] * 6 + [f32, ptr]
+    lib.dtqn_attention_bwd.argtypes = (
+        [ptr] * 7 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
     lib.dtqn_attention_bwd.restype = i32
     lib.dtqn_cuda_error_string.argtypes = [i32]
     lib.dtqn_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+def ptxas_usage(log: Optional[str] = None) -> List[dict]:
+    """Registers and spill bytes of each kernel instance, from ``-Xptxas
+    -v`` output: ``log``, or what ``build`` kept beside the library."""
+    if log is None:
+        if _lib is None:
+            raise RuntimeError("build() the kernels first")
+        log = Path(_lib._name).with_suffix(".log").read_text()
+    kernel = re.compile(r"(attention_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E")
+    usage, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
+        if m:
+            k = kernel.search(m.group(1))
+            current = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else None
+            continue
+        if current is None:
+            continue
+        entry = usage.setdefault(current, {"kernel": current})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return sorted(usage.values(), key=lambda u: u["kernel"])
 
 
 def _find_nvcc() -> str:
@@ -222,13 +297,14 @@ def attention_fwd(q, k, v, num_heads: int, causal: bool) -> torch.Tensor:
     b, lq, lk, h, d = check_shapes(q, k, v, num_heads, causal)
     if q.device.type == "cpu":
         return plain_attention_fwd(q, k, v, num_heads, causal)
-    _check_cuda((q, k, v), b, lq, lk, d, fwd_smem_bytes(lq, lk, d))
+    cfg = launch_config("attention_fwd", lq, lk, d)
+    _check_cuda((q, k, v), b, lq, lk)
     lib = build()
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.dtqn_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, lq, lk, h, d, int(causal), _scale(d), stream,
+        b, lq, lk, h, d, int(causal), _scale(d), *cfg, stream,
     )
     _raise_on_error(lib, code, "attention_fwd")
     launch_counts["attention_fwd"] += 1
@@ -242,14 +318,15 @@ def attention_bwd(q, k, v, dout, num_heads: int, causal: bool):
         raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
     if q.device.type == "cpu":
         return plain_attention_bwd(q, k, v, dout, num_heads, causal)
-    _check_cuda((q, k, v, dout), b, lq, lk, d, bwd_smem_bytes(lq, lk, d))
+    cfg = launch_config("attention_bwd", lq, lk, d)
+    _check_cuda((q, k, v, dout), b, lq, lk)
     lib = build()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.dtqn_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, lq, lk, h, d, int(causal), _scale(d), stream,
+        b, lq, lk, h, d, int(causal), _scale(d), *cfg, stream,
     )
     _raise_on_error(lib, code, "attention_bwd")
     launch_counts["attention_bwd"] += 1

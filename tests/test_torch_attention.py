@@ -4,6 +4,10 @@ the CPU) against ``pallas_attention_packed`` (interpret mode) and
 taken in another order, well inside what a wrong mask or scale would give.
 """
 
+import importlib.util
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,7 @@ from dtqn_tpu_torch.ops.attention import (
 from dtqn_tpu_torch.ops.cuda_attention import cuda_attention_packed
 
 FWD_ATOL, GRAD_ATOL = 2e-5, 5e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def arrays(seed, b, lq, lk, e):
@@ -119,12 +124,119 @@ def test_kernel_limits_are_checked():
         cuda_attention.check_shapes(torch.zeros(1, 4, 10),
                                     torch.zeros(1, 4, 10),
                                     torch.zeros(1, 4, 10), 3, False)
-    big = cuda_attention.bwd_smem_bytes(256, 256, 64)
-    assert big > cuda_attention.MAX_SMEM_BYTES
-    t = torch.zeros(1, 256, 64)
+    # The streamed backward keeps 3 floats a query row in shared memory.
+    lq = cuda_attention.MAX_SMEM_BYTES // 12 + 1
     with pytest.raises(ValueError, match="shared"):
-        cuda_attention._check_cuda((t, t, t), 1, 256, 256, 64, big)
+        cuda_attention.launch_config("attention_bwd", lq, lq, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        cuda_attention.launch_config("attention_fwd", 4, 4, 65)
+    t = torch.zeros(1, 256, 64)
     with pytest.raises(TypeError, match="float32"):
-        cuda_attention._check_cuda((t.double(),), 1, 4, 4, 8, 0)
+        cuda_attention._check_cuda((t.double(),), 1, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
-        cuda_attention._check_cuda((t.transpose(1, 2),), 1, 4, 4, 8, 0)
+        cuda_attention._check_cuda((t.transpose(1, 2),), 1, 4, 4)
+
+
+def chip_parity_cases():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return [(b, lq, lk, heads, e // heads, causal)
+            for b, lq, lk, heads, causal, e in module.PARITY_CASES]
+
+
+def test_parity_shapes_map_to_instances():
+    """Every shape of the CPU and the card's parity lists maps to a built
+    instance, and the card's list reaches every instance."""
+    cpu = [tuple(p.values) for p in CASES]
+    reached = set()
+    for source, cases in (("cpu", cpu), ("chip", chip_parity_cases())):
+        for _, lq, lk, _, d, _ in cases:
+            for kind in ("attention_fwd", "attention_bwd"):
+                cfg = cuda_attention.launch_config(kind, lq, lk, d)
+                pair = (cfg.head_dim_pad, cfg.keys_per_lane)
+                assert pair in cuda_attention.INSTANCES, (source, lq, lk, d)
+                if source == "chip":
+                    reached.add(pair)
+    assert reached == set(cuda_attention.INSTANCES)
+
+
+def test_instances_match_the_kernel_source():
+    src = open(os.path.join(REPO, "dtqn_tpu_torch", "csrc",
+                            "attention.cu")).read()
+    macro = re.search(r"#define DTQN_INSTANCES\(X\)(.*?)\n\n", src, re.S)
+    pairs = re.findall(r"X\((\d+), (\d+)\)", macro.group(1))
+    assert tuple((int(d), int(k)) for d, k in pairs) == \
+        cuda_attention.INSTANCES
+
+
+@pytest.mark.parametrize("lq,lk,d,fwd,bwd", [
+    # the main path: keys in registers, two a lane
+    (50, 50, 8, (8, 2, 4, 8, 0), (8, 2, 8, 50, 4 * 2 * 8 * 50 * 8)),
+    (1, 32, 8, (8, 1, 1, 2, 0), (8, 1, 1, 1, 4 * 2 * 1 * 32 * 8)),
+    (20, 20, 16, (16, 1, 4, 8, 0), (16, 1, 5, 20, 4 * 2 * 5 * 20 * 16)),
+    # streamed: K and V re-read per row, row statistics in shared memory
+    (50, 65, 8, (8, 0, 4, 8, 0), (8, 0, 8, 50, 4 * 3 * 50)),
+    (100, 100, 32, (32, 0, 4, 8, 0), (32, 0, 8, 100, 4 * 3 * 100)),
+    (7, 65, 64, (64, 0, 4, 8, 0), (64, 0, 2, 7, 4 * 3 * 7)),
+    (30, 30, 4, (8, 1, 4, 8, 0), (8, 1, 8, 30, 4 * 2 * 8 * 30 * 8)),
+    (40, 40, 12, (16, 0, 4, 8, 0), (16, 0, 8, 40, 4 * 3 * 40)),
+])
+def test_launch_config_layout(lq, lk, d, fwd, bwd):
+    """Instance, warps, rows per block and shared bytes of each layout:
+    the register backward's [2][warps][Lk][D] partials, the streamed
+    backward's [3][Lq] row statistics, no shared memory forward."""
+    assert tuple(cuda_attention.launch_config("attention_fwd", lq, lk,
+                                              d)) == fwd
+    assert tuple(cuda_attention.launch_config("attention_bwd", lq, lk,
+                                              d)) == bwd
+
+
+def test_launch_config_takes_what_the_score_matrix_layout_took():
+    """Every shape that fit the earlier kernels' shared memory (the head's
+    Q, K, V and [Lq, Lk] scores; backward also dO, dS and a row sum) still
+    launches."""
+    limit = cuda_attention.MAX_SMEM_BYTES
+    lengths = (1, 2, 31, 32, 33, 64, 65, 100, 160, 400, 1000, 3000, 11000)
+    for d in (1, 3, 8, 16, 33, 64):
+        for lq in lengths:
+            for lk in lengths:
+                if 4 * ((lq + 2 * lk) * d + lq * lk) <= limit:
+                    cuda_attention.launch_config("attention_fwd", lq, lk, d)
+                if 4 * ((2 * lq + 2 * lk) * d + 2 * lq * lk + lq) <= limit:
+                    cuda_attention.launch_config("attention_bwd", lq, lk, d)
+
+
+def test_shape_past_the_limits_raises_before_any_launch(monkeypatch):
+    monkeypatch.setattr(cuda_attention, "build",
+                        lambda: pytest.fail("reached the build"))
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 0)
+
+    long_rows = torch.zeros(1, 20_000, 1).as_subclass(FakeCuda)
+    with pytest.raises(ValueError, match="shared"):
+        cuda_attention.attention_bwd(long_rows, long_rows, long_rows,
+                                     long_rows, 1, True)
+    wide = torch.zeros(1, 4, 65).as_subclass(FakeCuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        cuda_attention.attention_fwd(wide, wide, wide, 1, False)
+
+
+def test_ptxas_usage_reads_registers_and_spills():
+    name = "_ZN12_GLOBAL__N_120attention_bwd_kernelILi8ELi2EEEvPKfS2_"
+    log = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {name}",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers, 400 bytes "
+        "cmem[0]",
+    ])
+    assert cuda_attention.ptxas_usage(log) == [{
+        "kernel": "attention_bwd_kernel<8,2>", "spill_stores": 8,
+        "spill_loads": 4, "registers": 96,
+    }]
