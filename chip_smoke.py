@@ -17,10 +17,25 @@ Phases (any failure exits non-zero and prints no result):
      10k): init, random prepopulation, two train iterations of 64 updates;
      check the launch counts, the updates and the Q-values against the
      plain path on the CPU;
-  5. time each kernel, its plain version and the matching PyTorch call
+  5. runner: ``run_experiment`` at the same configuration in a temporary
+     directory (prepopulation 40 000, two chunks of 128 env steps, each
+     followed by a 10-episode evaluation, policy saved): CSV headers and
+     rows, finite losses, policy file and completion sentinel, exact
+     launch counts, the saved policy's Q on the card against the CPU's;
+  6. resume: the same run cut by a time limit after its first chunk (the
+     full checkpoint's size and save / load seconds are printed), resumed
+     by a second call, and its final parameters compared bit for bit with
+     phase 5's uninterrupted run;
+  7. discrete observations: Memory-5-v0, DTQN in_embed 128 (head width
+     16), 64 envs: prepopulation, one train iteration of 64 updates, one
+     evaluation; launch counts, updates, card Q against CPU Q;
+  8. evaluation alone: seconds and device operations per evaluation, with
+     the early-exit read every 10 steps (the default), every step and
+     never, all giving the same numbers;
+  9. time each kernel, its plain version and the matching PyTorch call
      (scaled_dot_product_attention, timed here only) at the main path's
      shapes, inside CUDA graphs so that host launch cost is left out;
-  6. profile one more train iteration (torch.profiler): the device's busy
+ 10. profile one more train iteration (torch.profiler): the device's busy
      share, device operations per update and the costliest kernels.
 
 Before the last line it prints the card line and one ``{"kernels": [...]}``
@@ -28,11 +43,14 @@ JSON line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import contextlib
+import csv
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -41,6 +59,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 FWD_ATOL, GRAD_ATOL = 2e-5, 5e-5
 Q_ATOL = 1e-4
+DEVICE = "cuda"  # where every phase runs; a dry run of the script's own
+# control flow on a machine without a GPU may set it to "cpu"
 KERNEL_SOURCE = "dtqn_tpu_torch/csrc/attention.cu"
 REPLACES = {
     "attention_fwd": "dtqn_tpu/ops/pallas_attention.py:62",
@@ -80,7 +100,8 @@ def rand(gen, *shape):
 # unaligned and cross-attention shapes; Lk at the keys-per-lane edges
 # (1, 32, 33, 64, 65); B = 1; causal L = 1; head widths 16, 32 and 64; and
 # head widths 4 and 12, which the kernels pad and load a float at a time.
-# Between them they reach every kernel instance.
+# The last four are the evaluation's batch of 10 and the discrete path's
+# head width 16.  Between them they reach every kernel instance.
 PARITY_CASES = [
     (64, 50, 50, 8, True, 64), (32, 50, 50, 8, True, 64),
     (4, 7, 3, 8, False, 64), (4, 1, 50, 8, False, 64),
@@ -94,6 +115,8 @@ PARITY_CASES = [
     (2, 100, 100, 2, True, 64), (2, 50, 50, 1, True, 64),
     (2, 7, 65, 1, False, 64),
     (2, 30, 30, 16, True, 64), (2, 40, 40, 4, True, 48),
+    (10, 50, 50, 8, True, 64), (64, 50, 50, 8, True, 128),
+    (32, 50, 50, 8, True, 128), (10, 50, 50, 8, True, 128),
 ]
 
 
@@ -222,13 +245,12 @@ def main_path(seed, ca):
         "diagnostics": diags,
     }
     log(f"main path: {json.dumps(result)}")
-    return result, state, train_iter
+    return result, agent, state, train_iter
 
 
-def profile_iteration(state, train_iter, updates=64, top=12):
-    """Where one train iteration's time goes (torch.profiler): the device's
-    busy share of the wall time, kernel launches, and the kernels with the
-    most device time."""
+def device_events(fn):
+    """Runs ``fn()`` under torch.profiler: (its wall time in us, {device
+    operation name: (count, device us)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,7 +258,7 @@ def profile_iteration(state, train_iter, updates=64, top=12):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_iter(state)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name = {}
@@ -245,6 +267,14 @@ def profile_iteration(state, train_iter, updates=64, top=12):
             continue
         n, us = by_name.get(ev.name, (0, 0.0))
         by_name[ev.name] = (n + 1, us + ev.self_device_time_total)
+    return wall_us, by_name
+
+
+def profile_iteration(state, train_iter, updates=64, top=12):
+    """Where one train iteration's time goes (torch.profiler): the device's
+    busy share of the wall time, kernel launches, and the kernels with the
+    most device time."""
+    wall_us, by_name = device_events(lambda: train_iter(state))
     device_us = sum(us for _, us in by_name.values())
     launches = sum(n for n, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
@@ -265,6 +295,411 @@ def profile_iteration(state, train_iter, updates=64, top=12):
         ],
     }
     log(f"profile of one train iteration: {json.dumps(result)}")
+    return result
+
+
+# ------------------------------------------------- runner, resume, discrete
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+@contextlib.contextmanager
+def in_directory(path):
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(old)
+
+
+@contextlib.contextmanager
+def counted_greedy_calls():
+    """Yields a list that grows by one with every ``Agent.greedy_actions``
+    call: each is one forward of the policy network, for an act step or an
+    evaluation step."""
+    from dtqn_tpu_torch.agents.base import Agent
+
+    calls, greedy = [], Agent.greedy_actions
+
+    def counting(agent, network, context):
+        calls.append(1)
+        return greedy(agent, network, context)
+
+    with patched(Agent, "greedy_actions", counting):
+        yield calls
+
+
+class Probe:
+    """Counts and clocks what ``run_experiment`` calls, from outside: every
+    greedy forward, each chunk, each evaluation, each checkpoint save and
+    load.  The clocked calls end in a ``synchronize``; the runner reads a
+    device value after each of them anyway."""
+
+    def __init__(self):
+        self.greedy_calls = []
+        self.seconds = {"chunk": [], "evaluate": [], "save_checkpoint": [],
+                        "load_checkpoint": []}
+        self.first_chunk_start = None
+        self.resumed_at = None
+
+    def clocked(self, kind, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "chunk" and self.first_chunk_start is None:
+                self.first_chunk_start = t0
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[kind].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    @contextlib.contextmanager
+    def attached(self):
+        from dtqn_tpu_torch.train import runner
+
+        make_chunk, make_eval = (runner.make_train_chunk_fn,
+                                 runner.make_evaluate_fn)
+        save, real_load = (runner.ckpt.save_checkpoint,
+                           runner.ckpt.load_checkpoint)
+
+        def load(path, template):
+            state, extra = real_load(path, template)
+            self.resumed_at = int(state.env_steps)
+            return state, extra
+
+        with counted_greedy_calls() as self.greedy_calls, \
+                patched(runner, "make_train_chunk_fn",
+                        lambda *a: self.clocked("chunk", make_chunk(*a))), \
+                patched(runner, "make_evaluate_fn",
+                        lambda *a: self.clocked("evaluate", make_eval(*a))), \
+                patched(runner.ckpt, "save_checkpoint",
+                        self.clocked("save_checkpoint", save)), \
+                patched(runner.ckpt, "load_checkpoint",
+                        self.clocked("load_checkpoint", load)):
+            yield self
+
+
+RESULT_HEAD = ["Hours", "Step", "{e}/SuccessRate", "{e}/EpisodeLength",
+               "{e}/Return"]
+LOSS_HEAD = ["Hours", "Step", "TD Error", "Grad Norm", "Max Q Value",
+             "Mean Q Value", "Min Q Value", "Max Target Value",
+             "Mean Target Value", "Min Target Value"]
+
+
+def runner_config(seed, **kw):
+    """The bench configuration on a short schedule: two chunks of two
+    iterations (128 env steps, 128 updates), each followed by an
+    evaluation."""
+    from dtqn_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(
+        envs=["DiscreteCarFlag-v0"], model="DTQN", in_embed=64, heads=8,
+        layers=2, context=50, history=50, batch=32, num_envs=64,
+        buf_size=500_000, tuf=10_000, prepop_steps=40_000,
+        eval_frequency=128, eval_episodes=10, num_steps=256,
+        save_policy=True, seed=seed, project_name="chip-smoke",
+        device=DEVICE, **kw,
+    )
+
+
+def check_csvs(cfg, steps):
+    """Both CSVs: the reference headers and one row per entry of ``steps``,
+    every value finite, success rate and episode length in range."""
+    env, cap = cfg.envs[0], 200
+    tables = []
+    for suffix, head in (("_results.csv",
+                          [h.format(e=env) for h in RESULT_HEAD]),
+                         ("_losses.csv", LOSS_HEAD)):
+        with open(cfg.policy_path() + suffix, newline="") as f:
+            rows = list(csv.reader(f))
+        check(rows[0] == head, f"{suffix} header {rows[0]}")
+        check([r[1] for r in rows[1:]] == [str(s) for s in steps],
+              f"{suffix} steps {[r[1] for r in rows[1:]]}, expected {steps}")
+        check(all(math.isfinite(float(x)) for r in rows[1:] for x in r),
+              f"{suffix} holds a non-finite value")
+        tables.append(rows[1:])
+    for row in tables[0]:
+        check(0.0 <= float(row[2]) <= 1.0, f"success rate {row[2]}")
+        check(1.0 <= float(row[3]) <= cap, f"episode length {row[3]}")
+    return tables
+
+
+def check_launches(ca, probe, cfg, iters, what):
+    """Every forward launches one attention_fwd per layer: one forward per
+    greedy call (an act step or an evaluation step) and three per update;
+    every update launches one attention_bwd per layer."""
+    updates = iters * cfg.resolved_updates_per_iter
+    greedy_calls = len(probe.greedy_calls)
+    eval_steps = greedy_calls - iters
+    launches = dict(ca.launch_counts)
+    expect_fwd = cfg.layers * (greedy_calls + 3 * updates)
+    expect_bwd = cfg.layers * updates
+    check(launches["attention_fwd"] == expect_fwd,
+          f"{what}: attention_fwd launched {launches['attention_fwd']} "
+          f"times, expected {expect_fwd}")
+    check(launches["attention_bwd"] == expect_bwd,
+          f"{what}: attention_bwd launched {launches['attention_bwd']} "
+          f"times, expected {expect_bwd}")
+    return launches, eval_steps
+
+
+def saved_policy(cfg, device):
+    """A fresh network on ``device`` holding the run's saved policy."""
+    from dtqn_tpu_torch.agents import Agent
+    from dtqn_tpu_torch.envs import make_env
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+
+    agent = Agent(cfg.agent_config(), make_env(cfg.envs[0]), device=device)
+    return ckpt.load_policy(cfg.policy_path(),
+                            agent.build_network().to(device))
+
+
+def policy_q_card_vs_cpu(cfg, seed):
+    """The saved policy's Q on random CarFlag contexts: a network on the
+    card (kernel path) against one on the CPU (plain path)."""
+    nets = {device: saved_policy(cfg, device) for device in (DEVICE, "cpu")}
+    gen = torch.Generator().manual_seed(seed)
+    obs = torch.rand((cfg.num_envs, cfg.context, 3), generator=gen) * 2.2 - 1.1
+    with torch.no_grad():
+        q_gpu = nets[DEVICE](obs.to(DEVICE))
+        q_cpu = nets["cpu"](obs)
+    check(bool(torch.isfinite(q_gpu).all()), "non-finite Q from the policy")
+    q_err = (q_gpu.cpu() - q_cpu).abs().max().item()
+    check(q_err <= Q_ATOL, f"saved policy: card Q differs from CPU Q by "
+                           f"{q_err}")
+    return q_err, nets[DEVICE].state_dict()
+
+
+def runner_phase(seed, ca):
+    """``run_experiment`` on the card, uninterrupted."""
+    from dtqn_tpu_torch.train.runner import run_experiment
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = runner_config(seed)
+    iters = cfg.num_steps // cfg.num_envs
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
+            Probe().attached() as probe:
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        final = run_experiment(cfg)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches, eval_steps = check_launches(ca, probe, cfg, iters, "runner")
+        check(len(probe.seconds["chunk"]) == 2
+              and len(probe.seconds["evaluate"]) == 2,
+              f"chunks and evaluations: {probe.seconds}")
+        check(2 <= eval_steps <= 2 * 200, f"{eval_steps} evaluation steps")
+        check_csvs(cfg, [128, 256])
+        check(all(math.isfinite(v) for v in final.values()),
+              f"final log not finite: {final}")
+        check(final["losses/Grad_Norm"] > 0.0,
+              "the runner's updates were not applied")
+        check(ckpt.load_mini_checkpoint(cfg.policy_path())
+              == {"step": 256, "wandb_id": None}, "completion sentinel")
+        check(not ckpt.has_checkpoint(cfg.policy_path()),
+              "an uninterrupted run wrote a full checkpoint")
+        check(os.path.exists(cfg.policy_path() + "_policy.pt"),
+              "policy file missing")
+        q_err, weights = policy_q_card_vs_cpu(cfg, seed)
+        again = run_experiment(cfg)
+        check(again == {"completed": True, "step": 256},
+              f"a second call did not short-circuit: {again}")
+    loop_s = t_end - probe.first_chunk_start
+    result = {
+        "env_steps_per_s_chunk_loop_with_eval": cfg.num_steps / loop_s,
+        "chunk_loop_s": loop_s,
+        "init_and_prepopulate_s": probe.first_chunk_start - t0,
+        "chunk_s": probe.seconds["chunk"],
+        "evaluation_s": probe.seconds["evaluate"],
+        "evaluation_steps": eval_steps,
+        "launches": launches,
+        "policy_q_max_abs_err_vs_cpu": q_err,
+        "final_log": final,
+    }
+    log(f"runner phase: {json.dumps(result)}")
+    return result, weights
+
+
+def resume_phase(seed, ca, whole_weights):
+    """The same run cut by a time limit after its first chunk, resumed, and
+    held bit for bit against the uninterrupted run's final parameters."""
+    from dtqn_tpu_torch.train.runner import run_experiment
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+
+    iters = 2  # per call: one chunk before the cut, one after the resume
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
+        cfg = runner_config(seed, time_limit=1e-9)
+        with Probe().attached() as cut:
+            ca.reset_launch_counts()
+            run_experiment(cfg)
+            launches_cut, _ = check_launches(ca, cut, cfg, iters,
+                                             "run to the time limit")
+        check(ckpt.has_checkpoint(cfg.policy_path()),
+              "the time limit wrote no full checkpoint")
+        check(ckpt.load_mini_checkpoint(cfg.policy_path())["step"] == 128,
+              "the cut run's mini checkpoint is not at step 128")
+        nbytes = os.path.getsize(cfg.policy_path() + "_checkpoint.pt")
+        log(f"full checkpoint: {nbytes} bytes")
+        check_csvs(cfg, [128])
+
+        cfg = runner_config(seed)
+        with Probe().attached() as resumed:
+            ca.reset_launch_counts()
+            run_experiment(cfg)
+            launches_resumed, _ = check_launches(ca, resumed, cfg, iters,
+                                                 "resumed run")
+        check(resumed.resumed_at == 128,
+              f"resumed at step {resumed.resumed_at}, not 128")
+        check(len(resumed.seconds["chunk"]) == 1,
+              "the resumed run did not train exactly one more chunk")
+        check(ckpt.load_mini_checkpoint(cfg.policy_path())["step"] == 256,
+              "the resumed run did not finish")
+        check_csvs(cfg, [128, 256])
+        weights = saved_policy(cfg, "cpu").state_dict()
+    check(list(weights) == list(whole_weights), "policy keys differ")
+    differing = [k for k in weights
+                 if not torch.equal(weights[k], whole_weights[k].cpu())]
+    check(not differing, f"resumed run's final parameters differ from the "
+                         f"uninterrupted run's in {differing}")
+    result = {
+        "checkpoint_bytes": nbytes,
+        "save_checkpoint_s": cut.seconds["save_checkpoint"][0],
+        "load_checkpoint_s": resumed.seconds["load_checkpoint"][0],
+        "resumed_at_step": resumed.resumed_at,
+        "final_parameters_bit_equal": True,
+        "launches_cut": launches_cut,
+        "launches_resumed": launches_resumed,
+    }
+    log(f"resume phase: {json.dumps(result)}")
+    return result
+
+
+def discrete_phase(seed, ca):
+    """Memory Cards: int32 token observations through the discrete
+    embedder, head width 16."""
+    from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.envs import make_env
+    from dtqn_tpu_torch.train.loop import (
+        make_evaluate_fn,
+        make_prepopulate_fn,
+        make_train_chunk_fn,
+    )
+    from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+
+    num_envs, updates, layers = 64, 64, 2
+    cfg = AgentConfig(
+        model="DTQN", num_envs=num_envs, context_len=50, history=50,
+        inner_embed=128, num_heads=8, num_layers=layers, batch_size=32,
+        buffer_size=50_000, target_update_frequency=10_000,
+    )
+    env = make_env("Memory-5-v0")
+    agent = Agent(cfg, env, device=DEVICE)
+    instances = {
+        kind: ca.launch_config(kind, 50, 50, cfg.inner_embed // cfg.num_heads)
+        for kind in ("attention_fwd", "attention_bwd")
+    }
+    for kind, lc in instances.items():
+        check(lc.head_dim_pad == 16
+              and (lc.head_dim_pad, lc.keys_per_lane) in ca.INSTANCES,
+              f"{kind} instance for head width 16: {lc}")
+    ca.reset_launch_counts()
+    state = agent.init_state(seed)
+    make_prepopulate_fn(agent, 150)(state)
+    flushed = int(state.buffer.flushed_total)
+    check(flushed > cfg.batch_size, f"prepopulation flushed only {flushed}")
+    with counted_greedy_calls() as greedy_calls:
+        make_train_chunk_fn(
+            agent, EpsilonSchedule(1.0, 0.1, 200_000),
+            updates_per_iter=updates, iters_per_chunk=1)(state)
+        sr, ret, length = (
+            float(x) for x in make_evaluate_fn(agent, env, 10)(
+                state.network,
+                torch.Generator(device=DEVICE).manual_seed(seed)))
+    launches = dict(ca.launch_counts)
+    check(int(state.train_steps) == updates,
+          f"train_steps {int(state.train_steps)}")
+    check(int(state.nonfinite_grads) == 0, "non-finite gradient steps")
+    check(state.context.obs.dtype == torch.int32
+          and state.buffer.obs.dtype == torch.int32,
+          "token observations were widened")
+    check(0.0 <= sr <= 1.0 and 1.0 <= length <= 50.0 and -50.0 <= ret <= 0.0,
+          f"evaluation out of range: {sr}, {ret}, {length}")
+    # One act forward, three forwards per update, and one forward per
+    # evaluation step (all 50 unless every game was won before).
+    eval_steps = len(greedy_calls) - 1
+    check(10 <= eval_steps <= 50, f"{eval_steps} evaluation steps")
+    check(launches["attention_fwd"] == layers * (1 + 3 * updates + eval_steps),
+          f"attention_fwd launched {launches['attention_fwd']} times")
+    check(launches["attention_bwd"] == layers * updates,
+          f"attention_bwd launched {launches['attention_bwd']} times")
+
+    cpu_net = agent.build_network()
+    cpu_net.load_state_dict(state.network.state_dict())
+    with torch.no_grad():
+        q_gpu = state.network(state.context.obs, state.context.action)
+        q_cpu = cpu_net(state.context.obs.cpu(), state.context.action.cpu())
+    check(tuple(q_gpu.shape) == (num_envs, 50, 10), f"Q shape {q_gpu.shape}")
+    check(bool(torch.isfinite(q_gpu).all()), "non-finite Q on the card")
+    q_err = (q_gpu.cpu() - q_cpu).abs().max().item()
+    check(q_err <= Q_ATOL, f"discrete: card Q differs from CPU Q by {q_err}")
+    result = {
+        "instances": {k: [lc.head_dim_pad, lc.keys_per_lane]
+                      for k, lc in instances.items()},
+        "launches_head_width_16": launches,
+        "evaluation_steps": eval_steps,
+        "evaluation": [sr, ret, length],
+        "flushed_episodes": flushed,
+        "train_steps": updates,
+        "q_max_abs_err_vs_cpu": q_err,
+    }
+    log(f"discrete phase: {json.dumps(result)}")
+    return result
+
+
+def evaluation_phase(seed, agent, state):
+    """One 10-episode evaluation of the main path's network: seconds and
+    device operations, reading the early-exit flag every 10 steps (the
+    default), every step and never; the three must agree."""
+    from dtqn_tpu_torch.train import loop
+
+    evaluate = loop.make_evaluate_fn(agent, agent.env, 10)
+    result = {}
+    for every in (loop.EVAL_EXIT_CHECK_EVERY, 1, 0):
+
+        def run_once():
+            return evaluate(
+                state.network,
+                torch.Generator(device=DEVICE).manual_seed(seed + 1))
+
+        with patched(loop, "EVAL_EXIT_CHECK_EVERY", every), \
+                counted_greedy_calls() as calls:
+            run_once()  # warm
+            torch.cuda.synchronize()
+            del calls[:]
+            t0 = time.perf_counter()
+            out = [float(x) for x in run_once()]
+            seconds = time.perf_counter() - t0
+            steps = len(calls)
+            wall_us, by_name = device_events(run_once)
+        ops = sum(n for n, _ in by_name.values())
+        result[f"check_every_{every}"] = {
+            "seconds": seconds, "steps": steps, "result": out,
+            "device_ops": ops, "device_ops_per_step": ops / steps,
+            "device_busy_share_profiled":
+                sum(us for _, us in by_name.values()) / wall_us,
+        }
+    outs = [r["result"] for r in result.values()]
+    check(outs[0] == outs[1] == outs[2],
+          f"early exit changed the evaluation: {outs}")
+    log(f"evaluation alone: {json.dumps(result)}")
     return result
 
 
@@ -380,9 +815,14 @@ def run(seed):
     check(len(usage) == 2 * len(ca.INSTANCES),
           f"ptxas reported {len(usage)} kernels")
     errs = parity(ca)
-    main, state, train_iter = main_path(seed, ca)
+    main, agent, state, train_iter = main_path(seed, ca)
+    runner, whole_weights = runner_phase(seed, ca)
+    resume = resume_phase(seed, ca, whole_weights)
+    discrete = discrete_phase(seed, ca)
+    evaluation = evaluation_phase(seed, agent, state)
     t_main = timings(ca, 32)  # each update's batch
     t_act = timings(ca, 64)  # the act forward's batch
+    t_wide = timings(ca, 32, d=16)  # the discrete path's update
 
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
@@ -402,8 +842,11 @@ def run(seed):
             "shape": "B=32 L=50 H=8 D=8 causal f32",
         })
     prof = profile_iteration(state, train_iter)
-    print(json.dumps({"main_path": main, "timings_b64": t_act,
-                      "profile": prof, "ptxas": usage}), flush=True)
+    print(json.dumps({"main_path": main, "runner": runner, "resume": resume,
+                      "discrete": discrete, "evaluation": evaluation,
+                      "timings_b64": t_act, "timings_b32_d16": t_wide,
+                      "profile": prof,
+                      "ptxas": usage}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,7 @@ class AgentConfig:
     target_update_frequency: int = 10_000
     buffer_size: int = 500_000
     # Architecture (run.py:92-175)
+    embed_per_obs_dim: int = 8
     action_dim: int = 0
     inner_embed: int = 128
     num_heads: int = 8
@@ -56,6 +57,8 @@ class AgentConfig:
     identity: bool = False
     pos: str = "learned"
     bag_size: int = 0
+    bag_mask: bool = False
+    bag_store: bool = False
 
 
 @dataclasses.dataclass
@@ -146,10 +149,18 @@ class Agent:
 
     def __init__(self, config: AgentConfig, env: Environment,
                  device: Optional[str] = None):
-        if config.model != "DTQN" or config.bag_size > 0:
+        if (config.model == "DTQN-bag" or config.bag_size > 0
+                or config.bag_mask or config.bag_store):
             raise NotImplementedError(
-                f"model {config.model!r} with bag_size {config.bag_size} is "
-                "not ported yet (DTQN without bag is); see ROADMAP.md queue 1"
+                f"the DTQN bag (model {config.model!r}, bag_size "
+                f"{config.bag_size}, bag_mask {config.bag_mask}, bag_store "
+                f"{config.bag_store}) is not ported yet; see ROADMAP.md "
+                "queue 1 item 10"
+            )
+        if config.model != "DTQN":
+            raise NotImplementedError(
+                f"model {config.model!r} is not ported yet (DTQN without bag "
+                "is); see ROADMAP.md queue 1 item 12"
             )
         if not 1 <= config.history <= config.context_len:
             # Clip history into [1, context_len] (agent_utils.py:101-105).
@@ -168,6 +179,7 @@ class Agent:
         return build_network(
             cfg.model,
             self.env,
+            embed_per_obs_dim=cfg.embed_per_obs_dim,
             action_dim=cfg.action_dim,
             inner_embed=cfg.inner_embed,
             num_heads=cfg.num_heads,

@@ -1,0 +1,137 @@
+"""Port benchmark: Car Flag DTQN env-steps/s at the reference's 1:1 update
+ratio, on one GPU.
+
+    python -m dtqn_tpu_torch.bench [--device cpu] [--iters N]
+
+Prints ONE JSON line:
+  {"metric": ..., "value": N, "unit": ..., "device": ...}
+preceded, on the GPU, by the card's name and power limit (nvidia-smi).
+
+The configuration is the flagless one of the JAX package's ``bench.py``:
+DiscreteCarFlag-v0, DTQN in_embed 64, context 50, 8 heads, 2 layers, batch
+32, 64 envs, buffer 500k, and exactly 1 gradient step per env step
+(run.py:290-298), so "env-steps/s" also equals learner updates/s.  It
+prepopulates 625 iterations, runs one warm-up chunk of ``--iters``
+iterations (default 50), and reports the best of 4 timed chunks.  Only
+``--device cpu`` runs on the CPU; ``--iters`` shortens the chunks so a test
+can run the script.
+"""
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+METRIC = "carflag_dtqn_torch_env_steps_per_s_1to1_updates"
+NUM_ENVS = 64
+DEFAULT_ITERS = 50
+PREPOP_STEPS = 40_000
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def sync(state) -> None:
+    """Wait for the whole learn chain: read values that depend on it."""
+    _ = int(state.train_steps)
+    _ = float(state.params[0])
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails when no GPU is found) or cpu")
+    p.add_argument("--iters", type=int, default=DEFAULT_ITERS,
+                   help="iterations (of 64 env steps and 64 updates) per "
+                        "timed chunk")
+    # The JAX bench.py's optional modes, named so that they fail loudly.
+    p.add_argument("--seeds", type=int, default=1)
+    p.add_argument("--bag", type=int, default=0)
+    p.add_argument("--bf16", action="store_true")
+    args = p.parse_args(argv)
+    for is_set, what, item in (
+        (args.bag > 0, "--bag", 10),
+        (args.bf16, "--bf16", 13),
+        (args.seeds > 1, "--seeds", 14),
+    ):
+        if is_set:
+            raise NotImplementedError(
+                f"{what} is not ported yet; see ROADMAP.md queue 1 item {item}"
+            )
+    if args.iters < 1:
+        raise ValueError("--iters must be at least 1")
+
+    from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.envs import make_env
+    from dtqn_tpu_torch.train.loop import (
+        make_prepopulate_fn,
+        make_train_chunk_fn,
+    )
+    from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+
+    cfg = AgentConfig(
+        model="DTQN",
+        num_envs=NUM_ENVS,
+        context_len=50,
+        history=50,
+        inner_embed=64,
+        num_heads=8,
+        num_layers=2,
+        batch_size=32,
+        buffer_size=500_000,
+        target_update_frequency=10_000,
+    )
+    agent = Agent(cfg, make_env("DiscreteCarFlag-v0"), device=args.device)
+    on_card = agent.device.type == "cuda"
+    if on_card:
+        print(card_line(), flush=True)
+
+    iters = args.iters
+    prepopulate = make_prepopulate_fn(agent, max(PREPOP_STEPS // NUM_ENVS, 1))
+    chunk = make_train_chunk_fn(
+        agent,
+        EpsilonSchedule(1.0, 0.1, 200_000),
+        updates_per_iter=NUM_ENVS,
+        iters_per_chunk=iters,
+    )
+
+    state = agent.init_state(0)
+    # Enough prepopulation that learn() steps actually apply.
+    state = prepopulate(state)
+    if int(state.buffer.flushed_total) <= cfg.batch_size:
+        raise RuntimeError("prepopulation finished too few episodes")
+
+    state = chunk(state)  # warm-up (builds the kernels on a GPU)
+    sync(state)
+
+    best = float("inf")
+    for _ in range(4):
+        t0 = time.perf_counter()
+        state = chunk(state)
+        sync(state)
+        best = min(best, time.perf_counter() - t0)
+    if int(state.train_steps) != 5 * iters * NUM_ENVS:
+        raise RuntimeError(f"only {int(state.train_steps)} updates applied")
+    if int(state.nonfinite_grads) != 0:
+        raise FloatingPointError("non-finite gradient steps")
+
+    line = {
+        "metric": METRIC,
+        "value": round(iters * NUM_ENVS / best, 1),
+        "unit": "env-steps/s (== learner updates/s)",
+        "device": (torch.cuda.get_device_name(0) if on_card else "cpu"),
+    }
+    print(json.dumps(line), flush=True)
+    return line
+
+
+if __name__ == "__main__":
+    main()

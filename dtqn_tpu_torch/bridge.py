@@ -5,6 +5,8 @@ arrays, as ``flax.serialization.msgpack_restore`` or ``jax.device_get``
 give it) to a ``state_dict`` of ``dtqn_tpu_torch.models.DTQN``:
 
     ContinuousObsEmbedding_0/Dense_0   -> obs_embedding.dense_0
+    DiscreteObsEmbedding_0/Embed_0     -> obs_embedding.embedding.weight
+    DiscreteObsEmbedding_0/Dense_0     -> obs_embedding.dense_0
     action_embed/Embed_0/embedding     -> action_embed.embedding.weight
     position/embedding [1, L, F]       -> position.embedding
     layer_{i}/attention/qkv, out       -> layers.{i}.attention.qkv, out
@@ -30,6 +32,7 @@ import torch
 
 _MODULES = {
     "ContinuousObsEmbedding_0": "obs_embedding",
+    "DiscreteObsEmbedding_0": "obs_embedding",
     "Dense_0": "dense_0",
     "Dense_1": "dense_1",
     "Embed_0": "embedding",
@@ -88,12 +91,20 @@ def params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
     return state
 
 
-_JAX_MODULES = {v: k for k, v in _MODULES.items()}
+_JAX_MODULES = {"dense_0": "Dense_0", "dense_1": "Dense_1",
+                "embedding": "Embed_0"}
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """torch ``state_dict`` -> flax DTQN parameter tree (numpy leaves)."""
     tree: Dict = {}
+    # Only the discrete obs embedder holds a token table.
+    obs_module = (
+        "DiscreteObsEmbedding_0"
+        if "obs_embedding.embedding.weight" in state_dict
+        else "ContinuousObsEmbedding_0"
+    )
+    jax_modules = dict(_JAX_MODULES, obs_embedding=obs_module)
     for name, tensor in state_dict.items():
         arr = tensor.detach().cpu().numpy()
         parts = name.split(".")
@@ -102,10 +113,11 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         *mods, leaf = parts
         if mods == ["position"]:
             path, arr_leaf = ["position"], "embedding"
-        elif mods == ["action_embed", "embedding"]:
-            path, arr_leaf = ["action_embed", "Embed_0"], "embedding"
+        elif mods[-1] == "embedding":  # an Embed table, not transposed
+            path = [jax_modules.get(m, m) for m in mods]
+            arr_leaf = "embedding"
         else:
-            path = [_JAX_MODULES.get(m, m) for m in mods]
+            path = [jax_modules.get(m, m) for m in mods]
             is_norm = path[-1].startswith("layernorm")
             if leaf == "weight":
                 arr_leaf = "scale" if is_norm else "kernel"

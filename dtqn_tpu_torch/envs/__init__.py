@@ -1,11 +1,15 @@
-"""Environment registry: the CarFlag entries of ``dtqn_tpu/envs``."""
+"""Environment registry: the Car Flag and Memory Cards entries of
+``dtqn_tpu/envs``."""
 
 from __future__ import annotations
 
 from dtqn_tpu_torch.envs.car_flag import CarFlag, CarFlagState
 from dtqn_tpu_torch.envs.core import Environment, ObsKind, Timestep
+from dtqn_tpu_torch.envs.memory_cards import MemoryCards, MemoryState
 
 _REGISTRY = {
+    # Memory cards (reference envs/__init__.py:31-36: 50-step limit)
+    "Memory-5-v0": lambda: MemoryCards(num_pairs=5, max_episode_steps=50),
     # Car Flag (reference envs/__init__.py:42-47: 200-step limit)
     "DiscreteCarFlag-v0": CarFlag,
 }
@@ -17,11 +21,11 @@ def make_env(name: str) -> Environment:
         return _REGISTRY[name]()
     raise NotImplementedError(
         f"environment {name!r} is not ported yet (ported: "
-        f"{sorted(_REGISTRY)}); see ROADMAP.md queue 1"
+        f"{sorted(_REGISTRY)}); see ROADMAP.md queue 1 item 11"
     )
 
 
 __all__ = [
-    "CarFlag", "CarFlagState", "Environment", "ObsKind", "Timestep",
-    "make_env",
+    "CarFlag", "CarFlagState", "Environment", "MemoryCards", "MemoryState",
+    "ObsKind", "Timestep", "make_env",
 ]

@@ -46,7 +46,7 @@ class CarFlag(Environment):
         if not discrete:
             raise NotImplementedError(
                 "CarFlag-continuous-v0 is not ported yet; see ROADMAP.md "
-                "queue 1"
+                "queue 1 item 11"
             )
 
     @property
@@ -61,6 +61,35 @@ class CarFlag(Environment):
         hint = torch.where(near_priest, state.heaven,
                            torch.zeros_like(state.heaven))
         return torch.stack([state.position, state.velocity, hint], dim=-1)
+
+    def render_frame(self, state: CarFlagState):
+        """Headless RGB raster of the track for one env (``state`` holds
+        scalars): car, heaven and hell flags, priest zone.  Returns uint8
+        [80, 400, 3], composable into enjoy-mode episode strips."""
+        import numpy as np
+
+        height, width = 80, 400
+        img = np.full((height, width, 3), 255, np.uint8)
+
+        def x2px(x):
+            span = 2 * self.max_position
+            return int(
+                np.clip((float(x) + self.max_position) / span, 0, 1)
+                * (width - 1)
+            )
+
+        img[60:62, :] = 160  # track
+        a = x2px(self.priest_position - self.priest_delta)
+        b = x2px(self.priest_position + self.priest_delta)
+        img[62:68, a:b] = (230, 210, 80)  # priest zone
+        heaven = float(state.heaven)
+        hx = x2px(heaven * self.goal_position)
+        lx = x2px(-heaven * self.goal_position)
+        img[16:60, hx - 2:hx + 2] = (40, 160, 60)  # heaven flag
+        img[16:60, lx - 2:lx + 2] = (200, 50, 50)  # hell flag
+        cx = x2px(state.position)
+        img[46:60, max(cx - 5, 0):cx + 5] = (25, 25, 25)  # car
+        return img
 
     def reset_with(
         self, heaven_left: torch.Tensor, position: torch.Tensor

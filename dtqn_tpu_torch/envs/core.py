@@ -75,6 +75,17 @@ class Environment:
         """Padding sentinel for unseen observations."""
         raise NotImplementedError
 
+    @property
+    def obs_vocab_size(self) -> int:
+        """Discrete token vocabulary including the mask token (= mask + 1)."""
+        if self.obs_kind != ObsKind.DISCRETE:
+            raise ValueError("vocab size only defined for discrete obs")
+        return int(self.obs_mask) + 1
+
+    @property
+    def is_discrete(self) -> bool:
+        return self.obs_kind == ObsKind.DISCRETE
+
     # ---- batched dynamics (override in subclasses) ----
     def reset_env(
         self, generator: torch.Generator, num_envs: int, device

@@ -17,6 +17,7 @@ def build_network(
     model_str: str,
     env: Environment,
     *,
+    embed_per_obs_dim: int = 8,
     action_dim: int = 0,
     inner_embed: int = 128,
     num_heads: int = 8,
@@ -31,8 +32,10 @@ def build_network(
 ) -> DTQN:
     """Builds the network on the CPU; the caller moves it to its device."""
     if model_str in NOT_PORTED:
+        item = 10 if model_str == "DTQN-bag" else 12
         raise NotImplementedError(
-            f"model {model_str!r} is not ported yet; see ROADMAP.md queue 1"
+            f"model {model_str!r} is not ported yet; see ROADMAP.md queue 1 "
+            f"item {item}"
         )
     if model_str not in MODEL_MAP:
         raise KeyError(
@@ -43,6 +46,8 @@ def build_network(
         obs_kind=env.obs_kind,
         obs_shape=tuple(env.obs_shape),
         num_actions=env.num_actions,
+        vocab_size=env.obs_vocab_size if env.is_discrete else 0,
+        embed_per_obs_dim=embed_per_obs_dim,
         action_dim=action_dim,
         inner_embed=inner_embed,
         num_heads=num_heads,

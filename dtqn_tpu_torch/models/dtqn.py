@@ -32,6 +32,8 @@ class DTQN(nn.Module):
         obs_kind: ObsKind,
         obs_shape: Tuple[int, ...],
         num_actions: int,
+        vocab_size: int = 0,
+        embed_per_obs_dim: int = 8,
         action_dim: int = 0,
         inner_embed: int = 128,
         num_heads: int = 8,
@@ -47,11 +49,11 @@ class DTQN(nn.Module):
         super().__init__()
         if bag_size > 0:
             raise NotImplementedError(
-                "DTQN-bag is not ported yet; see ROADMAP.md queue 1"
+                "DTQN-bag is not ported yet; see ROADMAP.md queue 1 item 10"
             )
         if dropout > 0.0:
             raise NotImplementedError(
-                "dropout > 0 is not ported yet; see ROADMAP.md queue 1"
+                "dropout > 0 is not ported yet; see ROADMAP.md queue 1 item 12"
             )
         self.context_len = context_len
         self.action_dim = action_dim
@@ -59,6 +61,8 @@ class DTQN(nn.Module):
             features=inner_embed - action_dim,
             obs_kind=obs_kind,
             obs_shape=obs_shape,
+            vocab_size=vocab_size,
+            embed_per_obs_dim=embed_per_obs_dim,
             generator=generator,
         )
         self.action_embed = (

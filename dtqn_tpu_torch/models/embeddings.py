@@ -1,8 +1,9 @@
 """Observation / action embedders (``dtqn_tpu/models/embeddings.py``).
 
-Ported: the continuous-obs Linear (representations.py:64-75) and the action
-Embedding (representations.py:146-155).  Discrete-token and image
-embedders are not ported yet.
+Ported: the discrete-obs token Embedding -> flatten -> Linear
+(representations.py:26-52), the continuous-obs Linear
+(representations.py:64-75) and the action Embedding
+(representations.py:146-155).  The image embedder is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +15,25 @@ from torch import nn
 
 from dtqn_tpu_torch.envs.core import ObsKind
 from dtqn_tpu_torch.models.init import make_dense, normal_
+
+
+class DiscreteObsEmbedding(nn.Module):
+    """Per-dimension token embedding for (Multi)Discrete observations."""
+
+    def __init__(self, vocab_size: int, obs_dim: int, embed_per_obs_dim: int,
+                 features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.embedding = nn.Embedding(vocab_size, embed_per_obs_dim)
+        normal_(self.embedding.weight, generator)
+        self.dense_0 = make_dense(obs_dim * embed_per_obs_dim, features,
+                                  generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        # obs: [..., obs_dim] int32 tokens (mask token == vocab_size - 1),
+        # looked up as they are: no widening copy per call.
+        tok = self.embedding(obs)
+        return self.dense_0(tok.flatten(-2))
 
 
 class ContinuousObsEmbedding(nn.Module):
@@ -46,11 +66,19 @@ def make_obs_embedding(
     features: int,
     obs_kind: ObsKind,
     obs_shape: Sequence[int],
+    vocab_size: int = 0,
+    embed_per_obs_dim: int = 8,
     generator: Optional[torch.Generator] = None,
 ) -> nn.Module:
-    if obs_kind != ObsKind.CONTINUOUS:
+    """The obs embedder for the env's observation kind (dtqn.py:71-94)."""
+    if obs_kind == ObsKind.IMAGE:
         raise NotImplementedError(
-            f"{obs_kind.name} observation embedding is not ported yet; see "
-            "ROADMAP.md queue 1"
+            "IMAGE observation embedding is not ported yet; see ROADMAP.md "
+            "queue 1 item 11"
+        )
+    if obs_kind == ObsKind.DISCRETE:
+        return DiscreteObsEmbedding(
+            vocab_size, int(obs_shape[0]), embed_per_obs_dim, features,
+            generator,
         )
     return ContinuousObsEmbedding(int(obs_shape[0]), features, generator)

@@ -20,6 +20,7 @@ def make_gate(kind: str, features: int) -> nn.Module:
         return ResGate()
     if kind == "gru":
         raise NotImplementedError(
-            "the GRU gate is not ported yet; see ROADMAP.md queue 1"
+            "the GRU gate is not ported yet; see ROADMAP.md queue 1 "
+            "item 12"
         )
     raise ValueError("Gate must be one of `gru`, `res`")

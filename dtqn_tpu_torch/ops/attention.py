@@ -64,6 +64,6 @@ def dot_product_attention(
     if kv_mask is not None:
         raise NotImplementedError(
             "kv_mask (masked bag attention) is not ported yet; see "
-            "ROADMAP.md queue 1"
+            "ROADMAP.md queue 1 item 10"
         )
     return cuda_attention_packed(q, k, v, num_heads, causal)

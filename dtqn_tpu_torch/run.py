@@ -1,0 +1,37 @@
+"""CLI entry point: train a DTQN agent on one GPU.
+
+Flag-compatible with the reference CLI (run.py:16-184) and the JAX
+package's ``run.py``.  Examples:
+
+    python -m dtqn_tpu_torch.run --envs DiscreteCarFlag-v0 \
+        --num-steps 50000 --in-embed 64 --num-envs 64 --verbose
+
+    # On the CPU (the default is the GPU, and fails when there is none):
+    python -m dtqn_tpu_torch.run --device cpu --envs Memory-5-v0 \
+        --num-steps 2000 --verbose
+"""
+
+from dtqn_tpu_torch.config import get_args
+
+
+def main(argv=None) -> dict:
+    config = get_args(argv)
+    if any(n.startswith("MH-") for n in config.envs):
+        raise NotImplementedError(
+            "MiniHack envs (the host-loop runner) are not ported yet; see "
+            "ROADMAP.md queue 1 item 14"
+        )
+    if len(config.seeds) > 1:
+        raise NotImplementedError(
+            "--seeds with more than one seed (the multi-seed sweep) is not "
+            "ported yet; see ROADMAP.md queue 1 item 14"
+        )
+    from dtqn_tpu_torch.train.runner import run_experiment
+
+    if config.seeds:
+        config.seed = config.seeds[0]
+    return run_experiment(config)
+
+
+if __name__ == "__main__":
+    main()

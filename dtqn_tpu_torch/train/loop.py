@@ -4,19 +4,28 @@ One iteration steps E envs in lockstep, writes the transitions into the
 device replay ring, and runs ``updates_per_iter`` gradient steps (the
 reference's 1 update per env step is ``updates_per_iter == num_envs``).
 The JAX package scans these loops under ``jit``; here they are Python loops
-over device work that never reads a value back to the host.  The scan
-knobs (``unroll``, ``outer_unroll``, ``presample``) have no counterpart,
-and evaluation waits for the runner slice (ROADMAP.md queue 1).
+over device work that never reads a value back to the host (evaluation
+reads one flag every ``EVAL_EXIT_CHECK_EVERY`` steps, to stop once every
+episode is over).  The scan knobs (``unroll``, ``outer_unroll``,
+``presample``) have no counterpart.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
 
+from dtqn_tpu_torch import replay
 from dtqn_tpu_torch.agents.base import Agent, AgentState
+from dtqn_tpu_torch.envs.core import Environment, where_batch
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+
+# Evaluation freezes finished episodes and could run all max_episode_steps
+# steps without a host read, as the JAX scan does.  Reading
+# ``finished.all()`` every this many steps lets it stop early with the same
+# results; 0 never reads.
+EVAL_EXIT_CHECK_EVERY = 10
 
 
 def env_step(
@@ -87,3 +96,59 @@ def make_prepopulate_fn(
         return state
 
     return prepopulate
+
+
+def make_evaluate_fn(
+    agent: Agent, eval_env: Environment, eval_episodes: int
+) -> Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Greedy-policy evaluation (run.py:187-243): ``evaluate(network,
+    generator)`` runs ``eval_episodes`` parallel episodes on fresh contexts
+    and returns (success_rate, mean_return, mean_ep_len) as device scalars.
+    ``generator`` (on the agent's device) supplies every draw, so the
+    training stream is left alone."""
+    cfg = agent.config
+    n = eval_episodes
+    max_steps = eval_env.max_episode_steps
+
+    @torch.no_grad()
+    def evaluate(network, generator):
+        device = agent.device
+        obs, env_state = eval_env.reset_vec(generator, n, device)
+        context = replay.init_context(
+            generator, n, cfg.context_len, tuple(eval_env.obs_shape),
+            eval_env.obs_dtype, eval_env.obs_mask, eval_env.num_actions, obs,
+        )
+        finished = torch.zeros((n,), dtype=torch.bool, device=device)
+        ep_reward = torch.zeros((n,), dtype=torch.float32, device=device)
+        ep_len = torch.zeros((n,), dtype=torch.int32, device=device)
+        success = torch.zeros((n,), dtype=torch.bool, device=device)
+
+        for t in range(max_steps):
+            actions = agent.greedy_actions(network, context)
+            _, env_state_t, ts = eval_env.step(generator, env_state, actions)
+            live = ~finished
+            ep_reward = ep_reward + ts.reward * live
+            done_now = live & ts.done
+            # success = is_success flag or positive return (run.py:232)
+            succ = ts.info["is_success"] | (ep_reward > 0)
+            context_t, _, _, _ = replay.add_transition(
+                context, ts.obs, actions, ts.reward, ts.terminated
+            )
+            # Finished episodes stay frozen; live ones advance.
+            context = where_batch(live, context_t, context)
+            env_state = where_batch(live, env_state_t, env_state)
+            finished = finished | ts.done
+            ep_len = ep_len + live.to(torch.int32)
+            success = torch.where(done_now, succ, success)
+            if (EVAL_EXIT_CHECK_EVERY and (t + 1) % EVAL_EXIT_CHECK_EVERY == 0
+                    and bool(finished.all())):
+                break
+
+        episodes = max(n, 1)
+        return (
+            success.sum() / episodes,
+            ep_reward.sum() / episodes,
+            ep_len.sum() / episodes,
+        )
+
+    return evaluate

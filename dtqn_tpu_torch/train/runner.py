@@ -1,0 +1,314 @@
+"""Experiment orchestration: the host-side shell around the train loop
+(``dtqn_tpu/train/runner.py``).
+
+As the reference's run.py:408-529 (``run_experiment``): env construction,
+seeding, agent build, resume-or-prepopulate, the train loop with periodic
+evaluation / logging / policy saves, slurm-style time-limit checkpointing,
+and the mini-checkpoint completion sentinel.
+
+The host does config, logging and checkpoint I/O, and reads device values
+only at chunk boundaries; each chunk of ``eval_frequency`` env steps is one
+call of the train loop (train/loop.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dtqn_tpu_torch import replay
+from dtqn_tpu_torch.agents import Agent
+from dtqn_tpu_torch.config import ExperimentConfig
+from dtqn_tpu_torch.envs import make_env
+from dtqn_tpu_torch.train.loop import (
+    make_evaluate_fn,
+    make_prepopulate_fn,
+    make_train_chunk_fn,
+)
+from dtqn_tpu_torch.utils import checkpoint as ckpt
+from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+from dtqn_tpu_torch.utils.logging import get_logger, timestamp
+from dtqn_tpu_torch.utils.rng import seed_everything
+
+
+def require_ported(config: ExperimentConfig) -> None:
+    """Raises for the flags that only the runner reads and that belong to
+    parts not ported yet, naming the ROADMAP item: no flag is silently
+    ignored.  (The agent, the network and ``make_env`` refuse theirs.)"""
+    not_ported = [
+        (config.bf16, "--bf16", 13),
+        (config.dp_devices > 1, "--dp-devices above 1", 14),
+        (bool(config.profile_dir), "--profile-dir", 14),
+    ]
+    for is_set, what, item in not_ported:
+        if is_set:
+            raise NotImplementedError(
+                f"{what} is not ported yet; see ROADMAP.md queue 1 item {item}"
+            )
+
+
+def _first_env(env_state):
+    """The state of env 0 as scalars, for ``render_frame``."""
+    return dataclasses.replace(env_state, **{
+        f.name: getattr(env_state, f.name)[0].cpu()
+        for f in dataclasses.fields(env_state)
+    })
+
+
+@torch.no_grad()
+def _render_episode(agent, env, network, generator,
+                    policy_path) -> Optional[str]:
+    """Greedy rollout of one episode with per-step frames, saved as one
+    vertical PNG strip (every 10th frame).  Headless stand-in for the
+    reference's pyglet enjoy loop (run.py:463-467)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+
+    cfg = agent.config
+    obs, env_state = env.reset_vec(generator, 1, agent.device)
+    context = replay.init_context(
+        generator, 1, cfg.context_len, tuple(env.obs_shape),
+        env.obs_dtype, env.obs_mask, env.num_actions, obs,
+    )
+    frames = []
+    for _ in range(env.max_episode_steps):
+        frames.append(env.render_frame(_first_env(env_state)))
+        actions = agent.greedy_actions(network, context)
+        obs, env_state, ts = env.step(generator, env_state, actions)
+        context, *_ = replay.add_transition(
+            context, ts.obs, actions, ts.reward, ts.terminated
+        )
+        if bool(ts.done[0]):
+            frames.append(env.render_frame(_first_env(env_state)))
+            break
+    # Tail frame only when frames[::10] didn't already end on it.
+    tail = frames[-1:] if (len(frames) - 1) % 10 else []
+    strip = np.concatenate(frames[::10] + tail, axis=0)
+    path = policy_path + "_enjoy.png"
+    Image.fromarray(strip).save(path)
+    return path
+
+
+class HostRunningAverage:
+    """Host-side windowed mean for eval metrics (logging_utils.py:10-24)."""
+
+    def __init__(self, size: int, values=None):
+        self.size = size
+        self.q = deque(values or [], maxlen=size)
+
+    def add(self, val: float) -> None:
+        self.q.append(float(val))
+
+    def mean(self) -> float:
+        return sum(self.q) / max(len(self.q), 1)
+
+    def to_list(self):
+        return list(self.q)
+
+
+def build_envs(config: ExperimentConfig):
+    """(train_env, eval_envs) for the configured domain list; several
+    domains (a new one per episode, run.py:287) are not ported yet."""
+    names = config.envs
+    if len(names) != 1:
+        raise NotImplementedError(
+            "several --envs (envs/multi.py) are not ported yet; see "
+            "ROADMAP.md queue 1 item 11"
+        )
+    return make_env(names[0]), [make_env(names[0])]
+
+
+def run_experiment(config: ExperimentConfig) -> dict:
+    """Train per the config; returns final metrics for programmatic use.
+
+    Runs on ``config.device``: the card by default (raising when there is
+    none), the CPU only when the config says ``cpu``.
+    """
+    start_time = time.time()
+    require_ported(config)
+
+    env, eval_envs = build_envs(config)
+    if config.max_episode_steps > 0:
+        env.max_episode_steps = config.max_episode_steps
+        for e in eval_envs:
+            e.max_episode_steps = config.max_episode_steps
+
+    agent = Agent(config.agent_config(), env, device=config.device)
+    device = agent.device
+    # LinearAnneal(1.0, 0.1, num_steps/10) (run.py:420); --eps-min raises
+    # the floor (default keeps the reference 0.1).
+    eps = EpsilonSchedule(
+        1.0, config.eps_min, max(config.num_steps // 10, 1)
+    )
+
+    state = agent.init_state(seed_everything(config.seed))
+
+    os.makedirs(config.policy_dir(), exist_ok=True)
+    policy_path = config.policy_path()
+
+    if config.verbose:
+        print(
+            f"[ {timestamp()} ] Creating {config.model} with "
+            f"{state.params.numel()} parameters"
+        )
+
+    # Enjoy mode: load a saved policy and report greedy performance
+    # (run.py:463-467).  Envs exposing ``render_frame`` (e.g. CarFlag)
+    # additionally get an episode image strip saved next to the policy.
+    if config.render:
+        network = ckpt.load_policy(policy_path, state.network)
+        ev = make_evaluate_fn(agent, eval_envs[0], config.eval_episodes)
+        sr, ret, ln = ev(
+            network,
+            torch.Generator(device=device).manual_seed(config.seed + 1),
+        )
+        print(
+            f"[enjoy] SuccessRate={float(sr):.2f} Return={float(ret):.2f} "
+            f"EpisodeLength={float(ln):.1f}"
+        )
+        out = {"success_rate": float(sr), "return": float(ret)}
+        if hasattr(eval_envs[0], "render_frame"):
+            path = _render_episode(
+                agent, eval_envs[0], network,
+                torch.Generator(device=device).manual_seed(config.seed + 2),
+                policy_path,
+            )
+            if path:
+                print(f"[enjoy] episode strip saved to {path}")
+                out["render_path"] = path
+        return out
+
+    mean_success_rate = HostRunningAverage(10)
+    mean_reward = HostRunningAverage(10)
+    mean_episode_length = HostRunningAverage(10)
+
+    # Resume-or-exit protocol (run.py:471-495).
+    mini = ckpt.load_mini_checkpoint(policy_path)
+    wandb_kwargs = {}
+    if mini is not None:
+        if mini["step"] >= config.num_steps:
+            print(
+                f"Found completed run ({mini['step']} steps); nothing to do."
+            )
+            return {"completed": True, "step": mini["step"]}
+        if ckpt.has_checkpoint(policy_path):
+            state, extra = ckpt.load_checkpoint(policy_path, state)
+            mean_success_rate = HostRunningAverage(
+                10, extra.get("mean_success_rate")
+            )
+            mean_reward = HostRunningAverage(10, extra.get("mean_reward"))
+            mean_episode_length = HostRunningAverage(
+                10, extra.get("mean_episode_length")
+            )
+            wandb_kwargs = {"resume": "must", "id": mini.get("wandb_id")}
+            print(f"Resumed from checkpoint at {int(state.env_steps)} steps.")
+    else:
+        # Prepopulate the replay buffer with random experience (run.py:495).
+        prepop_iters = max(config.prepop_steps // config.num_envs, 1)
+        state = make_prepopulate_fn(agent, prepop_iters)(state)
+
+    logger = get_logger(policy_path, config, wandb_kwargs)
+    # wandb run id rides the mini checkpoint so resume can reattach with
+    # resume="must" (run.py:482-490, 527); None under CSV logging.
+    wandb_id = getattr(getattr(logger, "run", None), "id", None)
+
+    train_chunk = make_train_chunk_fn(
+        agent,
+        eps,
+        config.resolved_updates_per_iter,
+        config.resolved_iters_per_chunk,
+    )
+    evaluators = [
+        make_evaluate_fn(agent, e, config.eval_episodes) for e in eval_envs
+    ]
+
+    time_budget = (
+        config.time_limit * 3600 - (time.time() - start_time)
+        if config.time_limit
+        else None
+    )
+
+    last_policy_save = int(state.env_steps)
+    final_log = {}
+    while int(state.env_steps) < config.num_steps:
+        state = train_chunk(state)
+        step = int(state.env_steps)
+        hours = (time.time() - start_time) / 3600
+
+        if int(state.nonfinite_grads) > 0:
+            # The reference's error_if_nonfinite grad clip fails loudly
+            # (dqn.py:196-200); surface it here at the host boundary.
+            raise FloatingPointError(
+                f"{int(state.nonfinite_grads)} non-finite gradient steps"
+            )
+
+        log_vals = {
+            **{k: float(v) for k, v in state.diagnostics.means().items()},
+            "losses/hours": hours,
+        }
+        # Evaluation draws from generators of its own, seeded by one draw
+        # from the train stream: that stream advances by the same amount
+        # whatever the evaluation does.
+        eval_seed = int(torch.randint(
+            0, 2**31 - 1, (), generator=state.generator, device=device
+        ))
+        for i, (name, evaluate) in enumerate(zip(config.envs, evaluators)):
+            sr, ret, ln = evaluate(
+                state.network,
+                torch.Generator(device=device).manual_seed(eval_seed + i),
+            )
+            log_vals[f"{name}/SuccessRate"] = float(sr)
+            log_vals[f"{name}/Return"] = float(ret)
+            log_vals[f"{name}/EpisodeLength"] = float(ln)
+            mean_success_rate.add(float(sr))
+            mean_reward.add(float(ret))
+            mean_episode_length.add(float(ln))
+        logger.log(log_vals, step=step)
+        final_log = log_vals
+
+        if config.verbose:
+            name = config.envs[-1]
+            print(
+                f"[ {timestamp()} ] Steps: {step}, "
+                f"Env: {name}, "
+                f"Success Rate: {log_vals[f'{name}/SuccessRate']:.2f}, "
+                f"Return: {log_vals[f'{name}/Return']:.2f}, "
+                f"Episode Length: {log_vals[f'{name}/EpisodeLength']:.2f}, "
+                f"Hours: {hours:.2f}"
+            )
+
+        # Policy snapshot every 50k env steps (run.py:337-338).
+        if config.save_policy and step - last_policy_save >= 50_000:
+            ckpt.save_policy(policy_path, state.network)
+            last_policy_save = step
+
+        # Slurm-style time-limit checkpoint (run.py:340-353).
+        if time_budget and time.time() - start_time >= time_budget:
+            print(
+                f"Reached time limit. Saving checkpoint at {step} steps."
+            )
+            ckpt.save_checkpoint(
+                policy_path,
+                state,
+                extra={
+                    "mean_success_rate": mean_success_rate.to_list(),
+                    "mean_reward": mean_reward.to_list(),
+                    "mean_episode_length": mean_episode_length.to_list(),
+                },
+            )
+            ckpt.save_mini_checkpoint(policy_path, step, wandb_id)
+            return final_log
+
+    # Completion sentinel (run.py:527-529).
+    ckpt.save_mini_checkpoint(policy_path, int(state.env_steps), wandb_id)
+    if config.save_policy:
+        ckpt.save_policy(policy_path, state.network)
+    return final_log

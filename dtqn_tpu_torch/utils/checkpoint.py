@@ -1,0 +1,139 @@
+"""Two-tier checkpoint / resume protocol (``dtqn_tpu/utils/checkpoint.py``).
+
+As the reference (dqn.py:212-327, run.py:471-490):
+  1. *Mini checkpoint*: ``{step, wandb_id}`` sentinel written on completion
+     (dqn.py:212-220), JSON, same file name and keys as the JAX package.
+  2. *Full checkpoint*: the complete training state: parameters, target,
+     optimizer state, the entire replay ring, contexts, env state, counters,
+     epsilon, loss running averages and the generator's state.
+  3. Plain policy weights every 50k steps under ``--save-policy``
+     (run.py:337-338).
+
+``torch.save`` / ``torch.load`` over tensors copied to the host.  Restoring
+needs a template state of the same configuration and copies into its
+tensors in place: the networks' parameters are views into the flat
+``params`` / ``target_params`` vectors, and a rebound vector would leave the
+optimizer updating memory the network no longer reads.  A generator's state
+loads only into a generator of the same device kind, so a checkpoint
+resumes on the device kind it was written on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import torch
+from torch import nn
+
+_GENERATOR_DEVICE = "generator_device"
+
+
+def save_mini_checkpoint(path: str, step: int, wandb_id: Optional[str]) -> None:
+    with open(path + "_mini_checkpoint.json", "w") as f:
+        json.dump({"step": step, "wandb_id": wandb_id}, f)
+
+
+def load_mini_checkpoint(path: str) -> Optional[Dict[str, Any]]:
+    mini = path + "_mini_checkpoint.json"
+    if not os.path.exists(mini):
+        return None
+    with open(mini) as f:
+        return json.load(f)
+
+
+def _leaves(node: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted name, tensor or generator) for every leaf of a dataclass
+    tree.  Modules are left out: their parameters are views of a leaf."""
+    for field in dataclasses.fields(node):
+        value = getattr(node, field.name)
+        name = prefix + field.name
+        if isinstance(value, (torch.Tensor, torch.Generator)):
+            yield name, value
+        elif dataclasses.is_dataclass(value):
+            yield from _leaves(value, name + ".")
+        elif not isinstance(value, nn.Module):
+            raise TypeError(f"cannot checkpoint {name}: {type(value)}")
+
+
+def save_checkpoint(
+    path: str,
+    state: Any,
+    *,
+    extra: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Full checkpoint: every tensor of the AgentState and its generator's
+    state, plus host-side extras (the eval running averages)."""
+    payload: Dict[str, Any] = {}
+    for name, leaf in _leaves(state):
+        if isinstance(leaf, torch.Generator):
+            payload[name] = leaf.get_state()
+            payload[_GENERATOR_DEVICE] = leaf.device.type
+        else:
+            payload[name] = leaf.detach().cpu()
+    torch.save(payload, path + "_checkpoint.pt")
+    with open(path + "_checkpoint_extra.json", "w") as f:
+        json.dump(extra or {}, f)
+
+
+def has_checkpoint(path: str) -> bool:
+    return os.path.exists(path + "_checkpoint.pt")
+
+
+def load_checkpoint(path: str, template_state: Any) -> Tuple[Any, Dict[str, Any]]:
+    """Restore a full checkpoint into ``template_state``'s own tensors (in
+    place) and return it with the extras."""
+    payload = torch.load(path + "_checkpoint.pt", map_location="cpu",
+                         weights_only=True)
+    leaves = dict(_leaves(template_state))
+    missing = set(leaves) ^ (set(payload) - {_GENERATOR_DEVICE})
+    if missing:
+        raise ValueError(
+            f"checkpoint {path!r} does not fit this configuration: "
+            f"{sorted(missing)} differ"
+        )
+    with torch.no_grad():
+        for name, leaf in leaves.items():
+            saved = payload[name]
+            if isinstance(leaf, torch.Generator):
+                written_on = payload[_GENERATOR_DEVICE]
+                if written_on != leaf.device.type:
+                    raise RuntimeError(
+                        f"checkpoint {path!r} was written on {written_on!r} "
+                        f"and resumes only there, not on "
+                        f"{leaf.device.type!r}: a generator's state does not "
+                        "carry over between device kinds"
+                    )
+                leaf.set_state(saved)
+            elif saved.shape != leaf.shape or saved.dtype != leaf.dtype:
+                raise ValueError(
+                    f"checkpoint {path!r} does not fit this configuration: "
+                    f"{name} is {tuple(saved.shape)} {saved.dtype}, expected "
+                    f"{tuple(leaf.shape)} {leaf.dtype}"
+                )
+            else:
+                leaf.copy_(saved)
+    extra_path = path + "_checkpoint_extra.json"
+    extra: Dict[str, Any] = {}
+    if os.path.exists(extra_path):
+        with open(extra_path) as f:
+            extra = json.load(f)
+    return template_state, extra
+
+
+def save_policy(path: str, network: nn.Module) -> None:
+    """Policy-weights-only snapshot (run.py:337-338)."""
+    weights = {
+        k: v.detach().cpu().clone() for k, v in network.state_dict().items()
+    }
+    torch.save(weights, path + "_policy.pt")
+
+
+def load_policy(path: str, network: nn.Module) -> nn.Module:
+    """Loads a snapshot into ``network``'s own parameters, in place."""
+    weights = torch.load(path + "_policy.pt", map_location="cpu",
+                         weights_only=True)
+    network.load_state_dict(weights, strict=True)
+    return network

@@ -1,0 +1,221 @@
+"""Port evaluation vs the JAX package's: the same parameters (through the
+bridge) and the same start states (the JAX run's reset states, patched into
+the port env's ``reset_vec``) must give the same greedy action at every
+step and the same (success rate, return, length): counts exact, return
+atol 1e-5.  CarFlag's dynamics are deterministic, so the start states fix
+the whole episode.
+"""
+
+import glob
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+from dtqn_tpu import replay as jax_replay
+from dtqn_tpu.agents import Agent as JaxAgent
+from dtqn_tpu.agents import AgentConfig as JaxConfig
+from dtqn_tpu.envs import make_env as jax_make_env
+from dtqn_tpu.train.loop import make_evaluate as jax_make_evaluate
+from dtqn_tpu_torch.agents import Agent, AgentConfig
+from dtqn_tpu_torch.bridge import params_from_jax
+from dtqn_tpu_torch.envs import make_env
+from dtqn_tpu_torch.envs.car_flag import CarFlagState
+from dtqn_tpu_torch.train import loop
+from dtqn_tpu_torch.train.loop import make_evaluate_fn
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+POLICY = glob.glob(os.path.join(
+    REPO, "policies", "**",
+    "model=DTQN_*in_embed=64_*_seed=1_policy.msgpack",
+), recursive=True)
+ENV = "DiscreteCarFlag-v0"
+
+
+def jax_rollout(jagent, jenv, params, key, n):
+    """The JAX evaluation's episodes, stepped one by one: the start states
+    it resets to (numpy) and the greedy actions of every step."""
+    k_env, k_ctx, _ = jax.random.split(key, 3)
+    obs, env_state = jenv.reset_vec(jax.random.split(k_env, n))
+    cfg = jagent.config
+    context = jax_replay.init_context(
+        k_ctx, n, cfg.context_len, tuple(jenv.obs_shape), jenv.obs_dtype,
+        jenv.obs_mask, jenv.num_actions, obs,
+    )
+    start = jax.tree_util.tree_map(np.asarray, env_state)
+
+    @jax.jit
+    def step(context, env_state):
+        actions, _ = jagent.greedy_actions(params, context, None, None, None)
+        keys = jax.random.split(jax.random.key(0), n)
+        _, new_state, ts = jax.vmap(jenv.step)(keys, env_state, actions)
+        context, *_ = jax_replay.add_transition(
+            context, ts.obs, actions, ts.reward, ts.terminated
+        )
+        return context, new_state, actions, ts.done
+
+    finished = np.zeros(n, bool)
+    actions_per_step = []
+    for _ in range(jenv.max_episode_steps):
+        new_context, new_state, actions, done = step(context, env_state)
+        live = ~finished
+        actions_per_step.append((np.asarray(actions), live.copy()))
+        # Freeze what has finished, as the evaluation's done-latch does.
+        keep = lambda o, nw: jnp.where(  # noqa: E731
+            live.reshape((-1,) + (1,) * (nw.ndim - 1)), nw, o)
+        context = jax.tree_util.tree_map(keep, context, new_context)
+        env_state = jax.tree_util.tree_map(keep, env_state, new_state)
+        finished |= np.asarray(done)
+    return start, actions_per_step
+
+
+def port_evaluate(agent, env, network, start, n, monkeypatch):
+    """The port's evaluation from the given start states, with the greedy
+    actions of every step recorded."""
+    def reset_vec(generator, num_envs, device):
+        assert num_envs == n
+        state = CarFlagState(
+            position=torch.tensor(start.position),
+            velocity=torch.tensor(start.velocity),
+            heaven=torch.tensor(start.heaven),
+            t=torch.tensor(start.t),
+        )
+        return env._observe(state), state
+
+    monkeypatch.setattr(env, "reset_vec", reset_vec)
+    recorded = []
+    greedy = agent.greedy_actions
+
+    def recording(network, context):
+        actions = greedy(network, context)
+        recorded.append(actions.numpy().copy())
+        return actions
+
+    monkeypatch.setattr(agent, "greedy_actions", recording)
+    evaluate = make_evaluate_fn(agent, env, n)
+    out = evaluate(network, torch.Generator().manual_seed(0))
+    return [float(x) for x in out], recorded
+
+
+def compare(jagent, jenv, params, agent, env, network, n, monkeypatch,
+            key=7):
+    key = jax.random.key(key)
+    sr, ret, ln = (float(x) for x in
+                   jax_make_evaluate(jagent, jenv, n)(params, key))
+    start, jax_actions = jax_rollout(jagent, jenv, params, key, n)
+    (t_sr, t_ret, t_ln), actions = port_evaluate(
+        agent, env, network, start, n, monkeypatch)
+    # The port stops once every episode is over; up to there, every live
+    # episode takes the JAX package's greedy action.
+    assert 0 < len(actions) <= len(jax_actions)
+    for got, (want, live) in zip(actions, jax_actions):
+        np.testing.assert_array_equal(got[live], want[live])
+    assert not any(live.any() for _, live in jax_actions[len(actions):])
+    # Counts exact (successes, summed steps); their float32 means may round
+    # the division by n differently, by an ulp.
+    assert round(t_sr * n) == round(sr * n)
+    assert round(t_ln * n) == round(ln * n)
+    np.testing.assert_allclose([t_sr, t_ln], [sr, ln], rtol=1e-6)
+    np.testing.assert_allclose(t_ret, ret, atol=1e-5)
+    return sr, ret, ln, len(actions)
+
+
+def test_eval_matches_jax_fresh_network(monkeypatch):
+    kw = dict(inner_embed=16, num_heads=2, num_layers=2, context_len=8,
+              history=8)
+    jenv, env = jax_make_env(ENV), make_env(ENV)
+    jenv.max_episode_steps = env.max_episode_steps = 60
+    jagent = JaxAgent(JaxConfig(model="DTQN", num_envs=4, **kw), jenv)
+    agent = Agent(AgentConfig(model="DTQN", num_envs=4, **kw), env,
+                  device="cpu")
+    params = jagent.network.init(
+        jax.random.key(3), jnp.zeros((2, 8, 3)), jnp.zeros((2, 8), jnp.int32))
+    # Larger weights than the N(0, 0.02) init, so actions vary over time.
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(
+        lambda x: (np.asarray(x) + 0.3 * rng.standard_normal(x.shape))
+        .astype(np.float32), params)
+    network = agent.build_network()
+    network.load_state_dict(params_from_jax(params), strict=True)
+    sr, ret, ln, steps = compare(jagent, jenv, params, agent, env, network,
+                                 6, monkeypatch)
+    assert 1.0 <= ln <= 60.0 and 0.0 <= sr <= 1.0
+
+
+@pytest.mark.skipif(not POLICY, reason="trained CarFlag DTQN policy absent")
+def test_eval_matches_jax_trained_policy(monkeypatch):
+    with open(POLICY[0], "rb") as f:
+        params = serialization.msgpack_restore(f.read())
+    kw = dict(inner_embed=64, num_heads=8, num_layers=2, context_len=50)
+    jenv, env = jax_make_env(ENV), make_env(ENV)
+    jagent = JaxAgent(JaxConfig(model="DTQN", num_envs=4, **kw), jenv)
+    agent = Agent(AgentConfig(model="DTQN", num_envs=4, **kw), env,
+                  device="cpu")
+    network = agent.build_network()
+    network.load_state_dict(params_from_jax(params), strict=True)
+    sr, ret, ln, steps = compare(jagent, jenv, params, agent, env, network,
+                                 5, monkeypatch)
+    # The trained policy does reach a flag, and evaluation stops early.
+    assert ln < 200.0 and steps < 200
+
+
+def small_agent(env_name=ENV, max_steps=60):
+    env = make_env(env_name)
+    env.max_episode_steps = max_steps
+    cfg = AgentConfig(num_envs=3, inner_embed=16, num_heads=2, context_len=6,
+                      history=6, embed_per_obs_dim=4)
+    agent = Agent(cfg, env, device="cpu")
+    return agent, env, agent.build_network(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("env_name", [ENV, "Memory-5-v0"])
+def test_early_exit_changes_no_result(monkeypatch, env_name):
+    """Reading ``finished.all()`` every step, every 10 steps or never gives
+    the same three numbers: finished episodes are frozen either way."""
+    agent, env, network = small_agent(env_name)
+    if env_name == ENV:
+        # Drive right always: every episode ends well before the cap.
+        monkeypatch.setattr(
+            agent, "greedy_actions",
+            lambda net, ctx: torch.full((5,), 2, dtype=torch.int64))
+    calls, results = [], []
+    step = env.step
+    monkeypatch.setattr(
+        env, "step", lambda *a: calls.append(1) or step(*a))
+    for every in (0, 1, 10):
+        monkeypatch.setattr(loop, "EVAL_EXIT_CHECK_EVERY", every)
+        del calls[:]
+        out = make_evaluate_fn(agent, env, 5)(
+            network, torch.Generator().manual_seed(4))
+        results.append([float(x) for x in out] + [len(calls)])
+    assert results[0][:3] == results[1][:3] == results[2][:3]
+    assert results[0][3] == 60
+    assert results[1][3] <= results[2][3] <= 60
+    if env_name == ENV:
+        assert results[2][3] < 60 and 0.0 < results[0][0] < 1.0
+        assert results[0][2] <= results[1][3]  # mean length <= longest
+    else:
+        # A constant pick cannot clear the table: all 60 steps, -1 each
+        # apart from the rare lucky pair.
+        assert results[0][2] == 60.0 and results[0][1] <= -55.0
+
+
+def test_eval_returns_device_scalars_and_leaves_training_alone():
+    agent, env, _ = small_agent()
+    state = agent.init_state(0)
+    before = state.generator.get_state().clone()
+    context = state.context.obs.clone()
+    out = make_evaluate_fn(agent, env, 4)(
+        state.network, torch.Generator().manual_seed(1))
+    assert all(isinstance(x, torch.Tensor) and x.shape == () for x in out)
+    assert torch.equal(state.generator.get_state(), before)
+    assert torch.equal(state.context.obs, context)
+    assert int(state.env_steps) == 0
+    # The same generator seed gives the same evaluation.
+    again = make_evaluate_fn(agent, env, 4)(
+        state.network, torch.Generator().manual_seed(1))
+    assert [float(x) for x in out] == [float(x) for x in again]

@@ -34,7 +34,18 @@ def imported_roots(path):
 
 def test_port_imports_no_jax():
     paths = port_sources()
-    assert len(paths) > 20
+    names = {os.path.relpath(p, REPO) for p in paths}
+    # The scan really walks the package: the runner slice's modules are in.
+    assert names >= {
+        "chip_smoke.py", "dtqn_tpu_torch/run.py", "dtqn_tpu_torch/bench.py",
+        "dtqn_tpu_torch/config.py", "dtqn_tpu_torch/bridge.py",
+        "dtqn_tpu_torch/train/runner.py", "dtqn_tpu_torch/train/loop.py",
+        "dtqn_tpu_torch/envs/memory_cards.py",
+        "dtqn_tpu_torch/utils/checkpoint.py",
+        "dtqn_tpu_torch/utils/logging.py", "dtqn_tpu_torch/utils/rng.py",
+        "dtqn_tpu_torch/ops/cuda_attention.py",
+    }
+    assert len(paths) > 30
     offenders = {
         os.path.relpath(p, REPO): root
         for p in paths for root in imported_roots(p) if root in FORBIDDEN
@@ -55,6 +66,50 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Agent(cfg, env, device="cuda")
     assert Agent(cfg, env, device="cpu").device.type == "cpu"
+
+
+def test_runner_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
+                                                           tmp_path):
+    from dtqn_tpu_torch import bench, run
+    from dtqn_tpu_torch.config import ExperimentConfig, get_args
+    from dtqn_tpu_torch.train.runner import run_experiment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    assert ExperimentConfig().device == "cuda" == get_args([]).device
+    small = ["--in-embed", "16", "--heads", "2", "--context", "4",
+             "--num-envs", "2"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_experiment(get_args(small))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(small + ["--device", "cuda"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main(["--iters", "1", "--device", "cuda:0"])
+    assert not os.listdir(tmp_path)  # nothing ran, nothing was written
+
+
+def test_evaluate_runs_where_the_agent_is(monkeypatch):
+    """``make_evaluate_fn`` has no device of its own: it evaluates on the
+    agent's, and an agent is on the CPU only when the caller asked."""
+    from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.envs import make_env
+    from dtqn_tpu_torch.train.loop import make_evaluate_fn
+
+    env = make_env("DiscreteCarFlag-v0")
+    env.max_episode_steps = 5
+    cfg = AgentConfig(num_envs=2, inner_embed=16, num_heads=2,
+                      context_len=4, history=4)
+    agent = Agent(cfg, env, device="cpu")
+    network = agent.build_network()
+    out = make_evaluate_fn(agent, env, 2)(network, torch.Generator())
+    assert all(x.device.type == "cpu" for x in out)
+    # Told that it sits on the card, it asks the card for every tensor and
+    # does not carry on on the CPU.
+    monkeypatch.setattr(agent, "device", torch.device("cuda"))
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        make_evaluate_fn(agent, env, 2)(network, torch.Generator())
 
 
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):

@@ -137,7 +137,7 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_network(model, env)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("Memory-5-v0")
+        make_env("ImageMaze-9-v0")
 
 
 def _contexts(seed, e, length):

@@ -1,0 +1,498 @@
+"""The port's runner path on the CPU: config and CLI, CSV logs, checkpoints,
+``run_experiment`` (sentinel, time-limit checkpoint, resume, enjoy mode),
+the entry module and the benchmark script.  Where the JAX package has the
+same piece (config, CSV logger, rendering) both get the same inputs and
+must agree exactly.
+"""
+
+import csv
+import dataclasses
+import json
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from dtqn_tpu.config import ExperimentConfig as JaxExperimentConfig
+from dtqn_tpu.config import get_args as jax_get_args
+from dtqn_tpu.envs.car_flag import CarFlag as JaxCarFlag
+from dtqn_tpu.envs.car_flag import CarFlagState as JaxCarFlagState
+from dtqn_tpu.utils import logging as jax_logging
+from dtqn_tpu_torch import bench, run
+from dtqn_tpu_torch.agents import Agent, AgentConfig
+from dtqn_tpu_torch.config import ExperimentConfig, get_args
+from dtqn_tpu_torch.envs import make_env
+from dtqn_tpu_torch.envs.car_flag import CarFlagState
+from dtqn_tpu_torch.train.loop import (
+    make_prepopulate_fn,
+    make_train_chunk_fn,
+)
+from dtqn_tpu_torch.train.runner import (
+    HostRunningAverage,
+    build_envs,
+    run_experiment,
+)
+from dtqn_tpu_torch.utils import checkpoint as ckpt
+from dtqn_tpu_torch.utils import logging as port_logging
+from dtqn_tpu_torch.utils.checkpoint import _leaves
+from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+from dtqn_tpu_torch.utils.rng import seed_everything
+
+RESULT_HEAD = ["Hours", "Step", "{e}/SuccessRate", "{e}/EpisodeLength",
+               "{e}/Return"]
+LOSS_HEAD = ["Hours", "Step", "TD Error", "Grad Norm", "Max Q Value",
+             "Mean Q Value", "Min Q Value", "Max Target Value",
+             "Mean Target Value", "Min Target Value"]
+
+
+# ------------------------------------------------------------ config, CLI
+ARGVS = [
+    [],
+    ["--envs", "DiscreteCarFlag-v0", "--in-embed", "64", "--num-envs", "64",
+     "--verbose"],
+    ["--envs", "Memory-5-v0", "--obs-embed", "4", "--a-embed", "2",
+     "--context", "20", "--history", "10", "--heads", "4", "--layers", "3",
+     "--batch", "16", "--seed", "7", "--eps-min", "0.3", "--save-policy"],
+    ["--envs", "a/b.pomdp", "gv_memory.7x7.yaml", "--project-name", "p",
+     "--bag-size", "5", "--bag-mask", "--bag-store", "--gate", "gru",
+     "--identity", "--pos", "sin", "--model", "DTQN-bag"],
+    ["--num-steps", "1000", "--tuf", "50", "--lr", "0.001", "--buf-size",
+     "900", "--eval-frequency", "100", "--eval-episodes", "3",
+     "--max-episode-steps", "30", "--discount", "0.9", "--dropout", "0.1",
+     "--updates-per-iter", "2", "--iters-per-chunk", "5", "--prepop-steps",
+     "77", "--time-limit", "1.5", "--slurm-job-id", "9", "--seeds", "1", "2",
+     "--unroll", "8", "--outer-unroll", "2", "--attention", "pallas",
+     "--dp-devices", "2", "--profile-dir", "x", "--bf16", "--wandb",
+     "--render"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=range(len(ARGVS)))
+def test_config_and_cli_match_jax(argv, tmp_path):
+    cfg, jcfg = get_args(argv), jax_get_args(argv)
+    a, b = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
+    # The device default is the one field that differs: cuda here.
+    assert a.pop("device") == "cuda" and b.pop("device") == "tpu"
+    assert a == b
+    assert cfg.run_name() == jcfg.run_name()
+    root = str(tmp_path)
+    assert cfg.policy_dir(root) == jcfg.policy_dir(root)
+    assert cfg.policy_path(root) == jcfg.policy_path(root)
+    assert cfg.policy_path().startswith(os.getcwd())
+    assert cfg.resolved_updates_per_iter == jcfg.resolved_updates_per_iter
+    assert cfg.resolved_iters_per_chunk == jcfg.resolved_iters_per_chunk
+    assert (dataclasses.asdict(cfg.agent_config())
+            == dataclasses.asdict(jcfg.agent_config()))
+
+
+def test_config_device_flag_and_defaults():
+    assert get_args(["--device", "cpu"]).device == "cpu"
+    assert ([f.name for f in dataclasses.fields(ExperimentConfig)]
+            == [f.name for f in dataclasses.fields(JaxExperimentConfig)])
+
+
+# ------------------------------------------------------------------ logging
+def test_csv_logger_matches_jax_byte_for_byte(tmp_path):
+    envs = ["DiscreteCarFlag-v0", "Memory-5-v0"]
+    rng = np.random.default_rng(0)
+    rows = []
+    for step in (5000, 10000):
+        vals = {f"{e}/{k}": float(rng.random()) for e in envs
+                for k in ("SuccessRate", "EpisodeLength", "Return")}
+        vals.update({
+            f"losses/{k}": float(np.float32(rng.standard_normal()))
+            for k in ("TD_Error", "Grad_Norm", "Max_Q_Value", "Mean_Q_Value",
+                      "Min_Q_Value", "Max_Target_Value", "Mean_Target_Value",
+                      "Min_Target_Value")
+        })
+        vals["losses/hours"] = step / 1e6
+        rows.append((vals, step))
+    for name, module in (("port", port_logging), ("jax", jax_logging)):
+        path = str(tmp_path / name / "sub" / "run")
+        logger = module.CSVLogger(path, envs)
+        for vals, step in rows:
+            logger.log(vals, step=step)
+        # A second logger on the same path appends under the same header.
+        module.CSVLogger(path, envs).log(*rows[0])
+    for suffix in ("_results.csv", "_losses.csv"):
+        a = (tmp_path / "port" / "sub" / ("run" + suffix)).read_bytes()
+        b = (tmp_path / "jax" / "sub" / ("run" + suffix)).read_bytes()
+        assert a == b and a.count(b"\n") == 4
+    assert port_logging.WANDB_GROUP_KEYS == jax_logging.WANDB_GROUP_KEYS
+
+
+def test_get_logger_falls_back_to_csv_without_wandb(tmp_path, capsys):
+    cfg = ExperimentConfig(disable_wandb=False)
+    logger = port_logging.get_logger(str(tmp_path / "run"), cfg)
+    assert isinstance(logger, port_logging.CSVLogger)
+    assert "wandb not installed" in capsys.readouterr().out
+    assert isinstance(
+        port_logging.get_logger(str(tmp_path / "run2"), ExperimentConfig()),
+        port_logging.CSVLogger)
+    assert len(port_logging.timestamp().split(", ")) == 2
+
+
+def test_seed_everything():
+    assert seed_everything(5) == 5
+    a = (random.random(), np.random.rand(), torch.rand(()).item())
+    assert seed_everything(5) == 5
+    assert a == (random.random(), np.random.rand(), torch.rand(()).item())
+    assert os.environ["PYTHONHASHSEED"] == "5"
+
+
+# -------------------------------------------------------------- checkpoints
+def small_agent():
+    env = make_env("DiscreteCarFlag-v0")
+    env.max_episode_steps = 20
+    cfg = AgentConfig(
+        model="DTQN", num_envs=4, context_len=8, history=8, inner_embed=16,
+        num_heads=2, num_layers=1, buffer_size=800, batch_size=4,
+        target_update_frequency=10,
+    )
+    return env, Agent(cfg, env, device="cpu")
+
+
+def trained_state(agent, seed=0):
+    state = agent.init_state(seed)
+    make_prepopulate_fn(agent, 60)(state)
+    make_train_chunk_fn(agent, EpsilonSchedule(1.0, 0.1, 100), 1, 10)(state)
+    return state
+
+
+def leaves_equal(a, b):
+    for (name, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        if isinstance(x, torch.Generator):
+            x, y = x.get_state(), y.get_state()
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+
+
+def is_view_of(network, flat):
+    lo, hi = flat.data_ptr(), flat.data_ptr() + flat.numel() * 4
+    return all(lo <= p.data_ptr() < hi for p in network.parameters())
+
+
+def test_full_checkpoint_round_trip_keeps_aliasing(tmp_path):
+    _, agent = small_agent()
+    state = trained_state(agent)
+    assert int(state.train_steps) == 10
+    path = str(tmp_path / "run")
+    ckpt.save_checkpoint(path, state, extra={"mean_reward": [0.5, 0.25]})
+    assert ckpt.has_checkpoint(path) and not ckpt.has_checkpoint(path + "x")
+    assert os.path.exists(path + "_checkpoint.pt")
+
+    template = agent.init_state(42)
+    restored, extra = ckpt.load_checkpoint(path, template)
+    assert restored is template
+    leaves_equal(state, restored)
+    assert extra["mean_reward"] == [0.5, 0.25]
+    # The networks still read the flat vectors the optimizer writes.
+    assert is_view_of(restored.network, restored.params)
+    assert is_view_of(restored.target_network, restored.target_params)
+    for a, b in zip(state.network.parameters(),
+                    restored.network.parameters()):
+        assert torch.equal(a, b)
+    # Training continues bit-identically from the restored state.
+    chunk = make_train_chunk_fn(agent, EpsilonSchedule(1.0, 0.1, 100), 1, 5)
+    chunk(state)
+    chunk(restored)
+    leaves_equal(state, restored)
+    assert int(restored.train_steps) == 15
+
+
+def test_checkpoint_refuses_other_device_kind_and_other_config(tmp_path):
+    env, agent = small_agent()
+    state = agent.init_state(0)
+    path = str(tmp_path / "run")
+    ckpt.save_checkpoint(path, state)
+    payload = torch.load(path + "_checkpoint.pt", weights_only=True)
+    assert payload["generator_device"] == "cpu"
+    assert all(v.device.type == "cpu" for v in payload.values()
+               if isinstance(v, torch.Tensor))
+    # Reckoned size: the tensors' bytes, and little besides.
+    nbytes = sum(v.numel() * v.element_size() for v in payload.values()
+                 if isinstance(v, torch.Tensor))
+    size = os.path.getsize(path + "_checkpoint.pt")
+    assert nbytes <= size <= nbytes + 200_000
+
+    torch.save(dict(payload, generator_device="cuda"),
+               path + "_checkpoint.pt")
+    with pytest.raises(RuntimeError, match="written on 'cuda'"):
+        ckpt.load_checkpoint(path, agent.init_state(1))
+
+    ckpt.save_checkpoint(path, state)
+    wider = Agent(dataclasses.replace(agent.config, inner_embed=32), env,
+                  device="cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        ckpt.load_checkpoint(path, wider.init_state(0))
+
+
+def test_policy_round_trip(tmp_path):
+    _, agent = small_agent()
+    state = trained_state(agent)
+    path = str(tmp_path / "run")
+    ckpt.save_policy(path, state.network)
+    other = agent.init_state(9)
+    assert not torch.equal(other.params, state.params)
+    assert ckpt.load_policy(path, other.network) is other.network
+    assert torch.equal(other.params, state.params)  # loaded through the views
+    assert is_view_of(other.network, other.params)
+    saved = torch.load(path + "_policy.pt", weights_only=True)
+    assert list(saved) == list(state.network.state_dict())
+
+
+def test_mini_checkpoint_matches_jax_format(tmp_path):
+    from dtqn_tpu.utils import checkpoint as jax_ckpt
+
+    path = str(tmp_path / "run")
+    assert ckpt.load_mini_checkpoint(path) is None
+    ckpt.save_mini_checkpoint(path, 1234, "wbid")
+    assert ckpt.load_mini_checkpoint(path) == {"step": 1234,
+                                               "wandb_id": "wbid"}
+    assert jax_ckpt.load_mini_checkpoint(path) == {"step": 1234,
+                                                   "wandb_id": "wbid"}
+    jax_ckpt.save_mini_checkpoint(path + "j", 5, None)
+    assert ((tmp_path / "runj_mini_checkpoint.json").read_bytes()
+            == json.dumps({"step": 5, "wandb_id": None}).encode())
+    assert ckpt.load_mini_checkpoint(path + "j") == {"step": 5,
+                                                     "wandb_id": None}
+
+
+# ------------------------------------------------------------------- runner
+def runner_config(**kw):
+    cfg = ExperimentConfig(
+        envs=["DiscreteCarFlag-v0"], device="cpu", num_steps=160, num_envs=8,
+        in_embed=16, heads=2, layers=2, context=8, history=8, batch=4,
+        buf_size=2000, eval_frequency=80, eval_episodes=2, prepop_steps=400,
+        updates_per_iter=2, max_episode_steps=20, tuf=10,
+        project_name="runner-test", save_policy=True,
+    )
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def read_csv(path):
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def check_csvs(cfg, rows):
+    env = cfg.envs[0]
+    results = read_csv(cfg.policy_path() + "_results.csv")
+    losses = read_csv(cfg.policy_path() + "_losses.csv")
+    assert results[0] == [h.format(e=env) for h in RESULT_HEAD]
+    assert losses[0] == LOSS_HEAD
+    assert len(results) == len(losses) == rows + 1
+    for r, l in zip(results[1:], losses[1:]):
+        assert r[1] == l[1] and all(np.isfinite(float(x)) for x in r + l)
+        assert 0.0 <= float(r[2]) <= 1.0
+        assert 1.0 <= float(r[3]) <= cfg.max_episode_steps
+    return results, losses
+
+
+@pytest.mark.parametrize("env_name", ["DiscreteCarFlag-v0", "Memory-5-v0"])
+def test_run_writes_logs_policy_and_sentinel_then_short_circuits(
+        env_name, tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    cfg = runner_config(envs=[env_name], verbose=True)
+    out = run_experiment(cfg)
+    assert f"{env_name}/SuccessRate" in out and "losses/TD_Error" in out
+    results, _ = check_csvs(cfg, rows=2)
+    assert [r[1] for r in results[1:]] == ["80", "160"]
+    assert os.path.exists(cfg.policy_path() + "_policy.pt")
+    assert not ckpt.has_checkpoint(cfg.policy_path())
+    assert ckpt.load_mini_checkpoint(cfg.policy_path()) == {
+        "step": 160, "wandb_id": None}
+    printed = capsys.readouterr().out
+    assert "Creating DTQN with" in printed and "Steps: 160" in printed
+
+    out2 = run_experiment(cfg)
+    assert out2 == {"completed": True, "step": 160}
+    assert "Found completed run (160 steps)" in capsys.readouterr().out
+    check_csvs(cfg, rows=2)
+
+
+def test_time_limit_checkpoint_then_resume_is_bit_equal(tmp_path,
+                                                        monkeypatch, capsys):
+    (tmp_path / "whole").mkdir()
+    (tmp_path / "cut").mkdir()
+    monkeypatch.chdir(tmp_path / "whole")
+    run_experiment(runner_config(num_steps=240))
+    whole, whole_losses = check_csvs(runner_config(num_steps=240), rows=3)
+    whole_policy = torch.load(
+        runner_config().policy_path() + "_policy.pt", weights_only=True)
+
+    monkeypatch.chdir(tmp_path / "cut")
+    cfg = runner_config(num_steps=240, time_limit=1e-9)
+    run_experiment(cfg)  # hits the time limit after the first chunk
+    assert "Reached time limit. Saving checkpoint at 80" in (
+        capsys.readouterr().out)
+    assert ckpt.has_checkpoint(cfg.policy_path())
+    assert ckpt.load_mini_checkpoint(cfg.policy_path())["step"] == 80
+    assert not os.path.exists(cfg.policy_path() + "_policy.pt")
+    with open(cfg.policy_path() + "_checkpoint_extra.json") as f:
+        extra = json.load(f)
+    assert [len(v) for v in extra.values()] == [1, 1, 1]
+    check_csvs(cfg, rows=1)
+
+    cfg2 = runner_config(num_steps=240)
+    out = run_experiment(cfg2)  # resumes, then runs to completion
+    assert "Resumed from checkpoint at 80 steps." in capsys.readouterr().out
+    assert "DiscreteCarFlag-v0/SuccessRate" in out
+    assert ckpt.load_mini_checkpoint(cfg2.policy_path())["step"] == 240
+    cut, cut_losses = check_csvs(cfg2, rows=3)
+    # Everything but the wall time repeats: evaluation and the losses.
+    assert [r[1:] for r in cut] == [r[1:] for r in whole]
+    assert [r[1:] for r in cut_losses] == [r[1:] for r in whole_losses]
+    cut_policy = torch.load(cfg2.policy_path() + "_policy.pt",
+                            weights_only=True)
+    assert list(cut_policy) == list(whole_policy)
+    for name in whole_policy:
+        assert torch.equal(cut_policy[name], whole_policy[name]), name
+
+
+def test_evaluation_does_not_disturb_training(tmp_path, monkeypatch):
+    """More evaluation episodes change what is logged, not what is learned:
+    the train stream gives evaluation one seed per round and no more."""
+    policies = []
+    for episodes in (1, 5):
+        (tmp_path / str(episodes)).mkdir()
+        monkeypatch.chdir(tmp_path / str(episodes))
+        cfg = runner_config(eval_episodes=episodes)
+        run_experiment(cfg)
+        policies.append(torch.load(cfg.policy_path() + "_policy.pt",
+                                   weights_only=True))
+    for name in policies[0]:
+        assert torch.equal(policies[0][name], policies[1][name]), name
+
+
+def test_nonfinite_gradients_fail_loudly(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    learn = Agent.learn
+
+    def poisoned(self, state):
+        learn(self, state)
+        state.nonfinite_grads = state.nonfinite_grads + 1
+        return state
+
+    monkeypatch.setattr(Agent, "learn", poisoned)
+    with pytest.raises(FloatingPointError, match="non-finite gradient"):
+        run_experiment(runner_config())
+
+
+def test_enjoy_mode_and_render_frame(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    cfg = runner_config(num_steps=80)
+    run_experiment(cfg)
+    out = run_experiment(runner_config(num_steps=80, render=True))
+    assert 0.0 <= out["success_rate"] <= 1.0 and "return" in out
+    assert "[enjoy] SuccessRate=" in capsys.readouterr().out
+    pytest.importorskip("PIL")
+    from PIL import Image
+
+    assert out["render_path"] == cfg.policy_path() + "_enjoy.png"
+    strip = np.asarray(Image.open(out["render_path"]))
+    assert strip.shape[1:] == (400, 3) and strip.shape[0] % 80 == 0
+    assert 2 * 80 <= strip.shape[0] <= 4 * 80  # 20-step cap: 21 frames at most
+
+
+def test_render_frame_matches_jax():
+    env, jenv = make_env("DiscreteCarFlag-v0"), JaxCarFlag()
+    for pos, heaven in ((0.0, 1.0), (0.5, -1.0), (-1.1, 1.0), (1.1, -1.0)):
+        frame = env.render_frame(CarFlagState(
+            position=torch.tensor(pos), velocity=torch.tensor(0.0),
+            heaven=torch.tensor(heaven), t=torch.tensor(0)))
+        want = jenv.render_frame(JaxCarFlagState(
+            position=np.float32(pos), velocity=np.float32(0.0),
+            heaven=np.float32(heaven), t=np.int32(0)))
+        assert frame.dtype == np.uint8 and frame.shape == (80, 400, 3)
+        np.testing.assert_array_equal(frame, want)
+
+
+def test_host_running_average_and_build_envs():
+    avg = HostRunningAverage(3, [1.0, 2.0])
+    assert avg.mean() == 1.5
+    for v in (3.0, 4.0):
+        avg.add(v)
+    assert avg.to_list() == [2.0, 3.0, 4.0] and avg.mean() == 3.0
+    assert HostRunningAverage(3).mean() == 0.0
+    env, evals = build_envs(runner_config(envs=["Memory-5-v0"]))
+    assert env.name == evals[0].name == "Memory-5-v0" and env is not evals[0]
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_envs(runner_config(envs=["Memory-5-v0", "DiscreteCarFlag-v0"]))
+
+
+NOT_PORTED = [
+    (dict(dp_devices=2), "item 14"), (dict(bf16=True), "item 13"),
+    (dict(profile_dir="prof"), "item 14"), (dict(bag_size=4), "item 10"),
+    (dict(bag_mask=True), "item 10"), (dict(bag_store=True), "item 10"),
+    (dict(model="DTQN-bag"), "item 10"), (dict(model="DRQN"), "item 12"),
+    (dict(model="ADRQN"), "item 12"), (dict(model="DARQN"), "item 12"),
+    (dict(model="DQN"), "item 12"), (dict(gate="gru"), "item 12"),
+    (dict(identity=True), "item 12"), (dict(pos="sin"), "item 12"),
+    (dict(pos="none"), "item 12"), (dict(dropout=0.1), "item 12"),
+    (dict(envs=["gv_memory.7x7.yaml"]), "item 11"),
+    (dict(envs=["ImageMaze-9-v0"]), "item 11"),
+]
+
+
+@pytest.mark.parametrize("kw,item", NOT_PORTED,
+                         ids=[str(list(kw.values())[0]) + "-" + list(kw)[0]
+                              for kw, _ in NOT_PORTED])
+def test_not_ported_flags_raise(kw, item, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        run_experiment(runner_config(**kw))
+    assert not os.listdir(tmp_path)  # refused before anything is written
+
+
+def test_agent_refuses_bag_fields():
+    env = make_env("DiscreteCarFlag-v0")
+    for kw in (dict(bag_size=2), dict(bag_mask=True), dict(bag_store=True)):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            Agent(AgentConfig(**kw), env, device="cpu")
+
+
+# ------------------------------------------------------------ entry modules
+CLI = ["--device", "cpu", "--in-embed", "16", "--heads", "2", "--context", "4",
+       "--history", "4", "--num-envs", "4", "--batch", "4", "--buf-size",
+       "2000", "--prepop-steps", "400", "--eval-frequency", "40",
+       "--num-steps", "80", "--save-policy"]
+
+
+def test_run_module_main(tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    out = run.main(["--envs", "DiscreteCarFlag-v0", "--seeds", "3", *CLI])
+    assert "DiscreteCarFlag-v0/Return" in out
+    cfg = get_args(["--envs", "DiscreteCarFlag-v0", "--seed", "3", *CLI])
+    assert cfg.run_name().endswith("_seed=3")
+    check_csvs(dataclasses.replace(cfg, max_episode_steps=200), rows=2)
+    assert os.path.exists(cfg.policy_path() + "_policy.pt")
+    assert run.main(["--envs", "DiscreteCarFlag-v0", "--seed", "3",
+                     *CLI]) == {"completed": True, "step": 80}
+    with pytest.raises(NotImplementedError, match="item 14"):
+        run.main(["--seeds", "1", "2", *CLI])
+    with pytest.raises(NotImplementedError, match="item 14"):
+        run.main(["--envs", "MH-Room-5x5-v0", *CLI])
+
+
+def test_bench_prints_one_json_line(monkeypatch, capsys):
+    # The script at a small size: 8 envs and a short prepopulation.
+    monkeypatch.setattr(bench, "NUM_ENVS", 8)
+    monkeypatch.setattr(bench, "PREPOP_STEPS", 8_000)
+    line = bench.main(["--device", "cpu", "--iters", "1"])
+    printed = capsys.readouterr().out.strip().splitlines()
+    assert len(printed) == 1 and json.loads(printed[0]) == line
+    assert line["metric"] == "carflag_dtqn_torch_env_steps_per_s_1to1_updates"
+    assert line["unit"] == "env-steps/s (== learner updates/s)"
+    assert line["device"] == "cpu" and line["value"] > 0
+    assert "vs_baseline" not in line
+
+
+@pytest.mark.parametrize("flags", [["--seeds", "5"], ["--bf16"],
+                                   ["--bag", "4"]])
+def test_bench_extras_are_not_ported(flags):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item"):
+        bench.main(["--device", "cpu", *flags])
