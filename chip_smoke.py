@@ -32,10 +32,19 @@ Phases (any failure exits non-zero and prints no result):
   8. evaluation alone: seconds and device operations per evaluation, with
      the early-exit read every 10 steps (the default), every step and
      never, all giving the same numbers;
-  9. time each kernel, its plain version and the matching PyTorch call
-     (scaled_dot_product_attention, timed here only) at the main path's
-     shapes, inside CUDA graphs so that host launch cost is left out;
- 10. profile one more train iteration (torch.profiler): the device's busy
+  9. the bag: DTQN-bag on gv_memory.7x7.yaml at in_embed 128 (head width
+     16), bag 25, 64 envs, batch 32, buffer 500k: prepopulation, two train
+     iterations with every attention launch's shape reckoned from the
+     configuration and counted exactly, card Q against CPU Q, one
+     evaluation; the same with ``bag_mask`` (the bag attention launches
+     nothing); a ``bag_store`` run through ``run_experiment``, whole, then
+     cut and resumed bit-equal; Car Flag at in_embed 64 with bag 10; device
+     operations of one act step, one update and one evict forward;
+ 10. time each kernel, its plain version and the matching PyTorch call
+     (scaled_dot_product_attention, timed here only) at the causal and the
+     bag's non-causal shapes of the driven paths, inside CUDA graphs so
+     that host launch cost is left out;
+ 11. profile one more train iteration (torch.profiler): the device's busy
      share, device operations per update and the costliest kernels.
 
 Before the last line it prints the card line and one ``{"kernels": [...]}``
@@ -45,6 +54,7 @@ JSON line; the last line is ``{"ok": true, "device": {...}}``.
 import argparse
 import contextlib
 import csv
+import dataclasses
 import json
 import math
 import os
@@ -62,6 +72,7 @@ Q_ATOL = 1e-4
 DEVICE = "cuda"  # where every phase runs; a dry run of the script's own
 # control flow on a machine without a GPU may set it to "cpu"
 KERNEL_SOURCE = "dtqn_tpu_torch/csrc/attention.cu"
+GV_ENV, GV_BAG = "gv_memory.7x7.yaml", 25  # the bag configuration
 REPLACES = {
     "attention_fwd": "dtqn_tpu/ops/pallas_attention.py:62",
     "attention_bwd": "dtqn_tpu/ops/pallas_attention.py:77",
@@ -100,8 +111,11 @@ def rand(gen, *shape):
 # unaligned and cross-attention shapes; Lk at the keys-per-lane edges
 # (1, 32, 33, 64, 65); B = 1; causal L = 1; head widths 16, 32 and 64; and
 # head widths 4 and 12, which the kernels pad and load a float at a time.
-# The last four are the evaluation's batch of 10 and the discrete path's
-# head width 16.  Between them they reach every kernel instance.
+# Then the evaluation's batch of 10 and the discrete path's head width 16,
+# and last the bag path: context queries over bag keys at the update's, the
+# act step's and the evict forward's batch (gv_memory: bag 25, head width
+# 16, 64 * 26 candidates; Car Flag: bag 10, head width 8, 64 * 11).  Between
+# them they reach every kernel instance.
 PARITY_CASES = [
     (64, 50, 50, 8, True, 64), (32, 50, 50, 8, True, 64),
     (4, 7, 3, 8, False, 64), (4, 1, 50, 8, False, 64),
@@ -117,6 +131,10 @@ PARITY_CASES = [
     (2, 30, 30, 16, True, 64), (2, 40, 40, 4, True, 48),
     (10, 50, 50, 8, True, 64), (64, 50, 50, 8, True, 128),
     (32, 50, 50, 8, True, 128), (10, 50, 50, 8, True, 128),
+    (32, 50, 25, 8, False, 128), (64, 50, 25, 8, False, 128),
+    (1664, 50, 25, 8, False, 128), (1664, 50, 50, 8, True, 128),
+    (32, 50, 10, 8, False, 64), (64, 50, 10, 8, False, 64),
+    (1664, 50, 10, 8, False, 64), (704, 50, 50, 8, True, 64),
 ]
 
 
@@ -323,14 +341,14 @@ def in_directory(path):
 def counted_greedy_calls():
     """Yields a list that grows by one with every ``Agent.greedy_actions``
     call: each is one forward of the policy network, for an act step or an
-    evaluation step."""
+    evaluation step (with a bag, each is followed by one evict forward)."""
     from dtqn_tpu_torch.agents.base import Agent
 
     calls, greedy = [], Agent.greedy_actions
 
-    def counting(agent, network, context):
+    def counting(agent, network, context, bag=None):
         calls.append(1)
-        return greedy(agent, network, context)
+        return greedy(agent, network, context, bag)
 
     with patched(Agent, "greedy_actions", counting):
         yield calls
@@ -397,23 +415,36 @@ LOSS_HEAD = ["Hours", "Step", "TD Error", "Grad Norm", "Max Q Value",
 def runner_config(seed, **kw):
     """The bench configuration on a short schedule: two chunks of two
     iterations (128 env steps, 128 updates), each followed by an
-    evaluation."""
+    evaluation.  ``kw`` replaces fields."""
     from dtqn_tpu_torch.config import ExperimentConfig
 
-    return ExperimentConfig(
+    fields = dict(
         envs=["DiscreteCarFlag-v0"], model="DTQN", in_embed=64, heads=8,
         layers=2, context=50, history=50, batch=32, num_envs=64,
         buf_size=500_000, tuf=10_000, prepop_steps=40_000,
         eval_frequency=128, eval_episodes=10, num_steps=256,
         save_policy=True, seed=seed, project_name="chip-smoke",
-        device=DEVICE, **kw,
+        device=DEVICE,
     )
+    return ExperimentConfig(**dict(fields, **kw))
+
+
+def bag_runner_config(seed, **kw):
+    """The same schedule at the bag configuration, training on the stored
+    act-time bags; 300 prepopulation steps per env (every env ends an
+    episode within 250)."""
+    return runner_config(seed, **dict(
+        dict(envs=[GV_ENV], model="DTQN-bag", in_embed=128, bag_size=GV_BAG,
+             bag_store=True, prepop_steps=64 * 300), **kw))
 
 
 def check_csvs(cfg, steps):
     """Both CSVs: the reference headers and one row per entry of ``steps``,
     every value finite, success rate and episode length in range."""
-    env, cap = cfg.envs[0], 200
+    from dtqn_tpu_torch.envs import make_env
+
+    env = cfg.envs[0]
+    cap = make_env(env).max_episode_steps
     tables = []
     for suffix, head in (("_results.csv",
                           [h.format(e=env) for h in RESULT_HEAD]),
@@ -432,16 +463,22 @@ def check_csvs(cfg, steps):
     return tables
 
 
-def check_launches(ca, probe, cfg, iters, what):
-    """Every forward launches one attention_fwd per layer: one forward per
-    greedy call (an act step or an evaluation step) and three per update;
-    every update launches one attention_bwd per layer."""
+def check_launches(ca, probe, cfg, iters, what, prepopulated=True):
+    """Every forward launches one attention_fwd per layer, and one more for
+    the bag: one forward per greedy call (an act step or an evaluation
+    step), with a bag one evict forward after each and after each step of
+    the prepopulation, and three per update; every update launches one
+    attention_bwd per layer and for the bag."""
     updates = iters * cfg.resolved_updates_per_iter
     greedy_calls = len(probe.greedy_calls)
     eval_steps = greedy_calls - iters
     launches = dict(ca.launch_counts)
-    expect_fwd = cfg.layers * (greedy_calls + 3 * updates)
-    expect_bwd = cfg.layers * updates
+    bag = cfg.bag_size > 0
+    per_forward = cfg.layers + bag
+    evicts = bag * (greedy_calls + prepopulated
+                    * max(cfg.prepop_steps // cfg.num_envs, 1))
+    expect_fwd = per_forward * (greedy_calls + evicts + 3 * updates)
+    expect_bwd = per_forward * updates
     check(launches["attention_fwd"] == expect_fwd,
           f"{what}: attention_fwd launched {launches['attention_fwd']} "
           f"times, expected {expect_fwd}")
@@ -528,15 +565,17 @@ def runner_phase(seed, ca):
     return result, weights
 
 
-def resume_phase(seed, ca, whole_weights):
-    """The same run cut by a time limit after its first chunk, resumed, and
-    held bit for bit against the uninterrupted run's final parameters."""
+def resume_phase(seed, ca, whole_weights, make_cfg=runner_config,
+                 what="resume phase"):
+    """The run of ``make_cfg`` cut by a time limit after its first chunk,
+    resumed, and held bit for bit against the uninterrupted run's final
+    parameters."""
     from dtqn_tpu_torch.train.runner import run_experiment
     from dtqn_tpu_torch.utils import checkpoint as ckpt
 
     iters = 2  # per call: one chunk before the cut, one after the resume
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
-        cfg = runner_config(seed, time_limit=1e-9)
+        cfg = make_cfg(seed, time_limit=1e-9)
         with Probe().attached() as cut:
             ca.reset_launch_counts()
             run_experiment(cfg)
@@ -550,12 +589,12 @@ def resume_phase(seed, ca, whole_weights):
         log(f"full checkpoint: {nbytes} bytes")
         check_csvs(cfg, [128])
 
-        cfg = runner_config(seed)
+        cfg = make_cfg(seed)
         with Probe().attached() as resumed:
             ca.reset_launch_counts()
             run_experiment(cfg)
-            launches_resumed, _ = check_launches(ca, resumed, cfg, iters,
-                                                 "resumed run")
+            launches_resumed, _ = check_launches(
+                ca, resumed, cfg, iters, "resumed run", prepopulated=False)
         check(resumed.resumed_at == 128,
               f"resumed at step {resumed.resumed_at}, not 128")
         check(len(resumed.seconds["chunk"]) == 1,
@@ -578,7 +617,7 @@ def resume_phase(seed, ca, whole_weights):
         "launches_cut": launches_cut,
         "launches_resumed": launches_resumed,
     }
-    log(f"resume phase: {json.dumps(result)}")
+    log(f"{what}: {json.dumps(result)}")
     return result
 
 
@@ -664,6 +703,286 @@ def discrete_phase(seed, ca):
     return result
 
 
+# ------------------------------------------------------------------ the bag
+@contextlib.contextmanager
+def launch_ledger(ca):
+    """Yields a dict that counts every call of the kernels' wrappers by
+    (kernel, B, Lq, Lk, head width, causal).  The wrappers themselves go on
+    counting their launches."""
+    ledger = {}
+
+    def noting(name, fn):
+        def wrapper(q, k, *rest):
+            b, lq, lk, _, d = ca.check_shapes(q, k, rest[0], rest[-2],
+                                              rest[-1])
+            key = (name, b, lq, lk, d, bool(rest[-1]))
+            ledger[key] = ledger.get(key, 0) + 1
+            return fn(q, k, *rest)
+        return wrapper
+
+    with patched(ca, "attention_fwd",
+                 noting("attention_fwd", ca.attention_fwd)), \
+            patched(ca, "attention_bwd",
+                    noting("attention_bwd", ca.attention_bwd)):
+        yield ledger
+
+
+def reckoned_launches(cfg, act_steps, updates, evict_steps=None):
+    """The attention launches of ``act_steps`` greedy act steps (or
+    evaluation steps at ``cfg.num_envs`` episodes), ``evict_steps`` evict
+    forwards (as many, unless given) and ``updates`` updates, by shape, from
+    the configuration alone.  A forward launches one causal attention per
+    layer and, unless the bag is masked, one over the bag; an update is
+    three forwards and one backward at the batch size."""
+    if evict_steps is None:
+        evict_steps = act_steps
+    length, d = cfg.context_len, cfg.inner_embed // cfg.num_heads
+    envs, bag = cfg.num_envs, cfg.bag_size
+    out = {}
+
+    def add(kind, b, n):
+        shapes = [((kind, b, length, length, d, True), cfg.num_layers * n)]
+        if bag and not cfg.bag_mask:
+            shapes.append(((kind, b, length, bag, d, False), n))
+        for key, count in shapes:
+            if count:
+                out[key] = out.get(key, 0) + count
+
+    add("attention_fwd", envs, act_steps)
+    if bag:
+        add("attention_fwd", envs * (bag + 1), evict_steps)
+    add("attention_fwd", cfg.batch_size, 3 * updates)
+    add("attention_bwd", cfg.batch_size, updates)
+    return out
+
+
+def check_ledger(ca, ledger, expected, what):
+    def show(d):
+        return {"{} B={} Lq={} Lk={} D={} causal={}".format(*k): n
+                for k, n in sorted(d.items())}
+
+    check(ledger == expected,
+          f"{what}: launches by shape {show(ledger)}, reckoned "
+          f"{show(expected)}")
+    for kind in ("attention_fwd", "attention_bwd"):
+        total = sum(n for k, n in expected.items() if k[0] == kind)
+        check(ca.launch_counts[kind] == total,
+              f"{what}: {kind} counted {ca.launch_counts[kind]} launches, "
+              f"reckoned {total}")
+    return show(ledger)
+
+
+def q_card_vs_cpu(agent, state, what):
+    """The network's Q on the run's own contexts and bags: kernel path on
+    the card against the plain path on the CPU."""
+    cpu_net = agent.build_network()
+    cpu_net.load_state_dict(state.network.state_dict())
+    inputs = (state.context.obs, state.context.action,
+              *agent._bag_in(state.bag))
+    with torch.no_grad():
+        q_gpu = state.network(*inputs)
+        q_cpu = cpu_net(*(x.cpu() for x in inputs))
+    cfg = agent.config
+    check(tuple(q_gpu.shape) == (cfg.num_envs, cfg.context_len,
+                                 agent.env.num_actions),
+          f"{what}: Q shape {tuple(q_gpu.shape)}")
+    check(bool(torch.isfinite(q_gpu).all()), f"{what}: non-finite Q")
+    q_err = (q_gpu.cpu() - q_cpu).abs().max().item()
+    check(q_err <= Q_ATOL, f"{what}: card Q differs from CPU Q by {q_err}")
+    return q_err
+
+
+def gradients_repeat(agent, state, what):
+    """Three gradient computations on one sampled batch agree bit for bit in
+    every parameter: what a bit-equal resume rests on."""
+    batch = agent.sample_batch(state.buffer, state.generator)
+    bag_in = (batch.bag_obs, batch.bag_action) if agent.use_bag else ()
+    names, params = zip(*state.network.named_parameters())
+    grads = []
+    for _ in range(3):
+        q = state.network(batch.obs, batch.action, *bag_in)
+        grads.append(torch.autograd.grad(q.square().mean(), params))
+    differing = [n for n, *g in zip(names, *grads)
+                 if not all(torch.equal(g[0], x) for x in g[1:])]
+    check(not differing, f"{what}: gradients of one batch differ between "
+                         f"computations in {differing}")
+    return len(names)
+
+
+def bag_drive(seed, ca, env_name, prepop_iters, iters, evaluate=False, **kw):
+    """Init, prepopulation and ``iters`` train iterations of 64 updates of a
+    DTQN-bag agent on the card, every attention launch held against the
+    reckoning; optionally one 10-episode evaluation."""
+    from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.envs import make_env
+    from dtqn_tpu_torch.train.loop import (
+        make_evaluate_fn,
+        make_prepopulate_fn,
+        make_train_chunk_fn,
+    )
+    from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+
+    updates = 64
+    cfg = AgentConfig(**dict(dict(
+        model="DTQN-bag", num_envs=64, context_len=50, history=50,
+        inner_embed=128, num_heads=8, num_layers=2, batch_size=32,
+        buffer_size=500_000, target_update_frequency=10_000,
+        bag_size=GV_BAG), **kw))
+    what = f"bag drive {env_name} {kw}"
+    env = make_env(env_name)
+    agent = Agent(cfg, env, device=DEVICE)
+    train_iter = make_train_chunk_fn(
+        agent, EpsilonSchedule(1.0, 0.1, 200_000),
+        updates_per_iter=updates, iters_per_chunk=1)
+    result = {"config": kw, "env": env_name}
+
+    with launch_ledger(ca) as ledger:
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = agent.init_state(seed)
+        make_prepopulate_fn(agent, prepop_iters)(state)
+        torch.cuda.synchronize()
+        result["init_and_prepopulate_s"] = time.perf_counter() - t0
+        # Random actions: no greedy forward, one evict forward per step.
+        result["launches_prepopulation"] = check_ledger(
+            ca, ledger, reckoned_launches(cfg, 0, 0, evict_steps=prepop_iters),
+            f"{what}, prepopulation")
+    flushed = int(state.buffer.flushed_total)
+    check(flushed > cfg.batch_size, f"prepopulation flushed only {flushed}")
+
+    with launch_ledger(ca) as ledger:
+        ca.reset_launch_counts()
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_iter(state)
+            torch.cuda.synchronize()
+            t_iter = time.perf_counter() - t0
+        result["launches"] = dict(ca.launch_counts)
+        result["launches_by_shape"] = check_ledger(
+            ca, ledger, reckoned_launches(cfg, iters, iters * updates),
+            f"{what}, {iters} train iterations")
+    check(int(state.train_steps) == iters * updates,
+          f"{what}: train_steps {int(state.train_steps)}")
+    check(int(state.nonfinite_grads) == 0,
+          f"{what}: non-finite gradient steps")
+    diags = {k: float(v) for k, v in state.diagnostics.means().items()}
+    check(all(map(math.isfinite, diags.values())),
+          f"{what}: diagnostics not finite: {diags}")
+    check(int(state.bag.pos.max()) > 0, f"{what}: every bag is empty")
+    result.update(
+        env_steps_per_s=cfg.num_envs / t_iter, timed_iteration_s=t_iter,
+        flushed_episodes=flushed, train_steps=iters * updates,
+        bag_slots_filled=float(state.bag.pos.float().mean()),
+        q_max_abs_err_vs_cpu=q_card_vs_cpu(agent, state, what),
+        parameters_with_repeating_gradients=gradients_repeat(agent, state,
+                                                             what),
+        diagnostics=diags)
+
+    if evaluate:
+        with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
+            ca.reset_launch_counts()
+            t0 = time.perf_counter()
+            sr, ret, length = (
+                float(x) for x in make_evaluate_fn(agent, env, 10)(
+                    state.network,
+                    torch.Generator(device=DEVICE).manual_seed(seed + 1)))
+            result["evaluation_s"] = time.perf_counter() - t0
+            steps = len(calls)
+            eval_cfg = dataclasses.replace(cfg, num_envs=10)
+            result["launches_evaluation"] = check_ledger(
+                ca, ledger, reckoned_launches(eval_cfg, steps, 0),
+                f"{what}, evaluation")
+        cap = env.max_episode_steps
+        check(0.0 <= sr <= 1.0 and 1.0 <= length <= cap and 1 <= steps <= cap
+              and -5.0 - 0.05 * cap <= ret <= 5.0,
+              f"{what}: evaluation out of range: {sr}, {ret}, {length}")
+        result.update(evaluation=[sr, ret, length], evaluation_steps=steps)
+    log(f"{what}: {json.dumps(result)}")
+    return result, agent, state
+
+
+def bag_operations(agent, state):
+    """Device operations and device time of one act step, one update and
+    one evict forward at the bag configuration (torch.profiler)."""
+    from dtqn_tpu_torch.train import loop
+
+    ctx, bag = state.context, state.bag
+    ev_act = torch.zeros_like(ctx.action[:, 0])
+    need = torch.ones_like(ev_act, dtype=torch.bool)
+    runs = {
+        "act_step": lambda: loop.env_step(agent, state),
+        "update": lambda: agent.learn(state),
+        "evict_forward": lambda: agent._bag_evict(
+            state.network, ctx, bag, ctx.obs[:, 0], ev_act, ev_act, need),
+    }
+    result = {}
+    for name, fn in runs.items():
+        fn()  # warm
+        wall_us, by_name = device_events(fn)
+        result[name] = {
+            "device_ops": sum(n for n, _ in by_name.values()),
+            "device_us": sum(us for _, us in by_name.values()),
+            "profiled_wall_us": wall_us,
+        }
+    log(f"bag operations: {json.dumps(result)}")
+    return result
+
+
+def bag_phase(seed, ca):
+    """DTQN-bag at full width, its ablations, its runner and Car Flag."""
+    from dtqn_tpu_torch.train.runner import run_experiment
+
+    d = 128 // 8
+    instances = {
+        "causal": [ca.launch_config(k, 50, 50, d)[:2]
+                   for k in ("attention_fwd", "attention_bwd")],
+        "bag": [ca.launch_config(k, 50, GV_BAG, d)[:2]
+                for k in ("attention_fwd", "attention_bwd")],
+        "carflag_bag": [ca.launch_config(k, 50, 10, 8)[:2]
+                        for k in ("attention_fwd", "attention_bwd")],
+    }
+    check(instances == {"causal": [(16, 0)] * 2, "bag": [(16, 1)] * 2,
+                        "carflag_bag": [(8, 1)] * 2},
+          f"bag instances {instances}")
+
+    main, agent, state = bag_drive(seed, ca, GV_ENV, 625, 2, evaluate=True)
+    operations = bag_operations(agent, state)
+    del agent, state
+    masked, _, _ = bag_drive(seed, ca, GV_ENV, 300, 1, bag_mask=True)
+    check(all("Lk=25" not in k for k in masked["launches_by_shape"]),
+          "the masked bag attention launched a kernel")
+    carflag, _, _ = bag_drive(seed, ca, "DiscreteCarFlag-v0", 200, 1,
+                              inner_embed=64, bag_size=10)
+
+    # --bag-store through the runner: whole, then cut and resumed.
+    cfg = bag_runner_config(seed)
+    iters = cfg.num_steps // cfg.num_envs
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
+            Probe().attached() as probe:
+        ca.reset_launch_counts()
+        final = run_experiment(cfg)
+        launches, eval_steps = check_launches(ca, probe, cfg, iters,
+                                              "bag-store runner")
+        check_csvs(cfg, [128, 256])
+        check(all(math.isfinite(v) for v in final.values()),
+              f"bag-store runner: final log not finite: {final}")
+        whole_weights = saved_policy(cfg, "cpu").state_dict()
+    stored = {
+        "launches": launches, "evaluation_steps": eval_steps,
+        "chunk_s": probe.seconds["chunk"],
+        "evaluation_s": probe.seconds["evaluate"], "final_log": final,
+    }
+    log(f"bag-store runner: {json.dumps(stored)}")
+    stored["resume"] = resume_phase(seed, ca, whole_weights,
+                                    bag_runner_config, "bag-store resume")
+    return {"instances": {k: [list(i) for i in v]
+                          for k, v in instances.items()},
+            "full_width": main, "operations": operations,
+            "bag_mask": masked, "carflag_bag10": carflag,
+            "bag_store": stored}
+
+
 def evaluation_phase(seed, agent, state):
     """One 10-episode evaluation of the main path's network: seconds and
     device operations, reading the early-exit flag every 10 steps (the
@@ -729,35 +1048,36 @@ def graph_ms(fn, calls=100, replays=20):
     return start.elapsed_time(end) / (calls * replays)
 
 
-def bound_ms(kind, b, length, heads, d):
+def bound_ms(kind, b, lq, lk, heads, d, causal):
     """Least time on an H100 SXM: each input read once and each output
-    written once over HBM, or the causal triangle's multiply-adds over the
-    float32 rate, whichever is larger."""
+    written once over HBM, or the multiply-adds of the unmasked (query,
+    key) pairs over the float32 rate, whichever is larger."""
     e = heads * d
-    tri = length * (length + 1) // 2
-    if kind == "attention_fwd":
-        nbytes, products = 4 * (4 * b * length * e), 2
-    else:
-        nbytes, products = 4 * (7 * b * length * e), 5
-    flops = products * 2 * b * heads * d * tri
+    pairs = lq * (lq + 1) // 2 if causal else lq * lk
+    if kind == "attention_fwd":  # reads q, k, v; writes out
+        nbytes, products = 4 * b * e * (2 * lq + 2 * lk), 2
+    else:  # reads q, k, v, dout; writes dq, dk, dv
+        nbytes, products = 4 * b * e * (3 * lq + 4 * lk), 5
+    flops = products * 2 * b * heads * d * pairs
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def timings(ca, b, length=50, heads=8, d=8):
+def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True):
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     e = heads * d
-    q, k, v, dout = (rand(gen, b, length, e) for _ in range(4))
+    q, dout = rand(gen, b, lq, e), rand(gen, b, lq, e)
+    k, v = rand(gen, b, lk, e), rand(gen, b, lk, e)
 
     def heads_view(x):
-        return x.view(b, length, heads, d).transpose(1, 2)
+        return x.view(b, x.shape[1], heads, d).transpose(1, 2)
 
     def sdpa(q, k, v):
         return F.scaled_dot_product_attention(
-            heads_view(q), heads_view(k), heads_view(v), is_causal=True
+            heads_view(q), heads_view(k), heads_view(v), is_causal=causal
         )
 
     qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
@@ -768,27 +1088,46 @@ def timings(ca, b, length=50, heads=8, d=8):
         torch.autograd.grad(out, (qg, kg, vg), do_h)
 
     fwd = {
-        "ms": graph_ms(lambda: ca.attention_fwd(q, k, v, heads, True)),
+        "ms": graph_ms(lambda: ca.attention_fwd(q, k, v, heads, causal)),
         "plain_ms": graph_ms(
-            lambda: ca.plain_attention_fwd(q, k, v, heads, True)),
+            lambda: ca.plain_attention_fwd(q, k, v, heads, causal)),
         "library_ms": graph_ms(lambda: sdpa(q, k, v)),
     }
     # SDPA's backward alone is no single call: time forward + backward and
     # take the forward's time off.
     lib_both = graph_ms(sdpa_fwd_bwd)
     bwd = {
-        "ms": graph_ms(lambda: ca.attention_bwd(q, k, v, dout, heads, True)),
+        "ms": graph_ms(
+            lambda: ca.attention_bwd(q, k, v, dout, heads, causal)),
         "plain_ms": graph_ms(
-            lambda: ca.plain_attention_bwd(q, k, v, dout, heads, True)),
+            lambda: ca.plain_attention_bwd(q, k, v, dout, heads, causal)),
         "library_ms": max(lib_both - fwd["library_ms"], 0.0),
     }
     out = {}
     for name, t in (("attention_fwd", fwd), ("attention_bwd", bwd)):
-        bound, by = bound_ms(name, b, length, heads, d)
-        out[name] = dict(t, bound_ms=bound, bound_by=by)
-    log(f"timings B={b} L={length} H={heads} D={d} causal: "
-        f"{json.dumps(out)}")
-    return out
+        bound, by = bound_ms(name, b, lq, lk, heads, d, causal)
+        instance = ca.launch_config(name, lq, lk, d)[:2]
+        out[name] = dict(t, bound_ms=bound, bound_by=by,
+                         instance=list(instance))
+    shape = (f"B={b} Lq={lq} Lk={lk} H={heads} D={d} "
+             f"{'causal' if causal else 'non-causal'} f32")
+    log(f"timings {shape}: {json.dumps(out)}")
+    return shape, out
+
+
+# The bag path's shapes: (B, Lk, D) at Lq = 50, non-causal: the update, the
+# act forward and the evict forward, on gv_memory (bag 25, head width 16)
+# and on Car Flag (bag 10, head width 8); and the evict forward's causal
+# layers.
+BAG_TIMING_SHAPES = [
+    dict(b=32, lk=25, d=16, causal=False),
+    dict(b=64, lk=25, d=16, causal=False),
+    dict(b=1664, lk=25, d=16, causal=False),
+    dict(b=32, lk=10, d=8, causal=False),
+    dict(b=64, lk=10, d=8, causal=False),
+    dict(b=1664, lk=10, d=8, causal=False),
+    dict(b=1664, d=16),
+]
 
 
 def run(seed):
@@ -820,9 +1159,11 @@ def run(seed):
     resume = resume_phase(seed, ca, whole_weights)
     discrete = discrete_phase(seed, ca)
     evaluation = evaluation_phase(seed, agent, state)
-    t_main = timings(ca, 32)  # each update's batch
-    t_act = timings(ca, 64)  # the act forward's batch
-    t_wide = timings(ca, 32, d=16)  # the discrete path's update
+    bag = bag_phase(seed, ca)
+    main_shape, t_main = timings(ca, 32)  # each update's batch
+    _, t_act = timings(ca, 64)  # the act forward's batch
+    _, t_wide = timings(ca, 32, d=16)  # the discrete path's update
+    t_bag = dict(timings(ca, **shape) for shape in BAG_TIMING_SHAPES)
 
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
@@ -833,18 +1174,23 @@ def run(seed):
             "source": KERNEL_SOURCE,
             "replaces": REPLACES[name],
             "launches": main["launches"][name],
+            "launches_bag_path": bag["full_width"]["launches"][name],
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "shape": "B=32 L=50 H=8 D=8 causal f32",
+            "shape": main_shape,
+            "bag_path_shapes": {shape: t[name]
+                                for shape, t in t_bag.items()},
         })
     prof = profile_iteration(state, train_iter)
     print(json.dumps({"main_path": main, "runner": runner, "resume": resume,
                       "discrete": discrete, "evaluation": evaluation,
+                      "bag": bag,
                       "timings_b64": t_act, "timings_b32_d16": t_wide,
+                      "timings_bag": t_bag,
                       "profile": prof,
                       "ptxas": usage}), flush=True)
     print(card, flush=True)

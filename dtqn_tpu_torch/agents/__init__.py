@@ -1,4 +1,4 @@
-"""DDQN agent (transformer branch, no bag)."""
+"""DDQN agent (transformer branch: DTQN and DTQN-bag)."""
 
 from dtqn_tpu_torch.agents.base import Agent, AgentConfig, AgentState
 

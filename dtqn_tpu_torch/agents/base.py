@@ -1,9 +1,12 @@
 """DDQN agent core: act / observe / learn (``dtqn_tpu/agents/base.py``).
 
-The transformer branch (DTQN, no bag): acts on the full context window and
-takes the argmax of the newest timestep's Q (dtqn.py:76-107); trains
+The transformer branch (DTQN and DTQN-bag): acts on the full context window
+and takes the argmax of the newest timestep's Q (dtqn.py:76-107); trains
 seq-to-seq with the DDQN target and loss over the last ``history``
-timesteps (dtqn.py:162-269).  Other model kinds are not ported yet.
+timesteps (dtqn.py:162-269).  With a bag, the (obs, action) pair that the
+context evicts goes into the persistent-memory bag, and a full bag keeps the
+best of its ``bag_size + 1`` candidate contents by Q (dtqn.py:125-157).
+Other model kinds are not ported yet.
 
 Everything stays on the device and no step reads a value back to the host:
 the update is gated by ``can_sample & isfinite(grad_norm)`` with
@@ -22,7 +25,7 @@ import torch
 from torch import nn
 
 from dtqn_tpu_torch import replay
-from dtqn_tpu_torch.envs.core import Environment
+from dtqn_tpu_torch.envs.core import Environment, where_batch
 from dtqn_tpu_torch.models import build_network
 from dtqn_tpu_torch.models.dtqn import DTQN
 from dtqn_tpu_torch.utils.device import resolve_device
@@ -57,7 +60,9 @@ class AgentConfig:
     identity: bool = False
     pos: str = "learned"
     bag_size: int = 0
-    bag_mask: bool = False
+    bag_mask: bool = False  # masked-bag-attention ablation (models/dtqn.py)
+    # Train on stored act-time bags instead of random pre-window subsets
+    # (replay/buffer.py sample_with_stored_bag).
     bag_store: bool = False
 
 
@@ -85,6 +90,7 @@ class AgentState:
     opt_state: AdamState
     buffer: replay.BufferState
     context: replay.ContextState
+    bag: Optional[replay.BagState]
     env_state: Any
     obs: torch.Tensor  # [E, *obs_shape] current observations
     generator: torch.Generator
@@ -149,18 +155,10 @@ class Agent:
 
     def __init__(self, config: AgentConfig, env: Environment,
                  device: Optional[str] = None):
-        if (config.model == "DTQN-bag" or config.bag_size > 0
-                or config.bag_mask or config.bag_store):
+        if "DTQN" not in config.model:
             raise NotImplementedError(
-                f"the DTQN bag (model {config.model!r}, bag_size "
-                f"{config.bag_size}, bag_mask {config.bag_mask}, bag_store "
-                f"{config.bag_store}) is not ported yet; see ROADMAP.md "
-                "queue 1 item 10"
-            )
-        if config.model != "DTQN":
-            raise NotImplementedError(
-                f"model {config.model!r} is not ported yet (DTQN without bag "
-                "is); see ROADMAP.md queue 1 item 12"
+                f"model {config.model!r} is not ported yet (DTQN and "
+                "DTQN-bag are); see ROADMAP.md queue 1 item 12"
             )
         if not 1 <= config.history <= config.context_len:
             # Clip history into [1, context_len] (agent_utils.py:101-105).
@@ -171,6 +169,8 @@ class Agent:
         self.config = config
         self.env = env
         self.device = resolve_device(device)
+        self.use_bag = config.bag_size > 0
+        self.store_act_bags = self.use_bag and config.bag_store
 
     # ------------------------------------------------------------------ init
     def build_network(self, generator: Optional[torch.Generator] = None):
@@ -189,6 +189,8 @@ class Agent:
             gate=cfg.gate,
             identity=cfg.identity,
             pos=cfg.pos,
+            bag_size=cfg.bag_size,
+            bag_mask=cfg.bag_mask,
             generator=generator,
         )
 
@@ -217,6 +219,15 @@ class Agent:
             obs_dtype=env.obs_dtype,
             obs_mask=env.obs_mask,
             device=device,
+            act_bag_size=cfg.bag_size if self.store_act_bags else 0,
+        )
+        bag = (
+            replay.init_bag(
+                cfg.num_envs, cfg.bag_size, tuple(env.obs_shape),
+                env.obs_dtype, env.obs_mask, device,
+            )
+            if self.use_bag
+            else None
         )
         replay.store_first_obs(
             buffer, obs,
@@ -239,6 +250,7 @@ class Agent:
             ),
             buffer=buffer,
             context=context,
+            bag=bag,
             env_state=env_state,
             obs=obs,
             generator=generator,
@@ -250,13 +262,19 @@ class Agent:
         )
 
     # ------------------------------------------------------------- acting
+    @staticmethod
+    def _bag_in(bag):
+        """The network's bag arguments: () without a bag."""
+        return () if bag is None else (bag.obs, bag.action)
+
     @torch.no_grad()
     def greedy_actions(
-        self, network: DTQN, context: replay.ContextState
+        self, network: DTQN, context: replay.ContextState,
+        bag: Optional[replay.BagState] = None,
     ) -> torch.Tensor:
         """Greedy action [E] per env: Q of the newest row of the full padded
         context (causality makes this the reference's truncated forward)."""
-        q = network(context.obs, context.action)
+        q = network(context.obs, context.action, *self._bag_in(bag))
         q_last = q[torch.arange(q.shape[0], device=q.device),
                    context.last_index.to(torch.int64)]
         return torch.argmax(q_last, dim=-1)
@@ -264,26 +282,98 @@ class Agent:
     def select_actions(self, state: AgentState, epsilon) -> torch.Tensor:
         """Epsilon-greedy (dqn.py:117-131)."""
         n, gen = self.config.num_envs, state.generator
-        greedy = self.greedy_actions(state.network, state.context)
+        greedy = self.greedy_actions(state.network, state.context, state.bag)
         explore = torch.rand((n,), generator=gen,
                              device=self.device) < epsilon
         randoms = torch.randint(0, self.env.num_actions, (n,), generator=gen,
                                 device=self.device)
         return torch.where(explore, randoms, greedy)
 
+    # ------------------------------------------------------------ bag logic
+    @torch.no_grad()
+    def _bag_evict(
+        self, network: DTQN, context: replay.ContextState,
+        bag: replay.BagState, evicted_obs, evicted_act, evicted_idx, need,
+    ) -> replay.BagState:
+        """Q-driven bag eviction (dtqn/agents/dtqn.py:125-157), batched.
+
+        For envs where the bag rejected the evicted pair, score bag_size+1
+        candidate bags (candidate i puts the evictee into slot i, the last
+        one drops it) by the mean over the sequence of the max over actions
+        of Q, and keep the first best.  ``evicted_idx`` is the evictee's
+        episode obs index, tracked alongside for --bag-store.  The
+        candidates of every env are scored in one forward at batch
+        E * (bag_size + 1), at every step and with no host read; ``need``
+        [E] bool says where the choice is applied.
+        """
+        e_count, bag_size = bag.obs.shape[0], bag.size
+        n_cand = bag_size + 1
+        device = bag.obs.device
+        # replace[i, j]: candidate i holds the evictee in slot j.
+        replace = (torch.arange(n_cand, device=device)[:, None]
+                   == torch.arange(bag_size, device=device)[None, :])[None]
+        obs_nd = (1,) * (bag.obs.dim() - 2)
+        # [E, n_cand, bag, ...]
+        cand_obs = torch.where(
+            replace.reshape(1, n_cand, bag_size, *obs_nd),
+            evicted_obs.to(bag.obs.dtype)[:, None, None],
+            bag.obs[:, None],
+        )
+        cand_act = torch.where(
+            replace, evicted_act.to(bag.action.dtype)[:, None, None],
+            bag.action[:, None],
+        )
+        cand_idx = torch.where(
+            replace, evicted_idx.to(bag.obs_idx.dtype)[:, None, None],
+            bag.obs_idx[:, None],
+        )
+
+        def tile(x):
+            return x.repeat_interleave(n_cand, dim=0)
+
+        q = network(
+            tile(context.obs),
+            tile(context.action),
+            cand_obs.reshape(e_count * n_cand, bag_size, *bag.obs.shape[2:]),
+            cand_act.reshape(e_count * n_cand, bag_size),
+        )
+        score = q.amax(dim=-1).mean(dim=-1).reshape(e_count, n_cand)
+        best = torch.argmax(score, dim=-1)  # [E], the first maximum
+        e = torch.arange(e_count, device=device)
+        return replay.BagState(
+            obs=where_batch(need, cand_obs[e, best], bag.obs),
+            action=where_batch(need, cand_act[e, best], bag.action),
+            obs_idx=where_batch(need, cand_idx[e, best], bag.obs_idx),
+            pos=bag.pos,
+        )
+
     # ----------------------------------------------------------- observing
     def observe(self, state: AgentState, action, next_obs, reward,
                 buffer_done) -> AgentState:
-        """Context append + replay store (dtqn.py:116-160)."""
-        state.context, _, _, _ = replay.add_transition(
+        """Context append + bag insertion + replay store (dtqn.py:116-160)."""
+        state.context, ev_obs, ev_act, was_full = replay.add_transition(
             state.context, next_obs, action, reward, buffer_done
         )
+        if self.use_bag:
+            # The evicted entry is the context's oldest: episode obs index
+            # t - L, where t is the transition count just incremented.
+            ev_idx = state.context.timestep - self.config.context_len
+            bag, accepted = replay.bag_add(
+                state.bag, ev_obs, ev_act, ev_idx, was_full
+            )
+            state.bag = self._bag_evict(
+                state.network, state.context, bag, ev_obs, ev_act, ev_idx,
+                was_full & ~accepted,
+            )
         replay.store_step(state.buffer, next_obs, action, reward, buffer_done)
+        if self.store_act_bags:
+            replay.store_act_bag(state.buffer, state.bag.obs_idx,
+                                 state.bag.action)
         return state
 
     def handle_resets(self, state: AgentState, done,
                       reset_obs) -> AgentState:
-        """Flush finished episodes and start fresh contexts
+        """Flush finished episodes and start fresh contexts and bags
         (run.py:293-296 + context_reset dtqn.py:109-114)."""
         replay.flush(state.buffer, done)
         replay.store_first_obs(state.buffer, reset_obs, done,
@@ -292,12 +382,24 @@ class Agent:
             state.context, state.generator, reset_obs, done,
             self.env.obs_mask, self.env.num_actions,
         )
+        if self.use_bag:
+            state.bag = replay.reset_bag(state.bag, done, self.env.obs_mask)
         return state
 
     # ------------------------------------------------------------- learning
     def sample_batch(self, buffer: replay.BufferState,
                      generator: torch.Generator) -> replay.Batch:
         cfg = self.config
+        if self.store_act_bags:
+            return replay.sample_with_stored_bag(
+                buffer, generator, cfg.batch_size, cfg.context_len,
+                self.env.obs_mask,
+            )
+        if self.use_bag:
+            return replay.sample_with_bag(
+                buffer, generator, cfg.batch_size, cfg.context_len,
+                cfg.bag_size, self.env.obs_mask,
+            )
         return replay.sample(buffer, generator, cfg.batch_size,
                              cfg.context_len)
 
@@ -311,13 +413,16 @@ class Agent:
         cfg = self.config
         ok = replay.can_sample(state.buffer, cfg.batch_size)
         hist = cfg.history
+        bag_in = (batch.bag_obs, batch.bag_action) if self.use_bag else ()
 
         # DDQN target: policy-net argmax selector, target-net value
         # (dtqn.py:221-238), both without gradients.
         with torch.no_grad():
-            next_q_policy = state.network(batch.next_obs, batch.next_action)
+            next_q_policy = state.network(
+                batch.next_obs, batch.next_action, *bag_in
+            )
             next_q_target = state.target_network(
-                batch.next_obs, batch.next_action
+                batch.next_obs, batch.next_action, *bag_in
             )
             next_act = torch.argmax(next_q_policy, dim=-1)
             next_q = torch.gather(
@@ -326,7 +431,7 @@ class Agent:
             dones = batch.done.to(torch.float32)
             targets = batch.reward + (1.0 - dones) * cfg.gamma * next_q
 
-        q_all = state.network(batch.obs, batch.action)
+        q_all = state.network(batch.obs, batch.action, *bag_in)
         q_taken = torch.gather(
             q_all, -1, batch.action.to(torch.int64)[..., None]
         )[..., 0].to(torch.float32)

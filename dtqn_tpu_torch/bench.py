@@ -1,7 +1,7 @@
-"""Port benchmark: Car Flag DTQN env-steps/s at the reference's 1:1 update
-ratio, on one GPU.
+"""Port benchmark: DTQN env-steps/s at the reference's 1:1 update ratio, on
+one GPU.
 
-    python -m dtqn_tpu_torch.bench [--device cpu] [--iters N]
+    python -m dtqn_tpu_torch.bench [--bag N] [--device cpu] [--iters N]
 
 Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "device": ...}
@@ -10,8 +10,10 @@ preceded, on the GPU, by the card's name and power limit (nvidia-smi).
 The configuration is the flagless one of the JAX package's ``bench.py``:
 DiscreteCarFlag-v0, DTQN in_embed 64, context 50, 8 heads, 2 layers, batch
 32, 64 envs, buffer 500k, and exactly 1 gradient step per env step
-(run.py:290-298), so "env-steps/s" also equals learner updates/s.  It
-prepopulates 625 iterations, runs one warm-up chunk of ``--iters``
+(run.py:290-298), so "env-steps/s" also equals learner updates/s.
+``--bag N`` is that script's second line: gv_memory.7x7.yaml, in_embed 128,
+and the persistent-memory bag of N slots; the metric's name then says so.
+It prepopulates 625 iterations, runs one warm-up chunk of ``--iters``
 iterations (default 50), and reports the best of 4 timed chunks.  Only
 ``--device cpu`` runs on the CPU; ``--iters`` shortens the chunks so a test
 can run the script.
@@ -25,6 +27,7 @@ import time
 import torch
 
 METRIC = "carflag_dtqn_torch_env_steps_per_s_1to1_updates"
+BAG_METRIC = "gv7x7_dtqn_bag{bag}_torch_env_steps_per_s_1to1_updates"
 NUM_ENVS = 64
 DEFAULT_ITERS = 50
 PREPOP_STEPS = 40_000
@@ -54,11 +57,12 @@ def main(argv=None) -> dict:
                         "timed chunk")
     # The JAX bench.py's optional modes, named so that they fail loudly.
     p.add_argument("--seeds", type=int, default=1)
-    p.add_argument("--bag", type=int, default=0)
+    p.add_argument("--bag", type=int, default=0,
+                   help="bag slots; above 0 the configuration is "
+                        "gv_memory.7x7.yaml at in_embed 128")
     p.add_argument("--bf16", action="store_true")
     args = p.parse_args(argv)
     for is_set, what, item in (
-        (args.bag > 0, "--bag", 10),
         (args.bf16, "--bf16", 13),
         (args.seeds > 1, "--seeds", 14),
     ):
@@ -77,19 +81,25 @@ def main(argv=None) -> dict:
     )
     from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 
+    if args.bag > 0:
+        env_name, metric = "gv_memory.7x7.yaml", BAG_METRIC.format(bag=args.bag)
+        in_embed = 128  # README.md:116-117 (128 for gridverse)
+    else:
+        env_name, metric, in_embed = "DiscreteCarFlag-v0", METRIC, 64
     cfg = AgentConfig(
         model="DTQN",
         num_envs=NUM_ENVS,
         context_len=50,
         history=50,
-        inner_embed=64,
+        inner_embed=in_embed,
         num_heads=8,
         num_layers=2,
         batch_size=32,
         buffer_size=500_000,
         target_update_frequency=10_000,
+        bag_size=args.bag,
     )
-    agent = Agent(cfg, make_env("DiscreteCarFlag-v0"), device=args.device)
+    agent = Agent(cfg, make_env(env_name), device=args.device)
     on_card = agent.device.type == "cuda"
     if on_card:
         print(card_line(), flush=True)
@@ -124,7 +134,7 @@ def main(argv=None) -> dict:
         raise FloatingPointError("non-finite gradient steps")
 
     line = {
-        "metric": METRIC,
+        "metric": metric,
         "value": round(iters * NUM_ENVS / best, 1),
         "unit": "env-steps/s (== learner updates/s)",
         "device": (torch.cuda.get_device_name(0) if on_card else "cpu"),

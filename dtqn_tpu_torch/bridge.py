@@ -12,14 +12,17 @@ give it) to a ``state_dict`` of ``dtqn_tpu_torch.models.DTQN``:
     layer_{i}/attention/qkv, out       -> layers.{i}.attention.qkv, out
     layer_{i}/ffn/Dense_0, Dense_1     -> layers.{i}.ffn.dense_0, dense_1
     layer_{i}/layernorm{1,2}           -> layers.{i}.layernorm{1,2}
+    bag_attention/query, key, value, out -> bag_attention.query, ...
     head_hidden, head_out              -> head_hidden, head_out
 
 A Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``;
 LayerNorm ``scale`` becomes ``weight``.  The older separate
 query/key/value projections are fused into ``qkv`` in q, k, v order, as
-``tools/convert_policy_qkv.py`` does.  Reading a msgpack file is the
+``tools/convert_policy_qkv.py`` does; the bag cross-attention keeps its
+three projections, in both packages.  Reading a msgpack file is the
 caller's job, which keeps this package free of flax.
-``params_to_jax`` is the inverse (always the fused layout).
+``params_to_jax`` is the inverse (self-attention always in the fused
+layout).
 """
 
 from __future__ import annotations
@@ -41,12 +44,14 @@ _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "embedding": "weight"}
 
 
-def _fuse_qkv(tree: Mapping) -> Dict:
-    """Separate query/key/value Dense layers -> one fused ``qkv``."""
+def _fuse_qkv(tree: Mapping, name: str = "") -> Dict:
+    """Separate query/key/value Dense layers of a self-attention -> one
+    fused ``qkv``."""
     if not isinstance(tree, Mapping):
         return tree
-    out = {k: _fuse_qkv(v) for k, v in tree.items()}
-    if {"query", "key", "value"} <= set(out) and "qkv" not in out:
+    out = {k: _fuse_qkv(v, k) for k, v in tree.items()}
+    if (name != "bag_attention" and {"query", "key", "value"} <= set(out)
+            and "qkv" not in out):
         parts = [out.pop(name) for name in ("query", "key", "value")]
         out["qkv"] = {
             leaf: np.concatenate([p[leaf] for p in parts], axis=-1)

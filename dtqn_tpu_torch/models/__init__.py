@@ -1,4 +1,5 @@
-"""Q-network registry (``dtqn_tpu/models/__init__.py``): DTQN only so far."""
+"""Q-network registry (``dtqn_tpu/models/__init__.py``): DTQN with and
+without the bag so far."""
 
 from __future__ import annotations
 
@@ -9,8 +10,8 @@ import torch
 from dtqn_tpu_torch.envs.core import Environment
 from dtqn_tpu_torch.models.dtqn import DTQN
 
-MODEL_MAP = {"DTQN": DTQN}
-NOT_PORTED = ("DTQN-bag", "ADRQN", "DRQN", "DARQN", "DQN")
+MODEL_MAP = {"DTQN": DTQN, "DTQN-bag": DTQN}
+NOT_PORTED = ("ADRQN", "DRQN", "DARQN", "DQN")
 
 
 def build_network(
@@ -28,19 +29,31 @@ def build_network(
     identity: bool = False,
     pos: str = "learned",
     bag_size: int = 0,
+    bag_mask: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> DTQN:
     """Builds the network on the CPU; the caller moves it to its device."""
     if model_str in NOT_PORTED:
-        item = 10 if model_str == "DTQN-bag" else 12
         raise NotImplementedError(
             f"model {model_str!r} is not ported yet; see ROADMAP.md queue 1 "
-            f"item {item}"
+            "item 12"
         )
     if model_str not in MODEL_MAP:
         raise KeyError(
             f"Unknown model {model_str!r}; choices: "
             f"{sorted((*MODEL_MAP, *NOT_PORTED))}"
+        )
+    if bag_mask and not env.is_discrete:
+        # Padded-slot detection compares every obs element against the
+        # sentinel; that is only sound when the sentinel cannot occur as a
+        # real observation.  Discrete/MultiDiscrete envs guarantee it
+        # (sentinel = vocab, outside the token range); a continuous env
+        # whose observation equals the sentinel in every element would be
+        # silently masked.
+        raise ValueError(
+            "--bag-mask requires a discrete-observation env: the padding "
+            f"sentinel {float(env.obs_mask)} is inside a continuous "
+            "observation space's range"
         )
     return DTQN(
         obs_kind=env.obs_kind,
@@ -58,6 +71,8 @@ def build_network(
         identity=identity,
         pos=pos,
         bag_size=bag_size,
+        bag_mask=bag_mask,
+        obs_mask_value=float(env.obs_mask),
         generator=generator,
     )
 

@@ -4,8 +4,12 @@ The obs embedding gets ``inner_embed - action_dim`` features; with
 ``action_dim > 0`` the previous-action embedding is right-shifted one step
 (first step zeroed) and concatenated in front (dtqn.py:63-64,184-192).
 Then learned positions, N post-LN transformer layers and a ReLU MLP head;
-Q is [B, L, num_actions] for every timestep.  The persistent-memory bag is
-not ported yet.
+Q is [B, L, num_actions] for every timestep.
+
+With ``bag_size > 0`` (DTQN-bag) the working memory cross-attends over the
+embedded persistent-memory bag (query = context, keys and values = bag) and
+the result is concatenated to it in front of a head whose first layer takes
+``2 * inner_embed`` inputs (dtqn.py:134-153,201-214).
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ from dtqn_tpu_torch.models.embeddings import (
 )
 from dtqn_tpu_torch.models.init import make_dense
 from dtqn_tpu_torch.models.positions import PositionEncoding
-from dtqn_tpu_torch.models.transformer import TransformerLayer
+from dtqn_tpu_torch.models.transformer import (
+    MultiHeadAttention,
+    TransformerLayer,
+)
 
 
 class DTQN(nn.Module):
@@ -44,19 +51,26 @@ class DTQN(nn.Module):
         identity: bool = False,
         pos: str = "learned",
         bag_size: int = 0,
+        bag_mask: bool = False,
+        obs_mask_value: float = 0.0,
         generator: Optional[torch.Generator] = None,
     ):
+        """``bag_mask`` (an ablation) hides mask-padded bag slots from the
+        cross-attention instead of attending over them as the reference
+        does (dtqn.py:201-213).  ``obs_mask_value`` is the env's padding
+        sentinel, by which empty slots are told; that is sound only when
+        the sentinel lies outside the observable range, which
+        ``build_network`` enforces (discrete-observation envs only)."""
         super().__init__()
-        if bag_size > 0:
-            raise NotImplementedError(
-                "DTQN-bag is not ported yet; see ROADMAP.md queue 1 item 10"
-            )
         if dropout > 0.0:
             raise NotImplementedError(
                 "dropout > 0 is not ported yet; see ROADMAP.md queue 1 item 12"
             )
         self.context_len = context_len
         self.action_dim = action_dim
+        self.bag_size = bag_size
+        self.bag_mask = bag_mask
+        self.obs_mask_value = obs_mask_value
         self.obs_embedding = make_obs_embedding(
             features=inner_embed - action_dim,
             obs_kind=obs_kind,
@@ -76,13 +90,25 @@ class DTQN(nn.Module):
                              generator)
             for _ in range(num_layers)
         )
-        self.head_hidden = make_dense(inner_embed, inner_embed, generator)
+        self.bag_attention = (
+            MultiHeadAttention(inner_embed, num_heads, dropout, generator,
+                               cross=True)
+            if bag_size > 0
+            else None
+        )
+        head_in = 2 * inner_embed if bag_size > 0 else inner_embed
+        self.head_hidden = make_dense(head_in, inner_embed, generator)
         self.head_out = make_dense(inner_embed, num_actions, generator)
 
     def forward(
-        self, obss: torch.Tensor, actions: Optional[torch.Tensor] = None
+        self,
+        obss: torch.Tensor,
+        actions: Optional[torch.Tensor] = None,
+        bag_obss: Optional[torch.Tensor] = None,
+        bag_actions: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """obss: [B, L, *obs_shape]; actions: [B, L] int -> Q [B, L, A]."""
+        """obss: [B, L, *obs_shape]; actions: [B, L] int; bag_*: [B, bag,
+        ...] -> Q [B, L, A]."""
         seq_len = obss.shape[1]
         if seq_len > self.context_len:
             raise ValueError(
@@ -104,4 +130,31 @@ class DTQN(nn.Module):
         x = tokens + self.position()[:, :seq_len]
         for layer in self.layers:
             x = layer(x)
+        if self.bag_attention is not None:
+            x = torch.cat([x, self._persistent(x, bag_obss, bag_actions)],
+                          dim=-1)
         return self.head_out(torch.relu(self.head_hidden(x)))
+
+    def _persistent(self, x, bag_obss, bag_actions) -> torch.Tensor:
+        """Cross-attention of the working memory ``x`` over the (possibly
+        padded) bag."""
+        if bag_obss is None:
+            raise ValueError("bag_size > 0 requires bag_obss")
+        # The bag goes through the same obs and action embedders as the
+        # context (dtqn.py:201-209); its actions are not right-shifted.
+        bag_tokens = self.obs_embedding(bag_obss)
+        if self.action_embed is not None:
+            bag_tokens = torch.cat(
+                [self.action_embed(bag_actions), bag_tokens], dim=-1
+            )
+        if not self.bag_mask:
+            # The reference always attends over the full bag, padding
+            # included (dtqn.py:201-213).
+            return self.bag_attention(x, bag_tokens)
+        # A slot is empty when every obs element equals the padding
+        # sentinel; the persistent features are zero where no slot is valid.
+        slot_dims = tuple(range(2, bag_obss.dim()))
+        kv_mask = ~torch.all(bag_obss == self.obs_mask_value, dim=slot_dims)
+        persistent = self.bag_attention(x, bag_tokens, kv_mask=kv_mask)
+        any_valid = torch.any(kv_mask, dim=-1)
+        return torch.where(any_valid[:, None, None], persistent, 0.0)

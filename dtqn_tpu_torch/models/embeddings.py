@@ -11,10 +11,40 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dtqn_tpu_torch.envs.core import ObsKind
 from dtqn_tpu_torch.models.init import make_dense, normal_
+
+
+class _Lookup(torch.autograd.Function):
+    """``table[tokens]`` with a table gradient that repeats bit for bit.
+
+    The stock embedding backward on a CUDA device sums the rows of equal
+    tokens with atomic adds, in an order that changes from launch to launch,
+    so two runs from the same state drift apart in the last bits and a
+    resumed run no longer equals the uninterrupted one.  Here the gradient
+    is one matrix product, ``one_hot(tokens)^T @ grad``, whose order of
+    summation is fixed; the one-hot matrix exists only in the backward.
+    """
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.rows = table.shape[0]
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        hot = F.one_hot(tokens.reshape(-1).to(torch.int64), ctx.rows)
+        return hot.to(grad.dtype).t() @ grad.reshape(-1, grad.shape[-1]), None
+
+
+def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` [V, F] at int ``tokens`` [...] -> [..., F]."""
+    return _Lookup.apply(table, tokens)
 
 
 class DiscreteObsEmbedding(nn.Module):
@@ -32,7 +62,7 @@ class DiscreteObsEmbedding(nn.Module):
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         # obs: [..., obs_dim] int32 tokens (mask token == vocab_size - 1),
         # looked up as they are: no widening copy per call.
-        tok = self.embedding(obs)
+        tok = lookup(self.embedding.weight, obs)
         return self.dense_0(tok.flatten(-2))
 
 
@@ -58,7 +88,7 @@ class ActionEmbedding(nn.Module):
         normal_(self.embedding.weight, generator)
 
     def forward(self, actions: torch.Tensor) -> torch.Tensor:
-        return self.embedding(actions.to(torch.int64))
+        return lookup(self.embedding.weight, actions)
 
 
 def make_obs_embedding(

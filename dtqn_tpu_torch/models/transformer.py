@@ -29,27 +29,48 @@ def _not_ported(what: str):
 
 
 class MultiHeadAttention(nn.Module):
-    """Fused QKV projection + attention core + output projection.
+    """Projections + attention core + output projection.
 
-    Self-attention only: the one [F, 3F] ``qkv`` Linear splits in q, k, v
-    order (transformer.py:55-57).
+    Self-attention (the default) has one fused [F, 3F] ``qkv`` Linear that
+    splits in q, k, v order (transformer.py:55-57).  ``cross=True`` builds
+    the separate ``query`` / ``key`` / ``value`` projections of attention
+    over another sequence (transformer.py:58-61): the bag.
     """
 
     def __init__(self, features: int, num_heads: int, dropout: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cross: bool = False):
         super().__init__()
         if features % num_heads:
             raise ValueError("features must divide num_heads")
         if dropout > 0.0:
             raise _not_ported("attention dropout")
         self.num_heads = num_heads
-        self.qkv = make_dense(features, 3 * features, generator)
+        self.cross = cross
+        if cross:
+            self.query = make_dense(features, features, generator)
+            self.key = make_dense(features, features, generator)
+            self.value = make_dense(features, features, generator)
+        else:
+            self.qkv = make_dense(features, 3 * features, generator)
         self.out = make_dense(features, features, generator)
 
-    def forward(self, x: torch.Tensor, *, causal: bool = False):
-        q, k, v = (t.contiguous() for t in self.qkv(x).chunk(3, dim=-1))
+    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None, *,
+                causal: bool = False,
+                kv_mask: Optional[torch.Tensor] = None):
+        """``x`` [B, Lq, F] queries; ``kv`` [B, Lk, F] the keys' and values'
+        source (cross-attention only); ``kv_mask`` [B, Lk] bool hides
+        key/value positions (False = masked)."""
+        if self.cross != (kv is not None):
+            raise ValueError(
+                "cross-attention takes kv and self-attention does not"
+            )
+        if self.cross:
+            q, k, v = self.query(x), self.key(kv), self.value(kv)
+        else:
+            q, k, v = (t.contiguous() for t in self.qkv(x).chunk(3, dim=-1))
         out = dot_product_attention(
-            q, k, v, num_heads=self.num_heads, causal=causal
+            q, k, v, num_heads=self.num_heads, causal=causal, kv_mask=kv_mask
         )
         return self.out(out)
 

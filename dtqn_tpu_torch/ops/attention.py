@@ -6,9 +6,16 @@ CUDA tensor goes through the hand-written kernels of ``ops/cuda_attention``
 (forward and recompute backward); a CPU tensor goes through the same
 ``torch.autograd.Function`` with the kernels' plain PyTorch versions.
 
+A call with ``kv_mask`` (the masked-bag ablation) is a different function:
+in the JAX package it never reaches the Pallas kernels
+(``dtqn_tpu/ops/attention.py:119-123``), which take no key mask, and here it
+is ``plain_attention_packed``'s masked softmax in stock torch ops on either
+device.
+
 ``plain_attention_packed`` is the plain reference of the JAX package's XLA
 path (``_xla_attention``): scores masked with ``finfo.min`` under a
-bottom-right-aligned causal mask, differentiated by autograd.
+bottom-right-aligned causal mask and the key mask, differentiated by
+autograd.
 """
 
 from __future__ import annotations
@@ -26,8 +33,10 @@ def plain_attention_packed(
     v: torch.Tensor,
     num_heads: int,
     causal: bool = False,
+    kv_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``_xla_attention`` in plain PyTorch: q [B, Lq, E], k/v [B, Lk, E]."""
+    """``_xla_attention`` in plain PyTorch: q [B, Lq, E], k/v [B, Lk, E];
+    ``kv_mask`` [B, Lk] bool hides key/value positions (False = masked)."""
     b, lq, e = q.shape
     lk = k.shape[1]
     d = e // num_heads
@@ -42,6 +51,10 @@ def plain_attention_packed(
         )
         scores = torch.where(
             mask, scores, torch.finfo(scores.dtype).min
+        )
+    if kv_mask is not None:
+        scores = torch.where(
+            kv_mask[:, None, None, :], scores, torch.finfo(scores.dtype).min
         )
     weights = torch.softmax(scores, dim=-1)
     return torch.einsum("bhlm,bmhd->blhd", weights, vh).reshape(b, lq, e)
@@ -58,12 +71,11 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Multi-head attention core, packed layout: [B, Lq, E] out.
 
-    CUDA tensors launch the attention kernels; CPU tensors run their plain
-    versions.  ``kv_mask`` (the masked-bag ablation) is not ported.
+    Without ``kv_mask``, CUDA tensors launch the attention kernels (or the
+    call raises) and CPU tensors run the kernels' plain versions.  With
+    ``kv_mask`` ([B, Lk] bool, False hides a key) the masked softmax runs in
+    stock torch ops on either device and launches no kernel.
     """
     if kv_mask is not None:
-        raise NotImplementedError(
-            "kv_mask (masked bag attention) is not ported yet; see "
-            "ROADMAP.md queue 1 item 10"
-        )
+        return plain_attention_packed(q, k, v, num_heads, causal, kv_mask)
     return cuda_attention_packed(q, k, v, num_heads, causal)

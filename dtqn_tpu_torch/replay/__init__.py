@@ -1,5 +1,6 @@
-"""On-device replay: episode-major ring buffer and rolling context."""
+"""On-device replay: episode-major ring buffer, rolling context and bag."""
 
+from dtqn_tpu_torch.replay.bag import BagState, bag_add, init_bag, reset_bag
 from dtqn_tpu_torch.replay.buffer import (
     Batch,
     BufferState,
@@ -7,6 +8,9 @@ from dtqn_tpu_torch.replay.buffer import (
     flush,
     init_buffer,
     sample,
+    sample_with_bag,
+    sample_with_stored_bag,
+    store_act_bag,
     store_first_obs,
     store_step,
 )
@@ -18,6 +22,7 @@ from dtqn_tpu_torch.replay.context import (
 )
 
 __all__ = [
+    "BagState",
     "Batch",
     "BufferState",
     "ContextState",
@@ -27,6 +32,12 @@ __all__ = [
     "flush",
     "can_sample",
     "sample",
+    "sample_with_bag",
+    "sample_with_stored_bag",
+    "store_act_bag",
+    "init_bag",
+    "reset_bag",
+    "bag_add",
     "init_context",
     "reset_context",
     "add_transition",

@@ -10,16 +10,23 @@
     bit: set on flush, cleared when a row is cleansed for reuse
   - ``sample`` draws a uniform valid episode and a uniform window start in
     [0, max(0, ep_len - L)] per sample
+  - ``sample_with_bag`` also builds fixed-shape per-sample bags from
+    pre-window observations: all of them if fewer than ``bag_size``,
+    otherwise a uniform random subset, taken as the bottom-``bag_size`` of
+    random scores over the valid slots
+  - ``store_act_bag`` / ``sample_with_stored_bag`` (``--bag-store``): record
+    the act-time bag per timestep as (episode obs index, action) pairs, and
+    train on the stored bag of the sampled window's last acting step
   - episode lengths are int32
 
 Unlike the JAX package, the write functions update the buffer's tensors in
-place (and also return the buffer).  The bag functions are not ported yet.
+place (and also return the buffer).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,6 +44,10 @@ class BufferState:
     write_pos: torch.Tensor  # [E] int32: step cursor in current episode
     ep_count: torch.Tensor  # [E] int32: episodes started per env
     flushed_total: torch.Tensor  # int32 scalar: completed episodes
+    # Act-time bag storage (--bag-store): slot p holds the bag state after
+    # transition p+1 = the bag used when acting at episode obs index p+1.
+    bag_idx: Optional[torch.Tensor] = None  # [R, T, bag] int32, -1 = empty
+    bag_act: Optional[torch.Tensor] = None  # [R, T, bag] int32
 
     @property
     def num_envs(self) -> int:
@@ -69,6 +80,8 @@ class Batch:
     next_action: torch.Tensor  # [B, L]
     done: torch.Tensor  # [B, L]
     ep_len: torch.Tensor  # [B] clipped to L
+    bag_obs: Optional[torch.Tensor] = None  # [B, bag, *obs_shape]
+    bag_action: Optional[torch.Tensor] = None  # [B, bag]
 
 
 def init_buffer(
@@ -81,6 +94,7 @@ def init_buffer(
     obs_dtype: torch.dtype,
     obs_mask: float,
     device,
+    act_bag_size: int = 0,
 ) -> BufferState:
     if context_len > max_episode_steps:
         raise ValueError(
@@ -106,6 +120,17 @@ def init_buffer(
         write_pos=zeros((num_envs,), torch.int32),
         ep_count=zeros((num_envs,), torch.int32),
         flushed_total=zeros((), torch.int32),
+        bag_idx=(
+            torch.full((rows, t, act_bag_size), -1, dtype=torch.int32,
+                       device=device)
+            if act_bag_size > 0
+            else None
+        ),
+        bag_act=(
+            zeros((rows, t, act_bag_size), torch.int32)
+            if act_bag_size > 0
+            else None
+        ),
     )
 
 
@@ -141,6 +166,16 @@ def store_first_obs(
     _masked_row_update(buf.ep_len, rows, mask, torch.zeros_like(buf.ep_len[rows]))
     _masked_row_update(buf.ep_valid, rows, mask,
                        torch.zeros_like(buf.ep_valid[rows]))
+    if buf.bag_idx is not None:
+        bag = buf.bag_idx.shape[2]
+        _masked_row_update(
+            buf.bag_idx, rows, mask,
+            torch.full((e, t, bag), -1, dtype=torch.int32, device=device),
+        )
+        _masked_row_update(
+            buf.bag_act, rows, mask,
+            torch.zeros((e, t, bag), dtype=torch.int32, device=device),
+        )
     buf.write_pos = torch.where(mask, torch.zeros_like(buf.write_pos),
                                 buf.write_pos)
     return buf
@@ -166,6 +201,23 @@ def store_step(
     buf.done[rows, pos] = done.to(torch.bool)
     buf.write_pos = buf.write_pos + 1
     buf.ep_len[rows] = buf.write_pos
+    return buf
+
+
+def store_act_bag(buf: BufferState, bag_idx, bag_act) -> BufferState:
+    """Record the act-time bag for the transition just written by
+    ``store_step`` (--bag-store).
+
+    Must be called after ``store_step`` with the bag state as updated by
+    the agent's add/evict policy for that transition: slot p (the
+    transition's write position) then holds the bag the agent acts with at
+    episode obs index p+1, which ``sample_with_stored_bag`` gathers for
+    windows ending there.
+    """
+    rows = buf.current_rows
+    pos = (buf.write_pos - 1).to(torch.int64)  # store_step moved the cursor
+    buf.bag_idx[rows, pos] = bag_idx.to(torch.int32)
+    buf.bag_act[rows, pos] = bag_act.to(torch.int32)
     return buf
 
 
@@ -219,11 +271,8 @@ def _gather_windows(buf: BufferState, rows, starts, context_len):
     return obs_slice, act_slice, rew, don
 
 
-def sample(
-    buf: BufferState, generator, batch_size: int, context_len: int
-) -> Batch:
-    """Uniform (valid episode, window start) batch (replay_buffer.py:137-168)."""
-    rows, starts = _draw_windows(buf, generator, batch_size, context_len)
+def _window_batch(buf: BufferState, rows, starts, context_len,
+                  bag_obs=None, bag_action=None) -> Batch:
     obs_s, act_s, rew, don = _gather_windows(buf, rows, starts, context_len)
     return Batch(
         obs=obs_s[:, :context_len],
@@ -233,4 +282,106 @@ def sample(
         next_action=act_s[:, 1:],
         done=don,
         ep_len=torch.clamp(buf.ep_len[rows], 0, context_len),
+        bag_obs=bag_obs,
+        bag_action=bag_action,
     )
+
+
+def sample(
+    buf: BufferState, generator, batch_size: int, context_len: int
+) -> Batch:
+    """Uniform (valid episode, window start) batch (replay_buffer.py:137-168)."""
+    rows, starts = _draw_windows(buf, generator, batch_size, context_len)
+    return _window_batch(buf, rows, starts, context_len)
+
+
+def _pad_bag(bag_obs, bag_act, valid, obs_mask: float):
+    """Invalid bag slots hold the obs mask and action 0."""
+    pad = valid.reshape(valid.shape + (1,) * (bag_obs.dim() - 2))
+    return (
+        torch.where(pad, bag_obs, torch.full_like(bag_obs, obs_mask)),
+        torch.where(valid, bag_act, torch.zeros_like(bag_act)),
+    )
+
+
+def random_bags(buf: BufferState, rows, starts, scores, bag_size: int,
+                obs_mask: float):
+    """Per-sample bags from pre-window observations, given one uniform
+    ``scores`` [B, T] draw per slot: (bag_obs, bag_action).
+
+    The bottom-``bag_size`` of the scores over the valid slots (those before
+    the window start); invalid slots score 2.0 and so sort last.  Scores tie
+    only at 2.0, among invalid slots, and every chosen invalid slot is
+    padded alike, so a tie never decides a valid entry; the stable sort
+    makes the order of the padding repeatable all the same.
+    """
+    t_slots = buf.max_episode_steps
+    slot_idx = torch.arange(t_slots, device=scores.device)[None, :]
+    valid = slot_idx < starts[:, None]
+    scores = torch.where(valid, scores, torch.full_like(scores, 2.0))
+    order = torch.argsort(scores, dim=1, stable=True)[:, :bag_size]
+    chosen_valid = torch.gather(valid, 1, order)
+    rows_b = rows.to(torch.int64)[:, None]
+    return _pad_bag(buf.obs[rows_b, order], buf.action[rows_b, order],
+                    chosen_valid, obs_mask)
+
+
+def sample_with_bag(
+    buf: BufferState,
+    generator,
+    batch_size: int,
+    context_len: int,
+    bag_size: int,
+    obs_mask: float,
+) -> Batch:
+    """Batch plus per-sample bags drawn from pre-window observations
+    (replay_buffer.py:171-264).
+
+    For each sample with window start s: if s <= bag_size take all s
+    pre-window entries (mask-padding the rest), else a uniform random
+    subset of ``bag_size``, which is distribution-equivalent to the
+    reference's ``random.sample`` (order inside a bag is irrelevant to the
+    unmasked bag cross-attention).
+    """
+    rows, starts = _draw_windows(buf, generator, batch_size, context_len)
+    scores = torch.rand((batch_size, buf.max_episode_steps),
+                        generator=generator, device=starts.device)
+    bag_obs, bag_act = random_bags(buf, rows, starts, scores, bag_size,
+                                   obs_mask)
+    return _window_batch(buf, rows, starts, context_len, bag_obs, bag_act)
+
+
+def stored_bags(buf: BufferState, rows, starts, context_len: int,
+                obs_mask: float):
+    """The act-time bag recorded for each window: (bag_obs, bag_action).
+
+    For a window starting at s, the relevant acting step is its last
+    position t = s + L - 1; the bag the agent used there is stored at slot
+    t - 1 (the bag state after transition t).  Entries are episode obs
+    indices < s by construction (evictions at step t come from obs index
+    t - L), so the gathered bag is always pre-window.
+    """
+    rows = rows.to(torch.int64)
+    slot = torch.minimum(
+        torch.clamp_min(starts + context_len - 2, 0), buf.ep_len[rows] - 1
+    ).to(torch.int64)
+    idx = buf.bag_idx[rows, slot]  # [B, bag]
+    valid = idx >= 0
+    bag_obs = buf.obs[rows[:, None], torch.clamp_min(idx, 0).to(torch.int64)]
+    return _pad_bag(bag_obs, buf.bag_act[rows, slot], valid, obs_mask)
+
+
+def sample_with_stored_bag(
+    buf: BufferState,
+    generator,
+    batch_size: int,
+    context_len: int,
+    obs_mask: float,
+) -> Batch:
+    """Batch plus the act-time bag recorded for each sampled window
+    (--bag-store; see ``store_act_bag``): the same support as
+    ``sample_with_bag``, but with the eviction policy's actual contents
+    instead of a uniform random subset."""
+    rows, starts = _draw_windows(buf, generator, batch_size, context_len)
+    bag_obs, bag_act = stored_bags(buf, rows, starts, context_len, obs_mask)
+    return _window_batch(buf, rows, starts, context_len, bag_obs, bag_act)

@@ -118,22 +118,43 @@ def make_evaluate_fn(
             generator, n, cfg.context_len, tuple(eval_env.obs_shape),
             eval_env.obs_dtype, eval_env.obs_mask, eval_env.num_actions, obs,
         )
+        bag = (
+            replay.init_bag(
+                n, cfg.bag_size, tuple(eval_env.obs_shape),
+                eval_env.obs_dtype, eval_env.obs_mask, device,
+            )
+            if agent.use_bag
+            else None
+        )
         finished = torch.zeros((n,), dtype=torch.bool, device=device)
         ep_reward = torch.zeros((n,), dtype=torch.float32, device=device)
         ep_len = torch.zeros((n,), dtype=torch.int32, device=device)
         success = torch.zeros((n,), dtype=torch.bool, device=device)
 
         for t in range(max_steps):
-            actions = agent.greedy_actions(network, context)
+            actions = agent.greedy_actions(network, context, bag)
             _, env_state_t, ts = eval_env.step(generator, env_state, actions)
             live = ~finished
             ep_reward = ep_reward + ts.reward * live
             done_now = live & ts.done
             # success = is_success flag or positive return (run.py:232)
             succ = ts.info["is_success"] | (ep_reward > 0)
-            context_t, _, _, _ = replay.add_transition(
+            context_t, ev_obs, ev_act, was_full = replay.add_transition(
                 context, ts.obs, actions, ts.reward, ts.terminated
             )
+            if agent.use_bag:
+                # The evaluation's bag keeps the add/evict policy
+                # (dtqn.py:116-157).
+                need = was_full & live
+                ev_idx = context_t.timestep - cfg.context_len
+                bag_t, accepted = replay.bag_add(
+                    bag, ev_obs, ev_act, ev_idx, need
+                )
+                bag_t = agent._bag_evict(
+                    network, context_t, bag_t, ev_obs, ev_act, ev_idx,
+                    need & ~accepted,
+                )
+                bag = where_batch(live, bag_t, bag)
             # Finished episodes stay frozen; live ones advance.
             context = where_batch(live, context_t, context)
             env_state = where_batch(live, env_state_t, env_state)

@@ -175,7 +175,7 @@ def run_experiment(config: ExperimentConfig) -> dict:
             f"EpisodeLength={float(ln):.1f}"
         )
         out = {"success_rate": float(sr), "return": float(ret)}
-        if hasattr(eval_envs[0], "render_frame"):
+        if hasattr(eval_envs[0], "render_frame") and not agent.use_bag:
             path = _render_episode(
                 agent, eval_envs[0], network,
                 torch.Generator(device=device).manual_seed(config.seed + 2),

@@ -4,7 +4,8 @@ As the reference (dqn.py:212-327, run.py:471-490):
   1. *Mini checkpoint*: ``{step, wandb_id}`` sentinel written on completion
      (dqn.py:212-220), JSON, same file name and keys as the JAX package.
   2. *Full checkpoint*: the complete training state: parameters, target,
-     optimizer state, the entire replay ring, contexts, env state, counters,
+     optimizer state, the entire replay ring (with the stored act-time
+     bags of ``--bag-store``), contexts, the bag, env state, counters,
      epsilon, loss running averages and the generator's state.
   3. Plain policy weights every 50k steps under ``--save-policy``
      (run.py:337-338).
@@ -46,7 +47,8 @@ def load_mini_checkpoint(path: str) -> Optional[Dict[str, Any]]:
 
 def _leaves(node: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     """(dotted name, tensor or generator) for every leaf of a dataclass
-    tree.  Modules are left out: their parameters are views of a leaf."""
+    tree.  Modules are left out: their parameters are views of a leaf; so
+    are the parts a configuration does not have (``None``: no bag)."""
     for field in dataclasses.fields(node):
         value = getattr(node, field.name)
         name = prefix + field.name
@@ -54,7 +56,7 @@ def _leaves(node: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
             yield name, value
         elif dataclasses.is_dataclass(value):
             yield from _leaves(value, name + ".")
-        elif not isinstance(value, nn.Module):
+        elif value is not None and not isinstance(value, nn.Module):
             raise TypeError(f"cannot checkpoint {name}: {type(value)}")
 
 

@@ -33,12 +33,13 @@ def arrays(seed, b, lq, lk, e):
             for s in ((b, lq, e), (b, lk, e), (b, lk, e), (b, lq, e))]
 
 
-def xla_packed(q, k, v, heads, causal):
+def xla_packed(q, k, v, heads, causal, kv_mask=None):
     b, lq, e = q.shape
     lk = k.shape[1]
     d = e // heads
     out = _xla_attention(q.reshape(b, lq, heads, d), k.reshape(b, lk, heads, d),
-                         v.reshape(b, lk, heads, d), causal=causal)
+                         v.reshape(b, lk, heads, d), causal=causal,
+                         kv_mask=kv_mask)
     return out.reshape(b, lq, e)
 
 
@@ -65,6 +66,10 @@ CASES = [
     pytest.param(2, 1, 50, 4, 16, False, id="unaligned-1x50"),
     pytest.param(2, 50, 50, 8, 8, True, id="main-path-h8-d8"),
     pytest.param(2, 12, 12, 8, 8, False, id="main-heads-full"),
+    # The bag cross-attention: context queries over bag keys.
+    pytest.param(3, 50, 25, 8, 16, False, id="bag-gridverse-lk25-d16"),
+    pytest.param(3, 50, 10, 8, 8, False, id="bag-carflag-lk10-d8"),
+    pytest.param(8, 6, 3, 2, 8, False, id="bag-small-lk3"),
 ]
 
 
@@ -112,9 +117,45 @@ def test_dispatch_cpu_runs_plain_and_counts_nothing():
     assert torch.equal(out, ref)
     assert cuda_attention.launch_counts == {"attention_fwd": 0,
                                             "attention_bwd": 0}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dot_product_attention(qt, kt, vt, num_heads=2,
-                              kv_mask=torch.ones(2, 5, dtype=torch.bool))
+    # A key mask takes the masked softmax in stock ops: all keys shown, it
+    # agrees with the unmasked call, and it counts nothing either.
+    shown = dot_product_attention(qt, kt, vt, num_heads=2,
+                                  kv_mask=torch.ones(2, 5, dtype=torch.bool))
+    np.testing.assert_allclose(
+        shown.numpy(),
+        dot_product_attention(qt, kt, vt, num_heads=2).numpy(),
+        atol=FWD_ATOL)
+    assert cuda_attention.launch_counts == {"attention_fwd": 0,
+                                            "attention_bwd": 0}
+
+
+@pytest.mark.parametrize("lq,lk,heads,d", [(50, 25, 8, 16), (6, 3, 2, 8)])
+def test_kv_mask_matches_xla(lq, lk, heads, d):
+    """``kv_mask`` against ``_xla_attention``'s: hidden keys, and one row
+    with every key hidden (a uniform softmax over ``finfo.min`` scores)."""
+    b = 4
+    q, k, v, g = arrays(lq + lk, b, lq, lk, heads * d)
+    mask = np.random.default_rng(0).random((b, lk)) < 0.6
+    mask[0] = True
+    mask[1] = False
+    assert mask[2:].any() and not mask[2:].all()
+
+    def port(qt, kt, vt, heads, causal):
+        return dot_product_attention(qt, kt, vt, num_heads=heads,
+                                     causal=causal,
+                                     kv_mask=torch.tensor(mask))
+
+    def ref(q, k, v, heads, causal):
+        return xla_packed(q, k, v, heads, causal, kv_mask=jnp.asarray(mask))
+
+    out, grads = torch_out_and_grads(port, q, k, v, g, heads, False)
+    np.testing.assert_allclose(out, np.asarray(ref(q, k, v, heads, False)),
+                               atol=FWD_ATOL)
+    for ours, want in zip(grads, jax_grads(ref, q, k, v, g, heads, False)):
+        np.testing.assert_allclose(ours, np.asarray(want), atol=GRAD_ATOL)
+    # A hidden key's value gets no gradient where some key is shown.
+    hidden = ~mask[2:]
+    assert (grads[2][2:][hidden] == 0).all()
 
 
 def test_kernel_limits_are_checked():
@@ -182,6 +223,10 @@ def test_instances_match_the_kernel_source():
     (7, 65, 64, (64, 0, 4, 8, 0), (64, 0, 2, 7, 4 * 3 * 7)),
     (30, 30, 4, (8, 1, 4, 8, 0), (8, 1, 8, 30, 4 * 2 * 8 * 30 * 8)),
     (40, 40, 12, (16, 0, 4, 8, 0), (16, 0, 8, 40, 4 * 3 * 40)),
+    # the bag cross-attention (non-causal, one key a lane): gv_memory at
+    # in_embed 128 with bag 25, and Car Flag at in_embed 64 with bag 10
+    (50, 25, 16, (16, 1, 4, 8, 0), (16, 1, 8, 50, 4 * 2 * 8 * 25 * 16)),
+    (50, 10, 8, (8, 1, 4, 8, 0), (8, 1, 8, 50, 4 * 2 * 8 * 10 * 8)),
 ])
 def test_launch_config_layout(lq, lk, d, fwd, bwd):
     """Instance, warps, rows per block and shared bytes of each layout:

@@ -90,8 +90,8 @@ def port_evaluate(agent, env, network, start, n, monkeypatch):
     recorded = []
     greedy = agent.greedy_actions
 
-    def recording(network, context):
-        actions = greedy(network, context)
+    def recording(network, context, bag=None):
+        actions = greedy(network, context, bag)
         recorded.append(actions.numpy().copy())
         return actions
 
@@ -181,7 +181,7 @@ def test_early_exit_changes_no_result(monkeypatch, env_name):
         # Drive right always: every episode ends well before the cap.
         monkeypatch.setattr(
             agent, "greedy_actions",
-            lambda net, ctx: torch.full((5,), 2, dtype=torch.int64))
+            lambda net, ctx, bag: torch.full((5,), 2, dtype=torch.int64))
     calls, results = [], []
     step = env.step
     monkeypatch.setattr(

@@ -129,11 +129,11 @@ def test_dtqn_forward_and_grads_match_jax(action_dim):
 def test_unported_options_raise():
     env = make_env("DiscreteCarFlag-v0")
     for kw in (dict(gate="gru"), dict(identity=True), dict(pos="sin"),
-               dict(pos="none"), dict(dropout=0.1), dict(bag_size=4)):
+               dict(pos="none"), dict(dropout=0.1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_network("DTQN", env, inner_embed=16, num_heads=2,
                           context_len=4, **kw)
-    for model in ("DTQN-bag", "DRQN", "ADRQN", "DARQN", "DQN"):
+    for model in ("DRQN", "ADRQN", "DARQN", "DQN"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_network(model, env)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

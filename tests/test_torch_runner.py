@@ -426,14 +426,12 @@ def test_host_running_average_and_build_envs():
 
 NOT_PORTED = [
     (dict(dp_devices=2), "item 14"), (dict(bf16=True), "item 13"),
-    (dict(profile_dir="prof"), "item 14"), (dict(bag_size=4), "item 10"),
-    (dict(bag_mask=True), "item 10"), (dict(bag_store=True), "item 10"),
-    (dict(model="DTQN-bag"), "item 10"), (dict(model="DRQN"), "item 12"),
+    (dict(profile_dir="prof"), "item 14"), (dict(model="DRQN"), "item 12"),
     (dict(model="ADRQN"), "item 12"), (dict(model="DARQN"), "item 12"),
     (dict(model="DQN"), "item 12"), (dict(gate="gru"), "item 12"),
     (dict(identity=True), "item 12"), (dict(pos="sin"), "item 12"),
     (dict(pos="none"), "item 12"), (dict(dropout=0.1), "item 12"),
-    (dict(envs=["gv_memory.7x7.yaml"]), "item 11"),
+    (dict(envs=["gv_memory.7x7.yaml", "gv_memory.5x5.yaml"]), "item 11"),
     (dict(envs=["ImageMaze-9-v0"]), "item 11"),
 ]
 
@@ -449,10 +447,27 @@ def test_not_ported_flags_raise(kw, item, tmp_path, monkeypatch):
 
 
 def test_agent_refuses_bag_fields():
+    """Where the JAX factory refuses them: ``bag_mask`` tells empty slots by
+    the padding sentinel, which a continuous observation can equal."""
+    from dtqn_tpu.agents import Agent as JaxAgent
+    from dtqn_tpu.agents import AgentConfig as JaxConfig
+    from dtqn_tpu.envs import make_env as jax_make_env
+
     env = make_env("DiscreteCarFlag-v0")
-    for kw in (dict(bag_size=2), dict(bag_mask=True), dict(bag_store=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            Agent(AgentConfig(**kw), env, device="cpu")
+    small = dict(inner_embed=16, num_heads=2, context_len=4, history=4)
+    for kw in (dict(bag_mask=True), dict(bag_size=2, bag_mask=True)):
+        with pytest.raises(ValueError, match="discrete-observation env"):
+            JaxAgent(JaxConfig(**small, **kw),
+                     jax_make_env("DiscreteCarFlag-v0"))
+        with pytest.raises(ValueError, match="discrete-observation env"):
+            Agent(AgentConfig(**small, **kw), env, device="cpu").init_state(0)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Agent(AgentConfig(model="DRQN", bag_size=2), env, device="cpu")
+    # Without the mask a continuous env takes a bag, as in the JAX package.
+    agent = Agent(AgentConfig(bag_size=2, bag_store=True, **small), env,
+                  device="cpu")
+    assert agent.use_bag and agent.store_act_bags
+    assert agent.init_state(0).buffer.bag_idx.shape[2] == 2
 
 
 # ------------------------------------------------------------ entry modules
@@ -491,8 +506,7 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
     assert "vs_baseline" not in line
 
 
-@pytest.mark.parametrize("flags", [["--seeds", "5"], ["--bf16"],
-                                   ["--bag", "4"]])
+@pytest.mark.parametrize("flags", [["--seeds", "5"], ["--bf16"]])
 def test_bench_extras_are_not_ported(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.*item"):
         bench.main(["--device", "cpu", *flags])
