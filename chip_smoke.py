@@ -114,8 +114,10 @@ def rand(gen, *shape):
 # Then the evaluation's batch of 10 and the discrete path's head width 16,
 # and last the bag path: context queries over bag keys at the update's, the
 # act step's and the evict forward's batch (gv_memory: bag 25, head width
-# 16, 64 * 26 candidates; Car Flag: bag 10, head width 8, 64 * 11).  Between
-# them they reach every kernel instance.
+# 16, 64 * 26 candidates; Car Flag: bag 10, head width 8, 64 * 11), and the
+# bag evaluation's 10 episodes (greedy forward at 10, evict forward at
+# 10 * 26).  Between them they reach every kernel instance, and
+# check_ledger refuses a launch of the bag phase at a shape not listed.
 PARITY_CASES = [
     (64, 50, 50, 8, True, 64), (32, 50, 50, 8, True, 64),
     (4, 7, 3, 8, False, 64), (4, 1, 50, 8, False, 64),
@@ -135,6 +137,8 @@ PARITY_CASES = [
     (1664, 50, 25, 8, False, 128), (1664, 50, 50, 8, True, 128),
     (32, 50, 10, 8, False, 64), (64, 50, 10, 8, False, 64),
     (1664, 50, 10, 8, False, 64), (704, 50, 50, 8, True, 64),
+    (10, 50, 25, 8, False, 128), (260, 50, 25, 8, False, 128),
+    (260, 50, 50, 8, True, 128), (704, 50, 10, 8, False, 64),
 ]
 
 
@@ -764,6 +768,12 @@ def check_ledger(ca, ledger, expected, what):
     check(ledger == expected,
           f"{what}: launches by shape {show(ledger)}, reckoned "
           f"{show(expected)}")
+    held = {(b, lq, lk, e // h, causal)
+            for b, lq, lk, h, causal, e in PARITY_CASES}
+    unheld = {k: n for k, n in ledger.items() if k[1:] not in held}
+    check(not unheld, f"{what}: launched at shapes that the parity phase "
+                      f"does not hold against the plain versions: "
+                      f"{show(unheld)}")
     for kind in ("attention_fwd", "attention_bwd"):
         total = sum(n for k, n in expected.items() if k[0] == kind)
         check(ca.launch_counts[kind] == total,
@@ -1106,9 +1116,7 @@ def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True):
     out = {}
     for name, t in (("attention_fwd", fwd), ("attention_bwd", bwd)):
         bound, by = bound_ms(name, b, lq, lk, heads, d, causal)
-        instance = ca.launch_config(name, lq, lk, d)[:2]
-        out[name] = dict(t, bound_ms=bound, bound_by=by,
-                         instance=list(instance))
+        out[name] = dict(t, bound_ms=bound, bound_by=by)
     shape = (f"B={b} Lq={lq} Lk={lk} H={heads} D={d} "
              f"{'causal' if causal else 'non-causal'} f32")
     log(f"timings {shape}: {json.dumps(out)}")

@@ -26,7 +26,7 @@ from torch import nn
 
 from dtqn_tpu_torch import replay
 from dtqn_tpu_torch.envs.core import Environment, where_batch
-from dtqn_tpu_torch.models import build_network
+from dtqn_tpu_torch.models import MODEL_MAP, build_network
 from dtqn_tpu_torch.models.dtqn import DTQN
 from dtqn_tpu_torch.utils.device import resolve_device
 from dtqn_tpu_torch.utils.metrics import TrainDiagnostics
@@ -155,7 +155,7 @@ class Agent:
 
     def __init__(self, config: AgentConfig, env: Environment,
                  device: Optional[str] = None):
-        if "DTQN" not in config.model:
+        if config.model not in MODEL_MAP:
             raise NotImplementedError(
                 f"model {config.model!r} is not ported yet (DTQN and "
                 "DTQN-bag are); see ROADMAP.md queue 1 item 12"

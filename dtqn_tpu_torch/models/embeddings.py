@@ -88,7 +88,7 @@ class ActionEmbedding(nn.Module):
         normal_(self.embedding.weight, generator)
 
     def forward(self, actions: torch.Tensor) -> torch.Tensor:
-        return lookup(self.embedding.weight, actions)
+        return self.embedding(actions)
 
 
 def make_obs_embedding(
