@@ -40,12 +40,28 @@ Phases (any failure exits non-zero and prints no result):
      nothing); a ``bag_store`` run through ``run_experiment``, whole, then
      cut and resumed bit-equal; Car Flag at in_embed 64 with bag 10; device
      operations of one act step, one update and one evict forward;
- 10. time each kernel, its plain version and the matching PyTorch call
+ 10. the classic POMDPs: DTQN at in_embed 64 (head width 8) on
+     POMDP-hallway-episodic-v0 (data/hallway.pomdp's tables; the parser
+     that served is printed) and on POMDP-heavenhell_3-episodic-v0 (at a
+     50-step cap, so that a context of 50 fits an episode), 64 envs:
+     prepopulation, two train iterations and one evaluation each, every
+     attention launch counted by shape against the reckoning, card Q
+     against CPU Q, gradients repeating bit for bit; the host time of an
+     update of each, timed in turns with the main path's;
+ 11. the baselines: DRQN and DQN on Memory-5-v0 at in_embed 128, ADRQN on
+     Hallway and DARQN on DiscreteCarFlag-v0 at in_embed 64, 64 envs,
+     batch 32, context 50 (1 for DQN): prepopulation, two train
+     iterations, one evaluation, no attention launch, card Q against CPU
+     Q, gradients repeating, device operations of an update and an act
+     step; a DRQN run through ``run_experiment`` whole, then cut and
+     resumed bit-equal;
+ 12. time each kernel, its plain version and the matching PyTorch call
      (scaled_dot_product_attention, timed here only) at the causal and the
      bag's non-causal shapes of the driven paths, inside CUDA graphs so
      that host launch cost is left out;
- 11. profile one more train iteration (torch.profiler): the device's busy
-     share, device operations per update and the costliest kernels.
+ 13. profile one more train iteration (torch.profiler): the device's busy
+     share, device operations per update and the costliest kernels; the
+     same for one iteration of each run of phases 10 and 11 but ADRQN's.
 
 Before the last line it prints the card line and one ``{"kernels": [...]}``
 JSON line; the last line is ``{"ok": true, "device": {...}}``.
@@ -73,6 +89,11 @@ DEVICE = "cuda"  # where every phase runs; a dry run of the script's own
 # control flow on a machine without a GPU may set it to "cpu"
 KERNEL_SOURCE = "dtqn_tpu_torch/csrc/attention.cu"
 GV_ENV, GV_BAG = "gv_memory.7x7.yaml", 25  # the bag configuration
+HALLWAY, HEAVENHELL = ("POMDP-hallway-episodic-v0",
+                       "POMDP-heavenhell_3-episodic-v0")
+# The baselines' runs: (model, env, in_embed).
+BASELINES = [("DRQN", "Memory-5-v0", 128), ("DQN", "Memory-5-v0", 128),
+             ("ADRQN", HALLWAY, 64), ("DARQN", "DiscreteCarFlag-v0", 64)]
 REPLACES = {
     "attention_fwd": "dtqn_tpu/ops/pallas_attention.py:62",
     "attention_bwd": "dtqn_tpu/ops/pallas_attention.py:77",
@@ -272,7 +293,9 @@ def main_path(seed, ca):
 
 def device_events(fn):
     """Runs ``fn()`` under torch.profiler: (its wall time in us, {device
-    operation name: (count, device us)})."""
+    operation name: (count, device us)}).  Reads the profiler's raw records:
+    building its event tree takes ~0.2 ms per event, minutes for the
+    recurrent models' iterations (~200 000 kernels each)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -284,19 +307,21 @@ def device_events(fn):
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA or ev.is_user_annotation:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.is_user_annotation():
             continue
-        n, us = by_name.get(ev.name, (0, 0.0))
-        by_name[ev.name] = (n + 1, us + ev.self_device_time_total)
+        n, us = by_name.get(ev.name(), (0, 0.0))
+        by_name[ev.name()] = (n + 1, us + (ev.end_ns() - ev.start_ns()) / 1e3)
     return wall_us, by_name
 
 
-def profile_iteration(state, train_iter, updates=64, top=12):
+def profile_iteration(state, train_iter, updates=64, top=12,
+                      what="one train iteration"):
     """Where one train iteration's time goes (torch.profiler): the device's
     busy share of the wall time, kernel launches, and the kernels with the
     most device time."""
     wall_us, by_name = device_events(lambda: train_iter(state))
+    check(by_name, f"{what}: the profiler recorded no device operation")
     device_us = sum(us for _, us in by_name.values())
     launches = sum(n for n, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
@@ -316,7 +341,7 @@ def profile_iteration(state, train_iter, updates=64, top=12):
             for name, (n, us) in ranked
         ],
     }
-    log(f"profile of one train iteration: {json.dumps(result)}")
+    log(f"profile of {what}: {json.dumps(result)}")
     return result
 
 
@@ -350,9 +375,9 @@ def counted_greedy_calls():
 
     calls, greedy = [], Agent.greedy_actions
 
-    def counting(agent, network, context, bag=None):
+    def counting(agent, network, context, *args, **kwargs):
         calls.append(1)
-        return greedy(agent, network, context, bag)
+        return greedy(agent, network, context, *args, **kwargs)
 
     with patched(Agent, "greedy_actions", counting):
         yield calls
@@ -442,6 +467,15 @@ def bag_runner_config(seed, **kw):
              bag_store=True, prepop_steps=64 * 300), **kw))
 
 
+def drqn_runner_config(seed, **kw):
+    """DRQN on Memory-5-v0 at in_embed 128, cut in depth: two chunks of one
+    iteration (128 env steps, 128 updates), each followed by an evaluation;
+    60 prepopulation steps per env (every env ends an episode within 50)."""
+    return runner_config(seed, **dict(
+        dict(envs=["Memory-5-v0"], model="DRQN", in_embed=128,
+             prepop_steps=64 * 60, eval_frequency=64, num_steps=128), **kw))
+
+
 def check_csvs(cfg, steps):
     """Both CSVs: the reference headers and one row per entry of ``steps``,
     every value finite, success rate and episode length in range."""
@@ -478,7 +512,8 @@ def check_launches(ca, probe, cfg, iters, what, prepopulated=True):
     eval_steps = greedy_calls - iters
     launches = dict(ca.launch_counts)
     bag = cfg.bag_size > 0
-    per_forward = cfg.layers + bag
+    transformer = cfg.agent_config().kind == "transformer"
+    per_forward = (cfg.layers + bag) * transformer
     evicts = bag * (greedy_calls + prepopulated
                     * max(cfg.prepop_steps // cfg.num_envs, 1))
     expect_fwd = per_forward * (greedy_calls + evicts + 3 * updates)
@@ -577,9 +612,11 @@ def resume_phase(seed, ca, whole_weights, make_cfg=runner_config,
     from dtqn_tpu_torch.train.runner import run_experiment
     from dtqn_tpu_torch.utils import checkpoint as ckpt
 
-    iters = 2  # per call: one chunk before the cut, one after the resume
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
         cfg = make_cfg(seed, time_limit=1e-9)
+        # Per call: one chunk before the cut, one after the resume.
+        iters = cfg.resolved_iters_per_chunk
+        cut_at, final = iters * cfg.num_envs, cfg.num_steps
         with Probe().attached() as cut:
             ca.reset_launch_counts()
             run_experiment(cfg)
@@ -587,11 +624,11 @@ def resume_phase(seed, ca, whole_weights, make_cfg=runner_config,
                                              "run to the time limit")
         check(ckpt.has_checkpoint(cfg.policy_path()),
               "the time limit wrote no full checkpoint")
-        check(ckpt.load_mini_checkpoint(cfg.policy_path())["step"] == 128,
-              "the cut run's mini checkpoint is not at step 128")
+        check(ckpt.load_mini_checkpoint(cfg.policy_path())["step"] == cut_at,
+              f"the cut run's mini checkpoint is not at step {cut_at}")
         nbytes = os.path.getsize(cfg.policy_path() + "_checkpoint.pt")
         log(f"full checkpoint: {nbytes} bytes")
-        check_csvs(cfg, [128])
+        check_csvs(cfg, [cut_at])
 
         cfg = make_cfg(seed)
         with Probe().attached() as resumed:
@@ -599,13 +636,13 @@ def resume_phase(seed, ca, whole_weights, make_cfg=runner_config,
             run_experiment(cfg)
             launches_resumed, _ = check_launches(
                 ca, resumed, cfg, iters, "resumed run", prepopulated=False)
-        check(resumed.resumed_at == 128,
-              f"resumed at step {resumed.resumed_at}, not 128")
+        check(resumed.resumed_at == cut_at,
+              f"resumed at step {resumed.resumed_at}, not {cut_at}")
         check(len(resumed.seconds["chunk"]) == 1,
               "the resumed run did not train exactly one more chunk")
-        check(ckpt.load_mini_checkpoint(cfg.policy_path())["step"] == 256,
+        check(ckpt.load_mini_checkpoint(cfg.policy_path())["step"] == final,
               "the resumed run did not finish")
-        check_csvs(cfg, [128, 256])
+        check_csvs(cfg, [cut_at, final])
         weights = saved_policy(cfg, "cpu").state_dict()
     check(list(weights) == list(whole_weights), "policy keys differ")
     differing = [k for k in weights
@@ -737,12 +774,15 @@ def reckoned_launches(cfg, act_steps, updates, evict_steps=None):
     forwards (as many, unless given) and ``updates`` updates, by shape, from
     the configuration alone.  A forward launches one causal attention per
     layer and, unless the bag is masked, one over the bag; an update is
-    three forwards and one backward at the batch size."""
+    three forwards and one backward at the batch size.  The recurrent and
+    feedforward models launch none."""
     if evict_steps is None:
         evict_steps = act_steps
     length, d = cfg.context_len, cfg.inner_embed // cfg.num_heads
     envs, bag = cfg.num_envs, cfg.bag_size
     out = {}
+    if cfg.kind != "transformer":
+        return out
 
     def add(kind, b, n):
         shapes = [((kind, b, length, length, d, True), cfg.num_layers * n)]
@@ -783,15 +823,21 @@ def check_ledger(ca, ledger, expected, what):
 
 
 def q_card_vs_cpu(agent, state, what):
-    """The network's Q on the run's own contexts and bags: kernel path on
-    the card against the plain path on the CPU."""
+    """The network's Q on the run's own contexts and bags (for the recurrent
+    models over each context's filled rows): the card's path against the
+    plain path on the CPU."""
     cpu_net = agent.build_network()
     cpu_net.load_state_dict(state.network.state_dict())
-    inputs = (state.context.obs, state.context.action,
-              *agent._bag_in(state.bag))
+    ctx = state.context
+    inputs = (ctx.obs, ctx.action, agent._bag_in(state.bag),
+              ctx.last_index + 1)
+
+    def on_cpu(x):
+        return tuple(map(on_cpu, x)) if isinstance(x, tuple) else x.cpu()
+
     with torch.no_grad():
-        q_gpu = state.network(*inputs)
-        q_cpu = cpu_net(*(x.cpu() for x in inputs))
+        q_gpu = agent._q_context(state.network, *inputs)
+        q_cpu = agent._q_context(cpu_net, *on_cpu(inputs))
     cfg = agent.config
     check(tuple(q_gpu.shape) == (cfg.num_envs, cfg.context_len,
                                  agent.env.num_actions),
@@ -810,7 +856,8 @@ def gradients_repeat(agent, state, what):
     names, params = zip(*state.network.named_parameters())
     grads = []
     for _ in range(3):
-        q = state.network(batch.obs, batch.action, *bag_in)
+        q = agent._q_context(state.network, batch.obs, batch.action, bag_in,
+                             batch.ep_len)
         grads.append(torch.autograd.grad(q.square().mean(), params))
     differing = [n for n, *g in zip(names, *grads)
                  if not all(torch.equal(g[0], x) for x in g[1:])]
@@ -819,10 +866,14 @@ def gradients_repeat(agent, state, what):
     return len(names)
 
 
-def bag_drive(seed, ca, env_name, prepop_iters, iters, evaluate=False, **kw):
-    """Init, prepopulation and ``iters`` train iterations of 64 updates of a
-    DTQN-bag agent on the card, every attention launch held against the
-    reckoning; optionally one 10-episode evaluation."""
+def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
+          max_episode_steps=None, **kw):
+    """Init, prepopulation and ``iters`` train iterations of 64 updates of
+    an agent on the card (by default DTQN-bag at the bag configuration;
+    ``kw`` replaces AgentConfig fields), every attention launch held
+    against the reckoning; optionally one 10-episode evaluation.
+    ``max_episode_steps`` replaces the env's cap, as the CLI's
+    ``--max-episode-steps`` does."""
     from dtqn_tpu_torch.agents import Agent, AgentConfig
     from dtqn_tpu_torch.envs import make_env
     from dtqn_tpu_torch.train.loop import (
@@ -838,9 +889,12 @@ def bag_drive(seed, ca, env_name, prepop_iters, iters, evaluate=False, **kw):
         inner_embed=128, num_heads=8, num_layers=2, batch_size=32,
         buffer_size=500_000, target_update_frequency=10_000,
         bag_size=GV_BAG), **kw))
-    what = f"bag drive {env_name} {kw}"
+    what = f"drive {env_name} {kw}"
     env = make_env(env_name)
+    if max_episode_steps:
+        env.max_episode_steps = max_episode_steps
     agent = Agent(cfg, env, device=DEVICE)
+    cfg = agent.config  # DQN's context is 1
     train_iter = make_train_chunk_fn(
         agent, EpsilonSchedule(1.0, 0.1, 200_000),
         updates_per_iter=updates, iters_per_chunk=1)
@@ -879,11 +933,15 @@ def bag_drive(seed, ca, env_name, prepop_iters, iters, evaluate=False, **kw):
     diags = {k: float(v) for k, v in state.diagnostics.means().items()}
     check(all(map(math.isfinite, diags.values())),
           f"{what}: diagnostics not finite: {diags}")
-    check(int(state.bag.pos.max()) > 0, f"{what}: every bag is empty")
+    if agent.use_bag:
+        check(int(state.bag.pos.max()) > 0, f"{what}: every bag is empty")
+        result["bag_slots_filled"] = float(state.bag.pos.float().mean())
+    if state.carry is not None:
+        check(bool(state.carry.h.abs().sum() > 0),
+              f"{what}: the act-time carry never moved")
     result.update(
         env_steps_per_s=cfg.num_envs / t_iter, timed_iteration_s=t_iter,
         flushed_episodes=flushed, train_steps=iters * updates,
-        bag_slots_filled=float(state.bag.pos.float().mean()),
         q_max_abs_err_vs_cpu=q_card_vs_cpu(agent, state, what),
         parameters_with_repeating_gradients=gradients_repeat(agent, state,
                                                              what),
@@ -905,27 +963,28 @@ def bag_drive(seed, ca, env_name, prepop_iters, iters, evaluate=False, **kw):
                 f"{what}, evaluation")
         cap = env.max_episode_steps
         check(0.0 <= sr <= 1.0 and 1.0 <= length <= cap and 1 <= steps <= cap
-              and -5.0 - 0.05 * cap <= ret <= 5.0,
+              and abs(ret) <= cap,
               f"{what}: evaluation out of range: {sr}, {ret}, {length}")
         result.update(evaluation=[sr, ret, length], evaluation_steps=steps)
     log(f"{what}: {json.dumps(result)}")
-    return result, agent, state
+    return result, agent, state, train_iter
 
 
-def bag_operations(agent, state):
-    """Device operations and device time of one act step, one update and
-    one evict forward at the bag configuration (torch.profiler)."""
+def operations(agent, state, what):
+    """Device operations and device time of one act step, one update and,
+    with a bag, one evict forward (torch.profiler)."""
     from dtqn_tpu_torch.train import loop
 
-    ctx, bag = state.context, state.bag
-    ev_act = torch.zeros_like(ctx.action[:, 0])
-    need = torch.ones_like(ev_act, dtype=torch.bool)
     runs = {
         "act_step": lambda: loop.env_step(agent, state),
         "update": lambda: agent.learn(state),
-        "evict_forward": lambda: agent._bag_evict(
-            state.network, ctx, bag, ctx.obs[:, 0], ev_act, ev_act, need),
     }
+    if agent.use_bag:
+        ctx, bag = state.context, state.bag
+        ev_act = torch.zeros_like(ctx.action[:, 0])
+        need = torch.ones_like(ev_act, dtype=torch.bool)
+        runs["evict_forward"] = lambda: agent._bag_evict(
+            state.network, ctx, bag, ctx.obs[:, 0], ev_act, ev_act, need)
     result = {}
     for name, fn in runs.items():
         fn()  # warm
@@ -935,7 +994,7 @@ def bag_operations(agent, state):
             "device_us": sum(us for _, us in by_name.values()),
             "profiled_wall_us": wall_us,
         }
-    log(f"bag operations: {json.dumps(result)}")
+    log(f"{what} operations: {json.dumps(result)}")
     return result
 
 
@@ -956,14 +1015,14 @@ def bag_phase(seed, ca):
                         "carflag_bag": [(8, 1)] * 2},
           f"bag instances {instances}")
 
-    main, agent, state = bag_drive(seed, ca, GV_ENV, 625, 2, evaluate=True)
-    operations = bag_operations(agent, state)
+    main, agent, state, _ = drive(seed, ca, GV_ENV, 625, 2, evaluate=True)
+    ops = operations(agent, state, "bag")
     del agent, state
-    masked, _, _ = bag_drive(seed, ca, GV_ENV, 300, 1, bag_mask=True)
+    masked, *_ = drive(seed, ca, GV_ENV, 300, 1, bag_mask=True)
     check(all("Lk=25" not in k for k in masked["launches_by_shape"]),
           "the masked bag attention launched a kernel")
-    carflag, _, _ = bag_drive(seed, ca, "DiscreteCarFlag-v0", 200, 1,
-                              inner_embed=64, bag_size=10)
+    carflag, *_ = drive(seed, ca, "DiscreteCarFlag-v0", 200, 1,
+                        inner_embed=64, bag_size=10)
 
     # --bag-store through the runner: whole, then cut and resumed.
     cfg = bag_runner_config(seed)
@@ -988,9 +1047,95 @@ def bag_phase(seed, ca):
                                     bag_runner_config, "bag-store resume")
     return {"instances": {k: [list(i) for i in v]
                           for k, v in instances.items()},
-            "full_width": main, "operations": operations,
+            "full_width": main, "operations": ops,
             "bag_mask": masked, "carflag_bag10": carflag,
             "bag_store": stored}
+
+
+def update_ms_in_turns(runs, rounds=3, updates=16):
+    """Host time of one update of each of ``runs`` ({name: (agent, state)}),
+    timed in turns within one call, best of ``rounds``: phases timed at
+    different moments of a call differ by more than their work does."""
+    best = dict.fromkeys(runs, math.inf)
+    for _ in range(rounds):
+        for name, (agent, state) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(updates):
+                agent.learn(state)
+            torch.cuda.synchronize()
+            best[name] = min(best[name],
+                             1e3 * (time.perf_counter() - t0) / updates)
+    log(f"update ms in turns: {json.dumps(best)}")
+    return best
+
+
+def pomdp_phase(seed, ca, flagless):
+    """DTQN at in_embed 64 on Hallway and HeavenHell: the main path's
+    attention shapes on discrete observations; their updates timed in turns
+    with the main path's ``flagless`` (agent, state)."""
+    from dtqn_tpu_torch.envs.pomdp_parser import native_parser_loads
+
+    parser = "native" if native_parser_loads() else "python"
+    log(f"pomdp: data/hallway.pomdp parsed by the {parser} parser")
+    result = {"parser": parser}
+    runs = {"DiscreteCarFlag-v0": flagless}
+    for env_name, cap in ((HALLWAY, None), (HEAVENHELL, 50)):
+        run, agent, state, train_iter = drive(
+            seed, ca, env_name, 150, 2, evaluate=True, max_episode_steps=cap,
+            model="DTQN", inner_embed=64, bag_size=0)
+        run["profile"] = profile_iteration(state, train_iter,
+                                           what=f"{env_name} DTQN")
+        result[env_name] = run
+        runs[env_name] = (agent, state)
+    result["update_ms_in_turns"] = update_ms_in_turns(runs)
+    return result
+
+
+def baselines_phase(seed, ca):
+    """DQN, DRQN, ADRQN and DARQN at full width, and a DRQN run through the
+    runner whole, cut and resumed."""
+    from dtqn_tpu_torch.train.runner import run_experiment
+
+    result = {}
+    # Enough random steps that every env ends an episode (caps 50-200).
+    prepop = {"Memory-5-v0": 60, HALLWAY: 110, "DiscreteCarFlag-v0": 210}
+    for model, env_name, width in BASELINES:
+        run, agent, state, train_iter = drive(
+            seed, ca, env_name, prepop[env_name], 2, evaluate=True,
+            model=model, inner_embed=width, bag_size=0)
+        run["operations"] = operations(agent, state, model)
+        # ADRQN's iteration is DRQN's plus an action lookup; profiling one
+        # of ~200 000 kernels takes ~40 s, so its share comes from the
+        # profiled update and act step above.
+        if model != "ADRQN":
+            run["profile"] = profile_iteration(state, train_iter,
+                                               what=f"{model} {env_name}")
+        result[f"{model} {env_name}"] = run
+        del agent, state, train_iter
+
+    cfg = drqn_runner_config(seed)
+    iters = cfg.num_steps // cfg.num_envs
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
+            Probe().attached() as probe:
+        ca.reset_launch_counts()
+        final = run_experiment(cfg)
+        launches, eval_steps = check_launches(ca, probe, cfg, iters,
+                                              "DRQN runner")
+        check_csvs(cfg, [64, 128])
+        check(all(math.isfinite(v) for v in final.values()),
+              f"DRQN runner: final log not finite: {final}")
+        whole_weights = saved_policy(cfg, "cpu").state_dict()
+    runner = {
+        "launches": launches, "evaluation_steps": eval_steps,
+        "chunk_s": probe.seconds["chunk"],
+        "evaluation_s": probe.seconds["evaluate"], "final_log": final,
+    }
+    log(f"DRQN runner: {json.dumps(runner)}")
+    runner["resume"] = resume_phase(seed, ca, whole_weights,
+                                    drqn_runner_config, "DRQN resume")
+    result["drqn_runner"] = runner
+    return result
 
 
 def evaluation_phase(seed, agent, state):
@@ -1168,6 +1313,8 @@ def run(seed):
     discrete = discrete_phase(seed, ca)
     evaluation = evaluation_phase(seed, agent, state)
     bag = bag_phase(seed, ca)
+    pomdp = pomdp_phase(seed, ca, (agent, state))
+    baselines = baselines_phase(seed, ca)
     main_shape, t_main = timings(ca, 32)  # each update's batch
     _, t_act = timings(ca, 64)  # the act forward's batch
     _, t_wide = timings(ca, 32, d=16)  # the discrete path's update
@@ -1183,6 +1330,9 @@ def run(seed):
             "replaces": REPLACES[name],
             "launches": main["launches"][name],
             "launches_bag_path": bag["full_width"]["launches"][name],
+            "launches_pomdp_path": {
+                env: pomdp[env]["launches"][name]
+                for env in (HALLWAY, HEAVENHELL)},
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1196,7 +1346,7 @@ def run(seed):
     prof = profile_iteration(state, train_iter)
     print(json.dumps({"main_path": main, "runner": runner, "resume": resume,
                       "discrete": discrete, "evaluation": evaluation,
-                      "bag": bag,
+                      "bag": bag, "pomdp": pomdp, "baselines": baselines,
                       "timings_b64": t_act, "timings_b32_d16": t_wide,
                       "timings_bag": t_bag,
                       "profile": prof,

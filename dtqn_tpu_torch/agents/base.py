@@ -1,12 +1,20 @@
 """DDQN agent core: act / observe / learn (``dtqn_tpu/agents/base.py``).
 
-The transformer branch (DTQN and DTQN-bag): acts on the full context window
-and takes the argmax of the newest timestep's Q (dtqn.py:76-107); trains
-seq-to-seq with the DDQN target and loss over the last ``history``
-timesteps (dtqn.py:162-269).  With a bag, the (obs, action) pair that the
-context evicts goes into the persistent-memory bag, and a full bag keeps the
-best of its ``bag_size + 1`` candidate contents by Q (dtqn.py:125-157).
-Other model kinds are not ported yet.
+One agent for every model, its behaviour picked by the model's kind:
+
+  - "transformer" (DTQN, DTQN-bag): acts on the full context window and
+    takes the argmax of the newest timestep's Q (dtqn.py:76-107); trains
+    seq-to-seq with the DDQN target and loss over the last ``history``
+    timesteps (dtqn.py:162-269).  With a bag, the (obs, action) pair that
+    the context evicts goes into the persistent-memory bag, and a full bag
+    keeps the best of its ``bag_size + 1`` candidate contents by Q
+    (dtqn.py:125-157).
+  - "feedforward" (DQN): context length 1 (agent_utils.py:109-110); acts on
+    the current observation.
+  - "recurrent" (DRQN, ADRQN, DARQN): acts one step at a time, carrying the
+    LSTM state in ``AgentState.carry`` (agents/drqn.py:88-112); trains over
+    whole windows with the outputs past the episode's length masked
+    (agents/drqn.py:114-210).
 
 Everything stays on the device and no step reads a value back to the host:
 the update is gated by ``can_sample & isfinite(grad_norm)`` with
@@ -26,8 +34,13 @@ from torch import nn
 
 from dtqn_tpu_torch import replay
 from dtqn_tpu_torch.envs.core import Environment, where_batch
-from dtqn_tpu_torch.models import MODEL_MAP, build_network
-from dtqn_tpu_torch.models.dtqn import DTQN
+from dtqn_tpu_torch.models import (
+    MODEL_MAP,
+    RECURRENT_MODELS,
+    LSTMCarry,
+    build_network,
+    zero_carry,
+)
 from dtqn_tpu_torch.utils.device import resolve_device
 from dtqn_tpu_torch.utils.metrics import TrainDiagnostics
 
@@ -65,6 +78,14 @@ class AgentConfig:
     # (replay/buffer.py sample_with_stored_bag).
     bag_store: bool = False
 
+    @property
+    def kind(self) -> str:
+        if "DTQN" in self.model:
+            return "transformer"
+        if self.model in RECURRENT_MODELS:
+            return "recurrent"
+        return "feedforward"
+
 
 @dataclasses.dataclass
 class AdamState:
@@ -79,18 +100,21 @@ class AdamState:
 class AgentState:
     """Complete on-device learner+actor state.
 
-    ``network`` / ``target_network`` are the policy and target DTQNs; their
-    parameters are views into the flat vectors ``params`` / ``target_params``.
+    ``network`` / ``target_network`` are the policy and target networks;
+    their parameters are views into the flat vectors ``params`` /
+    ``target_params``.  ``carry`` is the recurrent models' act-time LSTM
+    state (None for the others).
     """
 
-    network: DTQN
-    target_network: DTQN
+    network: nn.Module
+    target_network: nn.Module
     params: torch.Tensor  # [P] f32
     target_params: torch.Tensor  # [P] f32
     opt_state: AdamState
     buffer: replay.BufferState
     context: replay.ContextState
     bag: Optional[replay.BagState]
+    carry: Optional[LSTMCarry]
     env_state: Any
     obs: torch.Tensor  # [E, *obs_shape] current observations
     generator: torch.Generator
@@ -156,10 +180,13 @@ class Agent:
     def __init__(self, config: AgentConfig, env: Environment,
                  device: Optional[str] = None):
         if config.model not in MODEL_MAP:
-            raise NotImplementedError(
-                f"model {config.model!r} is not ported yet (DTQN and "
-                "DTQN-bag are); see ROADMAP.md queue 1 item 12"
+            raise KeyError(
+                f"Unknown model {config.model!r}; choices: "
+                f"{sorted(MODEL_MAP)}"
             )
+        if config.model == "DQN" and config.context_len != 1:
+            # The factory forces context 1 for DQN (agent_utils.py:109-110).
+            config = dataclasses.replace(config, context_len=1)
         if not 1 <= config.history <= config.context_len:
             # Clip history into [1, context_len] (agent_utils.py:101-105).
             config = dataclasses.replace(
@@ -169,12 +196,12 @@ class Agent:
         self.config = config
         self.env = env
         self.device = resolve_device(device)
-        self.use_bag = config.bag_size > 0
+        self.use_bag = config.kind == "transformer" and config.bag_size > 0
         self.store_act_bags = self.use_bag and config.bag_store
 
     # ------------------------------------------------------------------ init
     def build_network(self, generator: Optional[torch.Generator] = None):
-        """A fresh DTQN on the CPU, weights drawn from ``generator``."""
+        """A fresh network on the CPU, weights drawn from ``generator``."""
         cfg = self.config
         return build_network(
             cfg.model,
@@ -251,6 +278,8 @@ class Agent:
             buffer=buffer,
             context=context,
             bag=bag,
+            carry=(zero_carry(cfg.num_envs, cfg.inner_embed, device)
+                   if cfg.kind == "recurrent" else None),
             env_state=env_state,
             obs=obs,
             generator=generator,
@@ -261,38 +290,68 @@ class Agent:
             nonfinite_grads=scalar(0, torch.int32),
         )
 
-    # ------------------------------------------------------------- acting
+    # ------------------------------------------------------------ forwards
     @staticmethod
     def _bag_in(bag):
         """The network's bag arguments: () without a bag."""
         return () if bag is None else (bag.obs, bag.action)
 
+    def _q_context(self, network, obs_seq, act_seq, bag_in=(), ep_len=None):
+        """Seq-to-seq Q over [B, L] windows: [B, L, A]."""
+        kind = self.config.kind
+        if kind == "transformer":
+            return network(obs_seq, act_seq, *bag_in)
+        if kind == "feedforward":
+            return network(obs_seq)
+        q, _ = network(obs_seq, act_seq, episode_lengths=ep_len)
+        return q
+
+    # ------------------------------------------------------------- acting
     @torch.no_grad()
     def greedy_actions(
-        self, network: DTQN, context: replay.ContextState,
+        self, network: nn.Module, context: replay.ContextState,
         bag: Optional[replay.BagState] = None,
-    ) -> torch.Tensor:
-        """Greedy action [E] per env: Q of the newest row of the full padded
-        context (causality makes this the reference's truncated forward)."""
-        q = network(context.obs, context.action, *self._bag_in(bag))
-        q_last = q[torch.arange(q.shape[0], device=q.device),
-                   context.last_index.to(torch.int64)]
-        return torch.argmax(q_last, dim=-1)
+        carry: Optional[LSTMCarry] = None,
+        obs: Optional[torch.Tensor] = None,
+    ):
+        """Greedy action [E] per env, and the carry after it: (actions,
+        carry).
 
-    def select_actions(self, state: AgentState, epsilon) -> torch.Tensor:
-        """Epsilon-greedy (dqn.py:117-131)."""
+        Transformer: Q of the newest row of the full padded context
+        (causality makes this the reference's truncated forward).
+        Feedforward: Q of the current observations ``obs``.  Recurrent: one
+        step of the LSTM from ``carry`` on (``obs``, the context's newest
+        action) (agents/drqn.py:88-107).
+        """
+        kind = self.config.kind
+        if kind == "feedforward":
+            return torch.argmax(network(obs[:, None])[:, 0], dim=-1), carry
+        e = torch.arange(context.obs.shape[0], device=context.obs.device)
+        rows = context.last_index.to(torch.int64)
+        if kind == "transformer":
+            q = network(context.obs, context.action, *self._bag_in(bag))
+            return torch.argmax(q[e, rows], dim=-1), carry
+        q, carry = network(obs[:, None], context.action[e, rows][:, None],
+                           carry=carry)
+        return torch.argmax(q[:, 0], dim=-1), carry
+
+    def select_actions(self, state: AgentState, epsilon):
+        """Epsilon-greedy (dqn.py:117-131): (actions, carry).  The carry
+        steps whether the draw explores or not."""
         n, gen = self.config.num_envs, state.generator
-        greedy = self.greedy_actions(state.network, state.context, state.bag)
+        greedy, carry = self.greedy_actions(
+            state.network, state.context, state.bag, state.carry, state.obs
+        )
         explore = torch.rand((n,), generator=gen,
                              device=self.device) < epsilon
         randoms = torch.randint(0, self.env.num_actions, (n,), generator=gen,
                                 device=self.device)
-        return torch.where(explore, randoms, greedy)
+        return torch.where(explore, randoms, greedy), carry
 
     # ------------------------------------------------------------ bag logic
     @torch.no_grad()
     def _bag_evict(
-        self, network: DTQN, context: replay.ContextState,
+        self, network: nn.Module, context: replay.ContextState,
         bag: replay.BagState, evicted_obs, evicted_act, evicted_idx, need,
     ) -> replay.BagState:
         """Q-driven bag eviction (dtqn/agents/dtqn.py:125-157), batched.
@@ -373,8 +432,8 @@ class Agent:
 
     def handle_resets(self, state: AgentState, done,
                       reset_obs) -> AgentState:
-        """Flush finished episodes and start fresh contexts and bags
-        (run.py:293-296 + context_reset dtqn.py:109-114)."""
+        """Flush finished episodes and start fresh contexts, bags and
+        carries (run.py:293-296 + context_reset dtqn.py:109-114)."""
         replay.flush(state.buffer, done)
         replay.store_first_obs(state.buffer, reset_obs, done,
                                self.env.obs_mask)
@@ -384,6 +443,11 @@ class Agent:
         )
         if self.use_bag:
             state.bag = replay.reset_bag(state.bag, done, self.env.obs_mask)
+        if state.carry is not None:
+            state.carry = where_batch(
+                done, zero_carry(*state.carry.c.shape, self.device),
+                state.carry,
+            )
         return state
 
     # ------------------------------------------------------------- learning
@@ -418,11 +482,10 @@ class Agent:
         # DDQN target: policy-net argmax selector, target-net value
         # (dtqn.py:221-238), both without gradients.
         with torch.no_grad():
-            next_q_policy = state.network(
-                batch.next_obs, batch.next_action, *bag_in
-            )
-            next_q_target = state.target_network(
-                batch.next_obs, batch.next_action, *bag_in
+            next_q_policy, next_q_target = (
+                self._q_context(net, batch.next_obs, batch.next_action,
+                                bag_in, batch.ep_len)
+                for net in (state.network, state.target_network)
             )
             next_act = torch.argmax(next_q_policy, dim=-1)
             next_q = torch.gather(
@@ -431,7 +494,8 @@ class Agent:
             dones = batch.done.to(torch.float32)
             targets = batch.reward + (1.0 - dones) * cfg.gamma * next_q
 
-        q_all = state.network(batch.obs, batch.action, *bag_in)
+        q_all = self._q_context(state.network, batch.obs, batch.action,
+                                bag_in, batch.ep_len)
         q_taken = torch.gather(
             q_all, -1, batch.action.to(torch.int64)[..., None]
         )[..., 0].to(torch.float32)

@@ -15,11 +15,22 @@ give it) to a ``state_dict`` of ``dtqn_tpu_torch.models.DTQN``:
     bag_attention/query, key, value, out -> bag_attention.query, ...
     head_hidden, head_out              -> head_hidden, head_out
 
+and a DQN / DRQN / ADRQN / DARQN tree (``dtqn_tpu/models/recurrent.py``):
+
+    QHead_0/Dense_1 (hidden), Dense_0 (output) -> q_head.hidden, q_head.out
+    lstm/cell/{ii,if,ig,io}            -> lstm.cell.input_proj (fused)
+    lstm/cell/{hi,hf,hg,ho}            -> lstm.cell.hidden_proj (fused)
+    core/cell/..., core/attention/{W,linear,linear2}
+                                       -> core.cell..., core.attention...
+
 A Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``;
 LayerNorm ``scale`` becomes ``weight``.  The older separate
 query/key/value projections are fused into ``qkv`` in q, k, v order, as
 ``tools/convert_policy_qkv.py`` does; the bag cross-attention keeps its
-three projections, in both packages.  Reading a msgpack file is the
+three projections, in both packages.  An LSTM cell's four input kernels
+(no bias) are stacked in i, f, g, o order into one ``input_proj`` and its
+four hidden kernels and biases into one ``hidden_proj``; flax's QHead
+names its output layer ``Dense_0`` and its hidden one ``Dense_1``.  Reading a msgpack file is the
 caller's job, which keeps this package free of flax.
 ``params_to_jax`` is the inverse (self-attention always in the fused
 layout).
@@ -60,6 +71,50 @@ def _fuse_qkv(tree: Mapping, name: str = "") -> Dict:
     return out
 
 
+_GATES = ("i", "f", "g", "o")
+_LSTM_KEYS = {p + g for p in ("i", "h") for g in _GATES}
+_QHEAD = {"Dense_1": "hidden", "Dense_0": "out"}
+
+
+def _fuse_recurrent(tree: Mapping) -> Dict:
+    """The 8 gate Dense layers of an LSTM cell -> ``input_proj`` and
+    ``hidden_proj``; ``QHead_0`` -> ``q_head`` with ``hidden`` / ``out``."""
+    if not isinstance(tree, Mapping):
+        return tree
+    out = {k: _fuse_recurrent(v) for k, v in tree.items()}
+    if set(out) == _LSTM_KEYS:
+        out = {
+            "input_proj": {"kernel": np.concatenate(
+                [out["i" + g]["kernel"] for g in _GATES], axis=-1)},
+            "hidden_proj": {leaf: np.concatenate(
+                [out["h" + g][leaf] for g in _GATES], axis=-1)
+                for leaf in ("kernel", "bias")},
+        }
+    if "QHead_0" in out:
+        head = out.pop("QHead_0")
+        out["q_head"] = {_QHEAD[k]: v for k, v in head.items()}
+    return out
+
+
+def _split_recurrent(tree: Dict) -> Dict:
+    """The inverse of ``_fuse_recurrent``, in place."""
+    for val in tree.values():
+        if isinstance(val, dict):
+            _split_recurrent(val)
+    if {"input_proj", "hidden_proj"} <= set(tree):
+        inputs = np.split(tree.pop("input_proj")["kernel"], 4, axis=-1)
+        hidden = {leaf: np.split(v, 4, axis=-1)
+                  for leaf, v in tree.pop("hidden_proj").items()}
+        for n, g in enumerate(_GATES):
+            tree["i" + g] = {"kernel": np.ascontiguousarray(inputs[n])}
+            tree["h" + g] = {leaf: np.ascontiguousarray(v[n])
+                             for leaf, v in hidden.items()}
+    if "q_head" in tree:
+        head = tree.pop("q_head")
+        tree["QHead_0"] = {k: head[v] for k, v in _QHEAD.items()}
+    return tree
+
+
 def _torch_name(path) -> str:
     *mods, leaf = path
     names = []
@@ -77,7 +132,7 @@ def _torch_name(path) -> str:
 
 
 def params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
-    """flax DTQN parameter tree (numpy leaves) -> torch ``state_dict``."""
+    """flax parameter tree (numpy leaves) -> torch ``state_dict``."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     state = OrderedDict()
@@ -92,7 +147,7 @@ def params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
                 arr = arr.T
             state[_torch_name(path + (key,))] = torch.tensor(arr)
 
-    walk(_fuse_qkv(tree), ())
+    walk(_fuse_recurrent(_fuse_qkv(tree)), ())
     return state
 
 
@@ -101,7 +156,7 @@ _JAX_MODULES = {"dense_0": "Dense_0", "dense_1": "Dense_1",
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """torch ``state_dict`` -> flax DTQN parameter tree (numpy leaves)."""
+    """torch ``state_dict`` -> flax parameter tree (numpy leaves)."""
     tree: Dict = {}
     # Only the discrete obs embedder holds a token table.
     obs_module = (
@@ -134,4 +189,4 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
         for p in path:
             node = node.setdefault(p, {})
         node[arr_leaf] = np.ascontiguousarray(arr)
-    return tree
+    return _split_recurrent(tree)

@@ -46,7 +46,7 @@ class CarFlag(Environment):
         if not discrete:
             raise NotImplementedError(
                 "CarFlag-continuous-v0 is not ported yet; see ROADMAP.md "
-                "queue 1 item 11"
+                "queue 1 item 12b"
             )
 
     @property

@@ -24,13 +24,17 @@ class ObsKind(enum.Enum):
 
 
 def where_batch(cond: torch.Tensor, on_true, on_false):
-    """Per-env select over tensors or dataclasses of tensors: cond is [E]."""
+    """Per-env select over tensors, or dataclasses or named tuples of
+    tensors: cond is [E]."""
     if dataclasses.is_dataclass(on_true):
         return dataclasses.replace(on_true, **{
             f.name: where_batch(cond, getattr(on_true, f.name),
                                 getattr(on_false, f.name))
             for f in dataclasses.fields(on_true)
         })
+    if isinstance(on_true, tuple):
+        return type(on_true)(*(where_batch(cond, a, b)
+                               for a, b in zip(on_true, on_false)))
     c = cond.reshape(cond.shape + (1,) * (on_true.dim() - cond.dim()))
     return torch.where(c, on_true, on_false)
 

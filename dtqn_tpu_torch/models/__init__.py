@@ -1,17 +1,34 @@
-"""Q-network registry (``dtqn_tpu/models/__init__.py``): DTQN with and
-without the bag so far."""
+"""Q-network registry (``dtqn_tpu/models/__init__.py``): model string ->
+network, as the reference's MODEL_MAP (utils/agent_utils.py:17-24)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch import nn
 
 from dtqn_tpu_torch.envs.core import Environment
 from dtqn_tpu_torch.models.dtqn import DTQN
+from dtqn_tpu_torch.models.recurrent import (
+    ADRQN,
+    DARQN,
+    DQN,
+    DRQN,
+    LSTMCarry,
+    zero_carry,
+)
 
-MODEL_MAP = {"DTQN": DTQN, "DTQN-bag": DTQN}
-NOT_PORTED = ("ADRQN", "DRQN", "DARQN", "DQN")
+MODEL_MAP = {
+    "DTQN": DTQN,
+    "DTQN-bag": DTQN,
+    "ADRQN": ADRQN,
+    "DRQN": DRQN,
+    "DARQN": DARQN,
+    "DQN": DQN,
+}
+
+RECURRENT_MODELS = ("DRQN", "ADRQN", "DARQN")
 
 
 def build_network(
@@ -31,18 +48,30 @@ def build_network(
     bag_size: int = 0,
     bag_mask: bool = False,
     generator: Optional[torch.Generator] = None,
-) -> DTQN:
-    """Builds the network on the CPU; the caller moves it to its device."""
-    if model_str in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_str!r} is not ported yet; see ROADMAP.md queue 1 "
-            "item 12"
-        )
+) -> nn.Module:
+    """Builds the network on the CPU; the caller moves it to its device.
+    The transformer's options (heads, layers, gate, ...) reach DTQN only,
+    as in the JAX package."""
     if model_str not in MODEL_MAP:
         raise KeyError(
-            f"Unknown model {model_str!r}; choices: "
-            f"{sorted((*MODEL_MAP, *NOT_PORTED))}"
+            f"Unknown model {model_str!r}; choices: {sorted(MODEL_MAP)}"
         )
+    common = dict(
+        obs_kind=env.obs_kind,
+        obs_shape=tuple(env.obs_shape),
+        num_actions=env.num_actions,
+        vocab_size=env.obs_vocab_size if env.is_discrete else 0,
+        embed_per_obs_dim=embed_per_obs_dim,
+        inner_embed=inner_embed,
+        generator=generator,
+    )
+    if model_str == "DQN":
+        return DQN(**common)
+    if model_str == "ADRQN":
+        # ADRQN conditions on the previous action; ensure it has features.
+        return ADRQN(action_dim=action_dim or 8, **common)
+    if model_str in ("DRQN", "DARQN"):
+        return MODEL_MAP[model_str](action_dim=0, **common)
     if bag_mask and not env.is_discrete:
         # Padded-slot detection compares every obs element against the
         # sentinel; that is only sound when the sentinel cannot occur as a
@@ -56,13 +85,7 @@ def build_network(
             "observation space's range"
         )
     return DTQN(
-        obs_kind=env.obs_kind,
-        obs_shape=tuple(env.obs_shape),
-        num_actions=env.num_actions,
-        vocab_size=env.obs_vocab_size if env.is_discrete else 0,
-        embed_per_obs_dim=embed_per_obs_dim,
         action_dim=action_dim,
-        inner_embed=inner_embed,
         num_heads=num_heads,
         num_layers=num_layers,
         context_len=context_len,
@@ -73,8 +96,11 @@ def build_network(
         bag_size=bag_size,
         bag_mask=bag_mask,
         obs_mask_value=float(env.obs_mask),
-        generator=generator,
+        **common,
     )
 
 
-__all__ = ["MODEL_MAP", "DTQN", "build_network"]
+__all__ = [
+    "MODEL_MAP", "RECURRENT_MODELS", "build_network",
+    "DTQN", "DQN", "DRQN", "ADRQN", "DARQN", "LSTMCarry", "zero_carry",
+]

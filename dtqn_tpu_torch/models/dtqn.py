@@ -64,7 +64,7 @@ class DTQN(nn.Module):
         super().__init__()
         if dropout > 0.0:
             raise NotImplementedError(
-                "dropout > 0 is not ported yet; see ROADMAP.md queue 1 item 12"
+                "dropout > 0 is not ported yet; see ROADMAP.md queue 1 item 12b"
             )
         self.context_len = context_len
         self.action_dim = action_dim

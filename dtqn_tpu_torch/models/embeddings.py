@@ -3,7 +3,8 @@
 Ported: the discrete-obs token Embedding -> flatten -> Linear
 (representations.py:26-52), the continuous-obs Linear
 (representations.py:64-75) and the action Embedding
-(representations.py:146-155).  The image embedder is not ported yet.
+(representations.py:146-155).  The image embedder is not ported yet
+(ROADMAP.md queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -79,7 +80,9 @@ class ContinuousObsEmbedding(nn.Module):
 
 
 class ActionEmbedding(nn.Module):
-    """Embed(num_actions, action_dim): [...] int -> [..., action_dim]."""
+    """Embed(num_actions, action_dim): [...] int -> [..., action_dim],
+    looked up through ``lookup`` so that its table gradient repeats bit for
+    bit (ADRQN trains it on every step)."""
 
     def __init__(self, num_actions: int, action_dim: int,
                  generator: Optional[torch.Generator] = None):
@@ -88,7 +91,7 @@ class ActionEmbedding(nn.Module):
         normal_(self.embedding.weight, generator)
 
     def forward(self, actions: torch.Tensor) -> torch.Tensor:
-        return self.embedding(actions)
+        return lookup(self.embedding.weight, actions)
 
 
 def make_obs_embedding(
@@ -104,7 +107,7 @@ def make_obs_embedding(
     if obs_kind == ObsKind.IMAGE:
         raise NotImplementedError(
             "IMAGE observation embedding is not ported yet; see ROADMAP.md "
-            "queue 1 item 11"
+            "queue 1 item 12b"
         )
     if obs_kind == ObsKind.DISCRETE:
         return DiscreteObsEmbedding(

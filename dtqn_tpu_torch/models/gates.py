@@ -21,6 +21,6 @@ def make_gate(kind: str, features: int) -> nn.Module:
     if kind == "gru":
         raise NotImplementedError(
             "the GRU gate is not ported yet; see ROADMAP.md queue 1 "
-            "item 12"
+            "item 12b"
         )
     raise ValueError("Gate must be one of `gru`, `res`")

@@ -16,7 +16,7 @@ class PositionEncoding(nn.Module):
         if kind != "learned":
             raise NotImplementedError(
                 f"position encoding {kind!r} is not ported yet; see "
-                "ROADMAP.md queue 1 item 12"
+                "ROADMAP.md queue 1 item 12b"
             )
         self.embedding = nn.Parameter(torch.zeros(1, context_len, embed_dim))
 

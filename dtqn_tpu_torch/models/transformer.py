@@ -24,7 +24,7 @@ LAYERNORM_EPS = 1e-6  # flax nn.LayerNorm's default
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md queue 1 item 12"
+        f"{what} is not ported yet; see ROADMAP.md queue 1 item 12b"
     )
 
 

@@ -1,10 +1,15 @@
-"""CLI entry point: train a DTQN agent on one GPU.
+"""CLI entry point: train a Q-network agent on one GPU.
 
 Flag-compatible with the reference CLI (run.py:16-184) and the JAX
 package's ``run.py``.  Examples:
 
     python -m dtqn_tpu_torch.run --envs DiscreteCarFlag-v0 \
         --num-steps 50000 --in-embed 64 --num-envs 64 --verbose
+
+    python -m dtqn_tpu_torch.run --model DRQN --envs Memory-5-v0
+    python -m dtqn_tpu_torch.run --envs POMDP-hallway-episodic-v0 \
+        --in-embed 64
+    python -m dtqn_tpu_torch.run --envs data/hallway.pomdp
 
     # On the CPU (the default is the GPU, and fails when there is none):
     python -m dtqn_tpu_torch.run --device cpu --envs Memory-5-v0 \

@@ -19,6 +19,7 @@ import torch
 from dtqn_tpu_torch import replay
 from dtqn_tpu_torch.agents.base import Agent, AgentState
 from dtqn_tpu_torch.envs.core import Environment, where_batch
+from dtqn_tpu_torch.models import zero_carry
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 
 # Evaluation freezes finished episodes and could run all max_episode_steps
@@ -42,13 +43,14 @@ def env_step(
     """
     cfg, env = agent.config, agent.env
     if random_only:
-        # Prepopulation uses uniformly random actions (run.py:380-405).
+        # Prepopulation uses uniformly random actions (run.py:380-405) and
+        # leaves the act-time carry as it is.
         actions = torch.randint(
             0, env.num_actions, (cfg.num_envs,), generator=state.generator,
             device=agent.device,
         )
     else:
-        actions = agent.select_actions(state, state.epsilon)
+        actions, state.carry = agent.select_actions(state, state.epsilon)
 
     obs, state.env_state, ts = env.step_vec(
         state.generator, state.env_state, actions
@@ -103,7 +105,8 @@ def make_evaluate_fn(
 ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Greedy-policy evaluation (run.py:187-243): ``evaluate(network,
     generator)`` runs ``eval_episodes`` parallel episodes on fresh contexts
-    and returns (success_rate, mean_return, mean_ep_len) as device scalars.
+    (and zero carries for the recurrent models) and returns (success_rate,
+    mean_return, mean_ep_len) as device scalars.
     ``generator`` (on the agent's device) supplies every draw, so the
     training stream is left alone."""
     cfg = agent.config
@@ -126,14 +129,18 @@ def make_evaluate_fn(
             if agent.use_bag
             else None
         )
+        carry = (zero_carry(n, cfg.inner_embed, device)
+                 if cfg.kind == "recurrent" else None)
         finished = torch.zeros((n,), dtype=torch.bool, device=device)
         ep_reward = torch.zeros((n,), dtype=torch.float32, device=device)
         ep_len = torch.zeros((n,), dtype=torch.int32, device=device)
         success = torch.zeros((n,), dtype=torch.bool, device=device)
 
         for t in range(max_steps):
-            actions = agent.greedy_actions(network, context, bag)
-            _, env_state_t, ts = eval_env.step(generator, env_state, actions)
+            actions, carry_t = agent.greedy_actions(network, context, bag,
+                                                    carry, obs)
+            obs_t, env_state_t, ts = eval_env.step(generator, env_state,
+                                                   actions)
             live = ~finished
             ep_reward = ep_reward + ts.reward * live
             done_now = live & ts.done
@@ -158,6 +165,9 @@ def make_evaluate_fn(
             # Finished episodes stay frozen; live ones advance.
             context = where_batch(live, context_t, context)
             env_state = where_batch(live, env_state_t, env_state)
+            obs = where_batch(live, obs_t, obs)
+            if carry is not None:
+                carry = where_batch(live, carry_t, carry)
             finished = finished | ts.done
             ep_len = ep_len + live.to(torch.int32)
             success = torch.where(done_now, succ, success)

@@ -26,6 +26,7 @@ from dtqn_tpu_torch import replay
 from dtqn_tpu_torch.agents import Agent
 from dtqn_tpu_torch.config import ExperimentConfig
 from dtqn_tpu_torch.envs import make_env
+from dtqn_tpu_torch.models import zero_carry
 from dtqn_tpu_torch.train.loop import (
     make_evaluate_fn,
     make_prepopulate_fn,
@@ -66,7 +67,8 @@ def _render_episode(agent, env, network, generator,
                     policy_path) -> Optional[str]:
     """Greedy rollout of one episode with per-step frames, saved as one
     vertical PNG strip (every 10th frame).  Headless stand-in for the
-    reference's pyglet enjoy loop (run.py:463-467)."""
+    reference's pyglet enjoy loop (run.py:463-467); the recurrent models
+    step their carry from zeros."""
     try:
         from PIL import Image
     except ImportError:
@@ -78,10 +80,13 @@ def _render_episode(agent, env, network, generator,
         generator, 1, cfg.context_len, tuple(env.obs_shape),
         env.obs_dtype, env.obs_mask, env.num_actions, obs,
     )
+    carry = (zero_carry(1, cfg.inner_embed, agent.device)
+             if cfg.kind == "recurrent" else None)
     frames = []
     for _ in range(env.max_episode_steps):
         frames.append(env.render_frame(_first_env(env_state)))
-        actions = agent.greedy_actions(network, context)
+        actions, carry = agent.greedy_actions(network, context, None, carry,
+                                              obs)
         obs, env_state, ts = env.step(generator, env_state, actions)
         context, *_ = replay.add_transition(
             context, ts.obs, actions, ts.reward, ts.terminated
@@ -116,12 +121,13 @@ class HostRunningAverage:
 
 def build_envs(config: ExperimentConfig):
     """(train_env, eval_envs) for the configured domain list; several
-    domains (a new one per episode, run.py:287) are not ported yet."""
+    domains (a new one per episode, run.py:287) are not ported yet
+    (``envs/multi.py``)."""
     names = config.envs
     if len(names) != 1:
         raise NotImplementedError(
             "several --envs (envs/multi.py) are not ported yet; see "
-            "ROADMAP.md queue 1 item 11"
+            "ROADMAP.md queue 1 item 12b"
         )
     return make_env(names[0]), [make_env(names[0])]
 

@@ -5,8 +5,9 @@ As the reference (dqn.py:212-327, run.py:471-490):
      (dqn.py:212-220), JSON, same file name and keys as the JAX package.
   2. *Full checkpoint*: the complete training state: parameters, target,
      optimizer state, the entire replay ring (with the stored act-time
-     bags of ``--bag-store``), contexts, the bag, env state, counters,
-     epsilon, loss running averages and the generator's state.
+     bags of ``--bag-store``), contexts, the bag, the recurrent models'
+     act-time carry, env state, counters, epsilon, loss running averages
+     and the generator's state.
   3. Plain policy weights every 50k steps under ``--save-policy``
      (run.py:337-338).
 
@@ -45,16 +46,22 @@ def load_mini_checkpoint(path: str) -> Optional[Dict[str, Any]]:
         return json.load(f)
 
 
+def _fields(node: Any) -> Iterator[Tuple[str, Any]]:
+    if isinstance(node, tuple):  # a named tuple: the LSTM carry
+        return iter(node._asdict().items())
+    return ((f.name, getattr(node, f.name)) for f in dataclasses.fields(node))
+
+
 def _leaves(node: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(dotted name, tensor or generator) for every leaf of a dataclass
-    tree.  Modules are left out: their parameters are views of a leaf; so
-    are the parts a configuration does not have (``None``: no bag)."""
-    for field in dataclasses.fields(node):
-        value = getattr(node, field.name)
-        name = prefix + field.name
+    """(dotted name, tensor or generator) for every leaf of a tree of
+    dataclasses and named tuples.  Modules are left out: their parameters
+    are views of a leaf; so are the parts a configuration does not have
+    (``None``: no bag, no carry)."""
+    for field, value in _fields(node):
+        name = prefix + field
         if isinstance(value, (torch.Tensor, torch.Generator)):
             yield name, value
-        elif dataclasses.is_dataclass(value):
+        elif dataclasses.is_dataclass(value) or isinstance(value, tuple):
             yield from _leaves(value, name + ".")
         elif value is not None and not isinstance(value, nn.Module):
             raise TypeError(f"cannot checkpoint {name}: {type(value)}")

@@ -3,7 +3,9 @@ bridge) and the same start states (the JAX run's reset states, patched into
 the port env's ``reset_vec``) must give the same greedy action at every
 step and the same (success rate, return, length): counts exact, return
 atol 1e-5.  CarFlag's dynamics are deterministic, so the start states fix
-the whole episode.
+the whole episode; for Memory Cards and the tabular POMDPs the JAX run's
+draws of every step (the next card revealed, the next state and
+observation) are injected as well.
 """
 
 import glob
@@ -20,11 +22,14 @@ from dtqn_tpu import replay as jax_replay
 from dtqn_tpu.agents import Agent as JaxAgent
 from dtqn_tpu.agents import AgentConfig as JaxConfig
 from dtqn_tpu.envs import make_env as jax_make_env
+from dtqn_tpu.models import zero_carry as jax_zero_carry
 from dtqn_tpu.train.loop import make_evaluate as jax_make_evaluate
 from dtqn_tpu_torch.agents import Agent, AgentConfig
 from dtqn_tpu_torch.bridge import params_from_jax
 from dtqn_tpu_torch.envs import make_env
 from dtqn_tpu_torch.envs.car_flag import CarFlagState
+from dtqn_tpu_torch.envs.memory_cards import MemoryCards
+from dtqn_tpu_torch.envs.pomdp import TabularPOMDP
 from dtqn_tpu_torch.train import loop
 from dtqn_tpu_torch.train.loop import make_evaluate_fn
 
@@ -37,63 +42,89 @@ ENV = "DiscreteCarFlag-v0"
 
 
 def jax_rollout(jagent, jenv, params, key, n):
-    """The JAX evaluation's episodes, stepped one by one: the start states
-    it resets to (numpy) and the greedy actions of every step."""
-    k_env, k_ctx, _ = jax.random.split(key, 3)
-    obs, env_state = jenv.reset_vec(jax.random.split(k_env, n))
+    """The JAX evaluation's episodes (its own key use), stepped one by one:
+    the start (obs, state) it resets to, and per step the greedy actions,
+    which episodes were live, and the env's next state and obs (numpy)."""
     cfg = jagent.config
+    k_env, k_ctx, k_loop = jax.random.split(key, 3)
+    obs, env_state = jenv.reset_vec(jax.random.split(k_env, n))
     context = jax_replay.init_context(
         k_ctx, n, cfg.context_len, tuple(jenv.obs_shape), jenv.obs_dtype,
         jenv.obs_mask, jenv.num_actions, obs,
     )
-    start = jax.tree_util.tree_map(np.asarray, env_state)
+    carry = (jax_zero_carry(n, cfg.inner_embed)
+             if cfg.kind == "recurrent" else None)
+    start = (np.asarray(obs), jax.tree_util.tree_map(np.asarray, env_state))
 
     @jax.jit
-    def step(context, env_state):
-        actions, _ = jagent.greedy_actions(params, context, None, None, None)
-        keys = jax.random.split(jax.random.key(0), n)
-        _, new_state, ts = jax.vmap(jenv.step)(keys, env_state, actions)
+    def step(context, env_state, carry, obs, key_t):
+        actions, carry = jagent.greedy_actions(params, context, None, carry,
+                                               obs)
+        obs, new_state, ts = jax.vmap(jenv.step)(
+            jax.random.split(key_t, n), env_state, actions)
         context, *_ = jax_replay.add_transition(
             context, ts.obs, actions, ts.reward, ts.terminated
         )
-        return context, new_state, actions, ts.done
+        return context, new_state, carry, obs, actions, ts.done
 
     finished = np.zeros(n, bool)
-    actions_per_step = []
-    for _ in range(jenv.max_episode_steps):
-        new_context, new_state, actions, done = step(context, env_state)
+    steps = []
+    for key_t in jax.random.split(k_loop, jenv.max_episode_steps):
+        *new, actions, done = step(context, env_state, carry, obs, key_t)
         live = ~finished
-        actions_per_step.append((np.asarray(actions), live.copy()))
+        steps.append((np.asarray(actions), live.copy(),
+                      jax.tree_util.tree_map(np.asarray, new[1]),
+                      np.asarray(new[3])))
         # Freeze what has finished, as the evaluation's done-latch does.
         keep = lambda o, nw: jnp.where(  # noqa: E731
             live.reshape((-1,) + (1,) * (nw.ndim - 1)), nw, o)
-        context = jax.tree_util.tree_map(keep, context, new_context)
-        env_state = jax.tree_util.tree_map(keep, env_state, new_state)
+        context, env_state, carry, obs = jax.tree_util.tree_map(
+            keep, (context, env_state, carry, obs), tuple(new))
         finished |= np.asarray(done)
-    return start, actions_per_step
+    return start, steps
 
 
-def port_evaluate(agent, env, network, start, n, monkeypatch):
-    """The port's evaluation from the given start states, with the greedy
-    actions of every step recorded."""
-    def reset_vec(generator, num_envs, device):
-        assert num_envs == n
-        state = CarFlagState(
-            position=torch.tensor(start.position),
-            velocity=torch.tensor(start.velocity),
-            heaven=torch.tensor(start.heaven),
-            t=torch.tensor(start.t),
-        )
-        return env._observe(state), state
+def inject(env, start, steps, monkeypatch):
+    """The port env resets to the JAX run's start and, where its dynamics
+    draw, takes the JAX run's outcome of each step."""
+    obs0, s0 = start
+    t = torch.tensor
+    if isinstance(env, TabularPOMDP):
+        first = env.reset_with(t(s0.s), t(obs0[:, 0]))
+    elif isinstance(env, MemoryCards):
+        first = env.reset_with(t(s0.values), t(s0.current_card))
+    else:
+        state = CarFlagState(position=t(s0.position), velocity=t(s0.velocity),
+                             heaven=t(s0.heaven), t=t(s0.t))
+        first = env._observe(state), state
+    monkeypatch.setattr(env, "reset_vec", lambda *a: first)
+    count = iter(range(len(steps)))
 
-    monkeypatch.setattr(env, "reset_vec", reset_vec)
+    def outcome():
+        _, _, state, obs = steps[next(count)]
+        return state, obs
+
+    if isinstance(env, TabularPOMDP):
+        def step_env(generator, state, action):
+            nxt, obs = outcome()
+            return env.step_with(state, action, t(nxt.s), t(obs[:, 0]))
+        monkeypatch.setattr(env, "step_env", step_env)
+    elif isinstance(env, MemoryCards):
+        monkeypatch.setattr(env, "_reveal",
+                            lambda *a: t(outcome()[0].current_card))
+
+
+def port_evaluate(agent, env, network, start, steps, n, monkeypatch):
+    """The port's evaluation from the JAX run's start and draws, with the
+    greedy actions of every step recorded."""
+    inject(env, start, steps, monkeypatch)
     recorded = []
     greedy = agent.greedy_actions
 
-    def recording(network, context, bag=None):
-        actions = greedy(network, context, bag)
+    def recording(network, context, *args):
+        actions, carry = greedy(network, context, *args)
         recorded.append(actions.numpy().copy())
-        return actions
+        return actions, carry
 
     monkeypatch.setattr(agent, "greedy_actions", recording)
     evaluate = make_evaluate_fn(agent, env, n)
@@ -106,15 +137,15 @@ def compare(jagent, jenv, params, agent, env, network, n, monkeypatch,
     key = jax.random.key(key)
     sr, ret, ln = (float(x) for x in
                    jax_make_evaluate(jagent, jenv, n)(params, key))
-    start, jax_actions = jax_rollout(jagent, jenv, params, key, n)
+    start, steps = jax_rollout(jagent, jenv, params, key, n)
     (t_sr, t_ret, t_ln), actions = port_evaluate(
-        agent, env, network, start, n, monkeypatch)
+        agent, env, network, start, steps, n, monkeypatch)
     # The port stops once every episode is over; up to there, every live
     # episode takes the JAX package's greedy action.
-    assert 0 < len(actions) <= len(jax_actions)
-    for got, (want, live) in zip(actions, jax_actions):
+    assert 0 < len(actions) <= len(steps)
+    for got, (want, live, *_) in zip(actions, steps):
         np.testing.assert_array_equal(got[live], want[live])
-    assert not any(live.any() for _, live in jax_actions[len(actions):])
+    assert not any(live.any() for _, live, *_ in steps[len(actions):])
     # Counts exact (successes, summed steps); their float32 means may round
     # the division by n differently, by an ulp.
     assert round(t_sr * n) == round(sr * n)
@@ -163,6 +194,48 @@ def test_eval_matches_jax_trained_policy(monkeypatch):
     assert ln < 200.0 and steps < 200
 
 
+R4 = os.path.join(REPO, "policies", "r4family")
+# The in-repo JAX-trained policies of the paper's other model families and
+# domains: (model, env, in_embed).
+TRAINED = [
+    ("DTQN", "POMDP-hallway-episodic-v0", 64),
+    ("DARQN", "DiscreteCarFlag-v0", 64),
+    ("DQN", "Memory-5-v0", 128),
+]
+
+
+def r4_policy(model, env, width):
+    return glob.glob(os.path.join(
+        R4, env,
+        f"model={model}_envs={env}_*in_embed={width}_*_seed=1_policy.msgpack",
+    ))
+
+
+@pytest.mark.parametrize("model,env_name,width", TRAINED,
+                         ids=[m for m, _, _ in TRAINED])
+def test_eval_matches_jax_trained_policies(model, env_name, width,
+                                           monkeypatch):
+    """The JAX-trained policy through the bridge picks the JAX package's
+    greedy action at every evaluation step, on the recurrent (DARQN),
+    feedforward (DQN) and tabular-POMDP (DTQN on Hallway) paths."""
+    path = r4_policy(model, env_name, width)
+    assert path, f"{model} {env_name} policy absent from {R4}"
+    with open(path[0], "rb") as f:
+        params = serialization.msgpack_restore(f.read())
+    kw = dict(inner_embed=width, num_heads=8, num_layers=2, context_len=50,
+              history=50)
+    jenv, env = jax_make_env(env_name), make_env(env_name)
+    jagent = JaxAgent(JaxConfig(model=model, num_envs=4, **kw), jenv)
+    agent = Agent(AgentConfig(model=model, num_envs=4, **kw), env,
+                  device="cpu")
+    network = agent.build_network()
+    network.load_state_dict(params_from_jax(params), strict=True)
+    sr, ret, ln, steps = compare(jagent, jenv, params, agent, env, network,
+                                 6, monkeypatch)
+    assert 1.0 <= ln <= env.max_episode_steps and 0.0 <= sr <= 1.0
+    assert steps >= 2
+
+
 def small_agent(env_name=ENV, max_steps=60):
     env = make_env(env_name)
     env.max_episode_steps = max_steps
@@ -181,7 +254,8 @@ def test_early_exit_changes_no_result(monkeypatch, env_name):
         # Drive right always: every episode ends well before the cap.
         monkeypatch.setattr(
             agent, "greedy_actions",
-            lambda net, ctx, bag: torch.full((5,), 2, dtype=torch.int64))
+            lambda net, ctx, bag, carry, obs: (
+                torch.full((5,), 2, dtype=torch.int64), carry))
     calls, results = [], []
     step = env.step
     monkeypatch.setattr(

@@ -35,7 +35,7 @@ def imported_roots(path):
 def test_port_imports_no_jax():
     paths = port_sources()
     names = {os.path.relpath(p, REPO) for p in paths}
-    # The scan really walks the package: the runner slice's modules are in.
+    # The scan really walks the package: every slice's modules are in.
     assert names >= {
         "chip_smoke.py", "dtqn_tpu_torch/run.py", "dtqn_tpu_torch/bench.py",
         "dtqn_tpu_torch/config.py", "dtqn_tpu_torch/bridge.py",
@@ -45,6 +45,8 @@ def test_port_imports_no_jax():
         "dtqn_tpu_torch/utils/logging.py", "dtqn_tpu_torch/utils/rng.py",
         "dtqn_tpu_torch/ops/cuda_attention.py",
         "dtqn_tpu_torch/replay/bag.py", "dtqn_tpu_torch/envs/gridverse.py",
+        "dtqn_tpu_torch/envs/pomdp.py", "dtqn_tpu_torch/envs/pomdp_parser.py",
+        "dtqn_tpu_torch/models/recurrent.py",
     }
     assert len(paths) > 30
     offenders = {
@@ -52,6 +54,21 @@ def test_port_imports_no_jax():
         for p in paths for root in imported_roots(p) if root in FORBIDDEN
     }
     assert not offenders
+
+
+def test_pomdp_parser_loads_the_native_library_by_path():
+    """The port reads ``native/libpomdp_parser.so`` where it lies, through
+    ctypes, and never builds it: the parser imports no process launcher
+    (and no torch: it does not touch the device)."""
+    from dtqn_tpu_torch.envs import pomdp_parser
+
+    assert pomdp_parser._NATIVE_PATH == os.path.join(
+        REPO, "native", "libpomdp_parser.so")
+    path = os.path.join(REPO, "dtqn_tpu_torch", "envs", "pomdp_parser.py")
+    assert set(imported_roots(path)) <= {
+        "__future__", "ctypes", "os", "dataclasses", "typing", "numpy",
+        "dtqn_tpu_torch",
+    }
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):

@@ -133,11 +133,10 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_network("DTQN", env, inner_embed=16, num_heads=2,
                           context_len=4, **kw)
-    for model in ("DRQN", "ADRQN", "DARQN", "DQN"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_network(model, env)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env("ImageMaze-9-v0")
+    for name in ("ImageMaze-9-v0", "CarFlag-continuous-v0"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 12b"):
+            make_env(name)
+
 
 
 def _contexts(seed, e, length):
@@ -186,5 +185,5 @@ def test_trained_policy_q_and_greedy_actions_match():
         timestep=torch.tensor(timestep),
     )
     greedy_jax, _ = jagent.greedy_actions(tree, jctx, None, None, None)
-    greedy_t = agent.greedy_actions(tnet, tctx)
+    greedy_t, _ = agent.greedy_actions(tnet, tctx)
     np.testing.assert_array_equal(greedy_t.numpy(), np.asarray(greedy_jax))

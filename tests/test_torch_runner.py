@@ -314,18 +314,20 @@ def test_run_writes_logs_policy_and_sentinel_then_short_circuits(
     check_csvs(cfg, rows=2)
 
 
-def test_time_limit_checkpoint_then_resume_is_bit_equal(tmp_path,
-                                                        monkeypatch, capsys):
+def cut_and_resumed_equals_whole(tmp_path, monkeypatch, capsys, **kw):
+    """A run cut by the time limit after its first chunk and resumed ends
+    with the uninterrupted run's logs and parameters, bit for bit."""
     (tmp_path / "whole").mkdir()
     (tmp_path / "cut").mkdir()
     monkeypatch.chdir(tmp_path / "whole")
-    run_experiment(runner_config(num_steps=240))
-    whole, whole_losses = check_csvs(runner_config(num_steps=240), rows=3)
+    run_experiment(runner_config(num_steps=240, **kw))
+    whole, whole_losses = check_csvs(runner_config(num_steps=240, **kw),
+                                     rows=3)
     whole_policy = torch.load(
-        runner_config().policy_path() + "_policy.pt", weights_only=True)
+        runner_config(**kw).policy_path() + "_policy.pt", weights_only=True)
 
     monkeypatch.chdir(tmp_path / "cut")
-    cfg = runner_config(num_steps=240, time_limit=1e-9)
+    cfg = runner_config(num_steps=240, time_limit=1e-9, **kw)
     run_experiment(cfg)  # hits the time limit after the first chunk
     assert "Reached time limit. Saving checkpoint at 80" in (
         capsys.readouterr().out)
@@ -337,10 +339,12 @@ def test_time_limit_checkpoint_then_resume_is_bit_equal(tmp_path,
     assert [len(v) for v in extra.values()] == [1, 1, 1]
     check_csvs(cfg, rows=1)
 
-    cfg2 = runner_config(num_steps=240)
+    payload = torch.load(cfg.policy_path() + "_checkpoint.pt",
+                         weights_only=True)
+    cfg2 = runner_config(num_steps=240, **kw)
     out = run_experiment(cfg2)  # resumes, then runs to completion
     assert "Resumed from checkpoint at 80 steps." in capsys.readouterr().out
-    assert "DiscreteCarFlag-v0/SuccessRate" in out
+    assert f"{cfg2.envs[0]}/SuccessRate" in out
     assert ckpt.load_mini_checkpoint(cfg2.policy_path())["step"] == 240
     cut, cut_losses = check_csvs(cfg2, rows=3)
     # Everything but the wall time repeats: evaluation and the losses.
@@ -351,6 +355,33 @@ def test_time_limit_checkpoint_then_resume_is_bit_equal(tmp_path,
     assert list(cut_policy) == list(whole_policy)
     for name in whole_policy:
         assert torch.equal(cut_policy[name], whole_policy[name]), name
+    return payload
+
+
+def test_time_limit_checkpoint_then_resume_is_bit_equal(tmp_path,
+                                                        monkeypatch, capsys):
+    payload = cut_and_resumed_equals_whole(tmp_path, monkeypatch, capsys)
+    assert not any(k.startswith("carry") for k in payload)
+
+
+@pytest.mark.parametrize("model,env_name", [
+    ("DRQN", "Memory-5-v0"), ("ADRQN", "POMDP-hallway-episodic-v0"),
+    ("DARQN", "DiscreteCarFlag-v0"), ("DQN", "POMDP-heavenhell_3-episodic-v0"),
+])
+def test_baseline_cut_and_resumed_run_is_bit_equal(model, env_name, tmp_path,
+                                                   monkeypatch, capsys):
+    """The recurrent models' act-time carry rides the full checkpoint, so a
+    resumed run acts, and learns, as the uninterrupted one."""
+    # A 25-step cap: the cut, 60 iterations in (50 of prepopulation), falls
+    # inside episodes that did not end early.
+    payload = cut_and_resumed_equals_whole(
+        tmp_path, monkeypatch, capsys, model=model, envs=[env_name],
+        max_episode_steps=25)
+    recurrent = model != "DQN"
+    assert ("carry.c" in payload) == ("carry.h" in payload) == recurrent
+    if recurrent:
+        assert payload["carry.h"].shape == (8, 16)
+        assert payload["carry.h"].abs().sum() > 0
 
 
 def test_evaluation_does_not_disturb_training(tmp_path, monkeypatch):
@@ -398,6 +429,30 @@ def test_enjoy_mode_and_render_frame(tmp_path, monkeypatch, capsys):
     assert 2 * 80 <= strip.shape[0] <= 4 * 80  # 20-step cap: 21 frames at most
 
 
+def test_enjoy_mode_steps_the_recurrent_carry(tmp_path, monkeypatch):
+    """The evaluation and the rendered episode start every rollout from a
+    zero carry and step it as they act."""
+    monkeypatch.chdir(tmp_path)
+    run_experiment(runner_config(num_steps=80, model="DARQN"))
+    carries = []
+    greedy = Agent.greedy_actions
+
+    def recording(self, network, context, bag=None, carry=None, obs=None):
+        carries.append(carry)
+        return greedy(self, network, context, bag, carry, obs)
+
+    monkeypatch.setattr(Agent, "greedy_actions", recording)
+    out = run_experiment(runner_config(num_steps=80, model="DARQN",
+                                       render=True))
+    assert os.path.exists(out["render_path"])
+    assert all(c is not None for c in carries)
+    starts = [i for i, c in enumerate(carries) if not c.h.any()]
+    # One zero carry opens the evaluation, one the rendered episode.
+    assert starts[0] == 0 and len(starts) == 2
+    assert carries[starts[1]].h.shape == (1, 16)
+    assert carries[-1].h.abs().sum() > 0
+
+
 def test_render_frame_matches_jax():
     env, jenv = make_env("DiscreteCarFlag-v0"), JaxCarFlag()
     for pos, heaven in ((0.0, 1.0), (0.5, -1.0), (-1.1, 1.0), (1.1, -1.0)):
@@ -420,19 +475,17 @@ def test_host_running_average_and_build_envs():
     assert HostRunningAverage(3).mean() == 0.0
     env, evals = build_envs(runner_config(envs=["Memory-5-v0"]))
     assert env.name == evals[0].name == "Memory-5-v0" and env is not evals[0]
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 12b"):
         build_envs(runner_config(envs=["Memory-5-v0", "DiscreteCarFlag-v0"]))
 
 
 NOT_PORTED = [
     (dict(dp_devices=2), "item 14"), (dict(bf16=True), "item 13"),
-    (dict(profile_dir="prof"), "item 14"), (dict(model="DRQN"), "item 12"),
-    (dict(model="ADRQN"), "item 12"), (dict(model="DARQN"), "item 12"),
-    (dict(model="DQN"), "item 12"), (dict(gate="gru"), "item 12"),
-    (dict(identity=True), "item 12"), (dict(pos="sin"), "item 12"),
-    (dict(pos="none"), "item 12"), (dict(dropout=0.1), "item 12"),
-    (dict(envs=["gv_memory.7x7.yaml", "gv_memory.5x5.yaml"]), "item 11"),
-    (dict(envs=["ImageMaze-9-v0"]), "item 11"),
+    (dict(profile_dir="prof"), "item 14"), (dict(gate="gru"), "item 12b"),
+    (dict(identity=True), "item 12b"), (dict(pos="sin"), "item 12b"),
+    (dict(pos="none"), "item 12b"), (dict(dropout=0.1), "item 12b"),
+    (dict(envs=["gv_memory.7x7.yaml", "gv_memory.5x5.yaml"]), "item 12b"),
+    (dict(envs=["ImageMaze-9-v0"]), "item 12b"),
 ]
 
 
@@ -461,8 +514,12 @@ def test_agent_refuses_bag_fields():
                      jax_make_env("DiscreteCarFlag-v0"))
         with pytest.raises(ValueError, match="discrete-observation env"):
             Agent(AgentConfig(**small, **kw), env, device="cpu").init_state(0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Agent(AgentConfig(model="DRQN", bag_size=2), env, device="cpu")
+    # A bag belongs to DTQN: the other models take none, as in the JAX
+    # package.
+    assert not JaxAgent(JaxConfig(model="DRQN", bag_size=2),
+                        jax_make_env("DiscreteCarFlag-v0")).use_bag
+    assert not Agent(AgentConfig(model="DRQN", bag_size=2), env,
+                     device="cpu").use_bag
     # Without the mask a continuous env takes a bag, as in the JAX package.
     agent = Agent(AgentConfig(bag_size=2, bag_store=True, **small), env,
                   device="cpu")
