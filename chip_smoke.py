@@ -55,16 +55,40 @@ Phases (any failure exits non-zero and prints no result):
      Q, gradients repeating, device operations of an update and an act
      step; a DRQN run through ``run_experiment`` whole, then cut and
      resumed bit-equal;
- 12. time each kernel, its plain version and the matching PyTorch call
+ 12. images: DTQN on ImageMaze-9-v0 at in_embed 128 (uint8 CHW
+     observations through the five-convolution embedder), 64 envs:
+     prepopulation, two train iterations and one evaluation with every
+     attention launch counted by shape against the reckoning, card Q
+     against CPU Q, gradients repeating bit for bit, device operations and
+     a profiled iteration; the embedder's convolutions (unfold + GEMM)
+     timed against cuDNN's on the update's 1600 images; a run through
+     ``run_experiment`` whole, then cut and resumed bit-equal;
+ 13. several domains: DTQN at in_embed 128 on gv_memory_four_rooms 7x7 and
+     9x9, a domain drawn per episode: two train iterations reckoned, card Q
+     against CPU Q, operations, one evaluation per domain on its own padded
+     env;
+ 14. the ablations on the flagless configuration: the GRU gate with the
+     identity layer and sin positions, none positions, and dropout 0.1
+     (whose updates are train-mode forwards in stock ops: they launch
+     nothing), each with two train iterations reckoned, card Q against
+     CPU Q, gradients repeating (under dropout from one generator state),
+     operations and a profiled iteration; ``attention_weights`` on the card
+     against the CPU with and without a bag; the updates of each, of the
+     image and four-rooms paths and of the main path timed in turns;
+ 15. continuous Car Flag: 200 steps of random forces on 64 envs, the card
+     against the CPU, bit for bit;
+ 16. time each kernel, its plain version and the matching PyTorch call
      (scaled_dot_product_attention, timed here only) at the causal and the
      bag's non-causal shapes of the driven paths, inside CUDA graphs so
      that host launch cost is left out;
- 13. profile one more train iteration (torch.profiler): the device's busy
+ 17. profile one more train iteration (torch.profiler): the device's busy
      share, device operations per update and the costliest kernels; the
-     same for one iteration of each run of phases 10 and 11 but ADRQN's.
+     same for one iteration of each run of phases 10-12 and 14 but
+     ADRQN's.
 
-Before the last line it prints the card line and one ``{"kernels": [...]}``
-JSON line; the last line is ``{"ok": true, "device": {...}}``.
+Before the last line it prints the script's total seconds, the card line
+and one ``{"kernels": [...]}`` JSON line; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 import argparse
@@ -85,6 +109,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 FWD_ATOL, GRAD_ATOL = 2e-5, 5e-5
 Q_ATOL = 1e-4
+# The CNN's float32 pre-activations against float64 at the update's 1600
+# images, relative to each layer's largest entry: float32 sums over at most
+# 1152 products stay near 1e-6, where TF32's 10-bit mantissa gives ~1e-3.
+CONV_FWD_RTOL = 1e-5
 DEVICE = "cuda"  # where every phase runs; a dry run of the script's own
 # control flow on a machine without a GPU may set it to "cpu"
 KERNEL_SOURCE = "dtqn_tpu_torch/csrc/attention.cu"
@@ -506,8 +534,9 @@ def check_launches(ca, probe, cfg, iters, what, prepopulated=True):
     the bag: one forward per greedy call (an act step or an evaluation
     step), with a bag one evict forward after each and after each step of
     the prepopulation, and three per update; every update launches one
-    attention_bwd per layer and for the bag."""
-    updates = iters * cfg.resolved_updates_per_iter
+    attention_bwd per layer and for the bag.  With dropout the update's
+    forwards are train-mode ones, in stock ops: an update launches none."""
+    updates = iters * cfg.resolved_updates_per_iter * (cfg.dropout <= 0.0)
     greedy_calls = len(probe.greedy_calls)
     eval_steps = greedy_calls - iters
     launches = dict(ca.launch_counts)
@@ -774,8 +803,9 @@ def reckoned_launches(cfg, act_steps, updates, evict_steps=None):
     forwards (as many, unless given) and ``updates`` updates, by shape, from
     the configuration alone.  A forward launches one causal attention per
     layer and, unless the bag is masked, one over the bag; an update is
-    three forwards and one backward at the batch size.  The recurrent and
-    feedforward models launch none."""
+    three forwards and one backward at the batch size, unless dropout makes
+    them train-mode forwards, which take the stock-op path and launch
+    nothing.  The recurrent and feedforward models launch none."""
     if evict_steps is None:
         evict_steps = act_steps
     length, d = cfg.context_len, cfg.inner_embed // cfg.num_heads
@@ -795,6 +825,8 @@ def reckoned_launches(cfg, act_steps, updates, evict_steps=None):
     add("attention_fwd", envs, act_steps)
     if bag:
         add("attention_fwd", envs * (bag + 1), evict_steps)
+    if cfg.dropout > 0.0:
+        updates = 0
     add("attention_fwd", cfg.batch_size, 3 * updates)
     add("attention_bwd", cfg.batch_size, updates)
     return out
@@ -850,14 +882,18 @@ def q_card_vs_cpu(agent, state, what):
 
 def gradients_repeat(agent, state, what):
     """Three gradient computations on one sampled batch agree bit for bit in
-    every parameter: what a bit-equal resume rests on."""
+    every parameter: what a bit-equal resume rests on.  With dropout each is
+    a train-mode forward whose masks come from one generator state, as a
+    resumed run's do."""
     batch = agent.sample_batch(state.buffer, state.generator)
     bag_in = (batch.bag_obs, batch.bag_action) if agent.use_bag else ()
     names, params = zip(*state.network.named_parameters())
     grads = []
+    start = state.generator.get_state()
     for _ in range(3):
+        state.generator.set_state(start)
         q = agent._q_context(state.network, batch.obs, batch.action, bag_in,
-                             batch.ep_len)
+                             batch.ep_len, agent.dropout_draws(state))
         grads.append(torch.autograd.grad(q.square().mean(), params))
     differing = [n for n, *g in zip(names, *grads)
                  if not all(torch.equal(g[0], x) for x in g[1:])]
@@ -870,17 +906,20 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
           max_episode_steps=None, **kw):
     """Init, prepopulation and ``iters`` train iterations of 64 updates of
     an agent on the card (by default DTQN-bag at the bag configuration;
-    ``kw`` replaces AgentConfig fields), every attention launch held
-    against the reckoning; optionally one 10-episode evaluation.
+    ``kw`` replaces AgentConfig fields) on ``env_name``, or on a list of
+    names as the runner combines them, every attention launch held against
+    the reckoning; optionally one 10-episode evaluation.
     ``max_episode_steps`` replaces the env's cap, as the CLI's
     ``--max-episode-steps`` does."""
     from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.config import ExperimentConfig
     from dtqn_tpu_torch.envs import make_env
     from dtqn_tpu_torch.train.loop import (
         make_evaluate_fn,
         make_prepopulate_fn,
         make_train_chunk_fn,
     )
+    from dtqn_tpu_torch.train.runner import build_envs
     from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 
     updates = 64
@@ -890,7 +929,8 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
         buffer_size=500_000, target_update_frequency=10_000,
         bag_size=GV_BAG), **kw))
     what = f"drive {env_name} {kw}"
-    env = make_env(env_name)
+    env = (make_env(env_name) if isinstance(env_name, str)
+           else build_envs(ExperimentConfig(envs=list(env_name)))[0])
     if max_episode_steps:
         env.max_episode_steps = max_episode_steps
     agent = Agent(cfg, env, device=DEVICE)
@@ -1177,6 +1217,278 @@ def evaluation_phase(seed, agent, state):
     return result
 
 
+# ------------------------------------- images, variants, several domains
+IMAGE_ENV = "ImageMaze-9-v0"
+FOUR_ROOMS = ("gv_memory_four_rooms.7x7.yaml",
+              "gv_memory_four_rooms.9x9.yaml")
+# The paper's ablations on the flagless configuration: (name, AgentConfig
+# fields).
+VARIANTS = [("gru-identity-sin", dict(gate="gru", identity=True, pos="sin")),
+            ("pos-none", dict(pos="none")),
+            ("dropout-0.1", dict(dropout=0.1))]
+
+
+def image_runner_config(seed, **kw):
+    """ImageMaze at the validation policy's configuration (in_embed 128) on
+    the runner's short schedule; 110 prepopulation steps per env (every env
+    ends an episode within its 100-step cap)."""
+    return runner_config(seed, **dict(
+        dict(envs=[IMAGE_ENV], in_embed=128, prepop_steps=64 * 110), **kw))
+
+
+def conv_cost(network, images):
+    """The image embedder's five convolutions at ``images`` 9x9 images:
+    device ms of forward and backward in the port's unfold + GEMM form and
+    through F.conv2d (cuDNN with deterministic algorithms, TF32 off) on the
+    same weights; each one's float32 pre-activations against float64
+    convolutions on the card (largest error relative to each layer's
+    largest entry; the port's held within CONV_FWD_RTOL, which TF32 would
+    exceed) and its gradients' (reported: a pre-activation within float32
+    rounding of zero may take the other side of the ReLU, and then its
+    gradient differs by its whole contribution; the flips are counted);
+    and two backward passes of the port's form held bit-equal."""
+    import torch.nn.functional as F
+
+    from dtqn_tpu_torch.models.embeddings import CNN_STRIDES
+
+    emb = network.obs_embedding
+    convs = [getattr(emb, f"conv_{i}") for i in range(len(CNN_STRIDES))]
+    params = [p for c in convs for p in (c.weight, c.bias)]
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    x = (torch.rand((images, 3, 9, 9), generator=gen, device=DEVICE)
+         < 0.3).float() * 255
+
+    def port(weights):
+        """Pre-activations (NHWC) and the gradients of the sum of the
+        output, in the port's form."""
+        h, pre = x.permute(0, 2, 3, 1), []
+        for c in convs:
+            pre.append(c(h))
+            h = torch.relu(pre[-1])
+        return pre, torch.autograd.grad(h.sum(), weights)
+
+    def conv2d(dtype):
+        wide = [p.detach().to(dtype).requires_grad_() for p in params]
+        h, pre = x.to(dtype), []
+        for c, w, b in zip(convs, wide[::2], wide[1::2]):
+            pre.append(F.conv2d(h, w, b, stride=c.stride, padding=1))
+            h = torch.relu(pre[-1])
+        return ([z.permute(0, 2, 3, 1) for z in pre],
+                torch.autograd.grad(h.sum(), wide))
+
+    def rel_err(got, ref):
+        return max(((g.double() - r).abs().max() / r.abs().max()).item()
+                   for g, r in zip(got, ref))
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        out = {"images": images,
+               "unfold_gemm_ms": graph_ms(lambda: port(params), calls=20),
+               "cudnn_deterministic_ms": graph_ms(
+                   lambda: conv2d(torch.float32), calls=20)}
+        pre_lib, grads_lib = conv2d(torch.float32)
+        pre_ref, grads_ref = conv2d(torch.float64)
+    pre, grads = port(params)
+    _, again = port(params)
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+          "the image embedder's gradients differ between two backward "
+          "passes")
+    out.update(
+        unfold_gemm_fwd_rel_err_vs_float64=rel_err(pre, pre_ref),
+        cudnn_fwd_rel_err_vs_float64=rel_err(pre_lib, pre_ref),
+        unfold_gemm_grad_rel_err_vs_float64=rel_err(grads, grads_ref),
+        cudnn_grad_rel_err_vs_float64=rel_err(grads_lib, grads_ref),
+        unfold_gemm_relu_flips_vs_float64=sum(
+            int(((z.double() > 0) != (r > 0)).sum())
+            for z, r in zip(pre, pre_ref)))
+    check(out["unfold_gemm_fwd_rel_err_vs_float64"] <= CONV_FWD_RTOL,
+          f"image embedder pre-activations: {out}")
+    log(f"image embedder convolutions: {json.dumps(out)}")
+    return out
+
+
+def image_phase(seed, ca):
+    """DTQN on ImageMaze-9-v0 at in_embed 128 (the validation policy's
+    configuration): uint8 CHW observations through the CNN embedder."""
+    from dtqn_tpu_torch.train.runner import run_experiment
+
+    instances = [ca.launch_config(k, 50, 50, 128 // 8)[:2]
+                 for k in ("attention_fwd", "attention_bwd")]
+    check(instances == [(16, 0)] * 2, f"image instances {instances}")
+    run, agent, state, train_iter = drive(
+        seed, ca, IMAGE_ENV, 110, 2, evaluate=True, model="DTQN",
+        inner_embed=128, bag_size=0)
+    check(state.context.obs.dtype == torch.uint8
+          and state.buffer.obs.dtype == torch.uint8,
+          "image observations were widened")
+    run["operations"] = operations(agent, state, IMAGE_ENV)
+    run["profile"] = profile_iteration(state, train_iter,
+                                       what=f"{IMAGE_ENV} DTQN")
+    run["convolutions"] = conv_cost(
+        state.network, agent.config.batch_size * agent.config.context_len)
+
+    cfg = image_runner_config(seed)
+    iters = cfg.num_steps // cfg.num_envs
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
+            Probe().attached() as probe:
+        ca.reset_launch_counts()
+        final = run_experiment(cfg)
+        launches, eval_steps = check_launches(ca, probe, cfg, iters,
+                                              "image runner")
+        check_csvs(cfg, [128, 256])
+        check(all(math.isfinite(v) for v in final.values()),
+              f"image runner: final log not finite: {final}")
+        whole_weights = saved_policy(cfg, "cpu").state_dict()
+    runner = {
+        "launches": launches, "evaluation_steps": eval_steps,
+        "chunk_s": probe.seconds["chunk"],
+        "evaluation_s": probe.seconds["evaluate"], "final_log": final,
+    }
+    log(f"image runner: {json.dumps(runner)}")
+    runner["resume"] = resume_phase(seed, ca, whole_weights,
+                                    image_runner_config, "image resume")
+    run["runner"] = runner
+    return run, (agent, state)
+
+
+def attention_maps_card_vs_cpu(seed):
+    """``attention_weights`` on the card against the CPU, at the flagless
+    width with and without a bag of 10: maps within the forward's
+    tolerance, Q within Q_ATOL, and the card's Q the kernel forward's."""
+    from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.envs import make_env
+    from dtqn_tpu_torch.models import attention_weights
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for bag in (0, 10):
+        cfg = AgentConfig(model="DTQN", num_envs=64, context_len=50,
+                          history=50, inner_embed=64, num_heads=8,
+                          num_layers=2, bag_size=bag)
+        agent = Agent(cfg, make_env("DiscreteCarFlag-v0"), device=DEVICE)
+        cpu_net = agent.build_network(torch.Generator().manual_seed(seed))
+        card_net = agent.build_network(
+            torch.Generator().manual_seed(seed)).to(DEVICE)
+        args = [torch.rand((64, 50, 3), generator=gen) * 2.2 - 1.1,
+                torch.randint(0, 3, (64, 50), generator=gen)]
+        if bag:
+            args += [torch.rand((64, bag, 3), generator=gen) * 2.2 - 1.1,
+                     torch.randint(0, 3, (64, bag), generator=gen)]
+        card_args = [a.to(DEVICE) for a in args]
+        with torch.no_grad():
+            q_card, maps_card = attention_weights(card_net, *card_args)
+            q_kernel = card_net(*card_args)
+            q_cpu, maps_cpu = attention_weights(cpu_net, *args)
+        what = f"attention_weights, bag {bag}"
+        check(torch.equal(q_card, q_kernel),
+              f"{what}: Q is not the kernel forward's")
+        check(len(maps_card) == len(maps_cpu) == 2 + bool(bag)
+              and all(m.shape == (64, 50, 50) for m in maps_card[-2:]),
+              f"{what}: maps {[tuple(m.shape) for m in maps_card]}")
+        map_err = max((a.cpu() - b).abs().max().item()
+                      for a, b in zip(maps_card, maps_cpu))
+        q_err = (q_card.cpu() - q_cpu).abs().max().item()
+        check(map_err <= FWD_ATOL, f"{what}: maps differ by {map_err}")
+        check(q_err <= Q_ATOL, f"{what}: Q differs by {q_err}")
+        out[f"bag_{bag}"] = {"maps": len(maps_card),
+                             "map_max_abs_err_vs_cpu": map_err,
+                             "q_max_abs_err_vs_cpu": q_err}
+    log(f"attention maps: {json.dumps(out)}")
+    return out
+
+
+def variants_phase(seed, ca, runs):
+    """The ablations on the flagless configuration (DiscreteCarFlag-v0,
+    in_embed 64); their updates timed in turns with ``runs``' ({name:
+    (agent, state)}), to which they are added."""
+    result = {}
+    for name, kw in VARIANTS:
+        run, agent, state, train_iter = drive(
+            seed, ca, "DiscreteCarFlag-v0", 210, 2, model="DTQN",
+            inner_embed=64, bag_size=0, **kw)
+        if agent.config.dropout > 0.0:
+            check(run["launches"]["attention_bwd"] == 0,
+                  f"{name}: a train-mode update launched a kernel")
+        run["operations"] = operations(agent, state, name)
+        run["profile"] = profile_iteration(state, train_iter,
+                                           what=f"{name} DTQN")
+        result[name] = run
+        runs[name] = (agent, state)
+    result["attention_weights"] = attention_maps_card_vs_cpu(seed)
+    result["update_ms_in_turns"] = update_ms_in_turns(runs)
+    return result
+
+
+def multi_phase(seed, ca):
+    """DTQN at in_embed 128 on the four-rooms 7x7 and 9x9 domains, a domain
+    drawn per episode (the validation policy's configuration), then one
+    evaluation on each domain's own padded env.  Returns the result and the
+    (agent, state) for the updates timed in turns."""
+    from dtqn_tpu_torch.config import ExperimentConfig
+    from dtqn_tpu_torch.train.loop import make_evaluate_fn
+    from dtqn_tpu_torch.train.runner import build_envs
+
+    run, agent, state, _ = drive(seed, ca, FOUR_ROOMS, 260, 2, model="DTQN",
+                                 inner_embed=128, bag_size=0)
+    domains = torch.bincount(state.env_state.domain.long(), minlength=2)
+    check(bool((domains > 0).all()), f"domains drawn: {domains.tolist()}")
+    run["envs_per_domain"] = domains.tolist()
+    run["operations"] = operations(agent, state, "four rooms")
+    eval_cfg = dataclasses.replace(agent.config, num_envs=10)
+    evals = build_envs(ExperimentConfig(envs=list(FOUR_ROOMS)))[1]
+    for i, env in enumerate(evals):
+        with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
+            ca.reset_launch_counts()
+            sr, ret, length = (
+                float(x) for x in make_evaluate_fn(agent, env, 10)(
+                    state.network,
+                    torch.Generator(device=DEVICE).manual_seed(seed + i)))
+            steps = len(calls)
+            launches = check_ledger(
+                ca, ledger, reckoned_launches(eval_cfg, steps, 0),
+                f"four rooms, evaluation on {env.name}")
+        cap = env.max_episode_steps
+        check(0.0 <= sr <= 1.0 and 1.0 <= length <= cap
+              and 1 <= steps <= cap and abs(ret) <= 5.0 + 0.05 * cap,
+              f"{env.name}: evaluation out of range: {sr}, {ret}, {length}")
+        run[f"evaluation {env.name}"] = {
+            "result": [sr, ret, length], "steps": steps,
+            "launches": launches}
+    log(f"four rooms: {json.dumps(run)}")
+    return run, (agent, state)
+
+
+def continuous_phase(seed):
+    """Continuous Car Flag: 200 steps of random forces in [-1.5, 1.5] (the
+    env clips them to [-1, 1]) on 64 envs, the card against the CPU, with
+    states, observations, rewards and flags equal bit for bit."""
+    from dtqn_tpu_torch.envs import make_env
+
+    env = make_env("CarFlag-continuous-v0")
+    gen = torch.Generator().manual_seed(seed)
+    _, cpu = env.reset_env(gen, 64, "cpu")
+    card = dataclasses.replace(cpu, **{
+        f.name: getattr(cpu, f.name).to(DEVICE)
+        for f in dataclasses.fields(cpu)})
+    forces = torch.rand((200, 64, 1), generator=gen) * 3.0 - 1.5
+    ended = torch.zeros(64, dtype=torch.bool)
+    for f in forces:
+        obs_cpu, cpu, ts_cpu = env.step(None, cpu, f)
+        obs_card, card, ts_card = env.step(None, card, f.to(DEVICE))
+        same = [torch.equal(obs_card.cpu(), obs_cpu)] + [
+            torch.equal(getattr(card, k.name).cpu(), getattr(cpu, k.name))
+            for k in dataclasses.fields(cpu)] + [
+            torch.equal(getattr(ts_card, k).cpu(), getattr(ts_cpu, k))
+            for k in ("reward", "terminated", "truncated")]
+        check(all(same), "continuous Car Flag: the card's step differs from "
+                         "the CPU's")
+        ended |= ts_cpu.terminated
+    result = {"steps": 200, "envs": 64, "envs_at_a_flag": int(ended.sum()),
+              "bit_equal": True}
+    log(f"continuous Car Flag: {json.dumps(result)}")
+    return result
+
+
 # ------------------------------------------------------------------ timing
 def graph_ms(fn, calls=100, replays=20):
     """Device time of one ``fn()``: ``calls`` calls captured in a CUDA
@@ -1298,7 +1610,7 @@ def run(seed):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     ca.build(verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
     usage = ca.ptxas_usage()
@@ -1315,6 +1627,13 @@ def run(seed):
     bag = bag_phase(seed, ca)
     pomdp = pomdp_phase(seed, ca, (agent, state))
     baselines = baselines_phase(seed, ca)
+    image, image_run = image_phase(seed, ca)
+    multi, multi_run = multi_phase(seed, ca)
+    variants = variants_phase(seed, ca, {"DiscreteCarFlag-v0": (agent, state),
+                                         IMAGE_ENV: image_run,
+                                         "four rooms": multi_run})
+    del image_run, multi_run
+    continuous = continuous_phase(seed)
     main_shape, t_main = timings(ca, 32)  # each update's batch
     _, t_act = timings(ca, 64)  # the act forward's batch
     _, t_wide = timings(ca, 32, d=16)  # the discrete path's update
@@ -1333,6 +1652,10 @@ def run(seed):
             "launches_pomdp_path": {
                 env: pomdp[env]["launches"][name]
                 for env in (HALLWAY, HEAVENHELL)},
+            "launches_image_path": image["launches"][name],
+            "launches_variant_paths": {
+                v: variants[v]["launches"][name] for v, _ in VARIANTS},
+            "launches_four_rooms_path": multi["launches"][name],
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1344,9 +1667,12 @@ def run(seed):
                                 for shape, t in t_bag.items()},
         })
     prof = profile_iteration(state, train_iter)
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main_path": main, "runner": runner, "resume": resume,
                       "discrete": discrete, "evaluation": evaluation,
                       "bag": bag, "pomdp": pomdp, "baselines": baselines,
+                      "image": image, "variants": variants,
+                      "four_rooms": multi, "continuous_car_flag": continuous,
                       "timings_b64": t_act, "timings_b32_d16": t_wide,
                       "timings_bag": t_bag,
                       "profile": prof,

@@ -16,6 +16,11 @@ One agent for every model, its behaviour picked by the model's kind:
     whole windows with the outputs past the episode's length masked
     (agents/drqn.py:114-210).
 
+With dropout, the update's three forwards (the policy and target
+next-Q lanes and the loss forward) run in train mode, each with masks of its
+own from the agent's generator; acting, evaluation and the evict forward
+stay deterministic (agents/base.py:245-257, 480-512).
+
 Everything stays on the device and no step reads a value back to the host:
 the update is gated by ``can_sample & isfinite(grad_norm)`` with
 ``torch.where``, and clip + Adam are written out over one flat parameter
@@ -41,6 +46,7 @@ from dtqn_tpu_torch.models import (
     build_network,
     zero_carry,
 )
+from dtqn_tpu_torch.models.dropout import DropoutDraws
 from dtqn_tpu_torch.utils.device import resolve_device
 from dtqn_tpu_torch.utils.metrics import TrainDiagnostics
 
@@ -193,6 +199,14 @@ class Agent:
                 config,
                 history=int(min(max(config.history, 1), config.context_len)),
             )
+        if env.num_actions < 1:
+            # The JAX package's agent gets as far as its first greedy act,
+            # an argmax over no actions; here the random context actions of
+            # ``init_state`` already have no range to come from.
+            raise ValueError(
+                f"{env.name} has no discrete actions: the Q agents need "
+                "them"
+            )
         self.config = config
         self.env = env
         self.device = resolve_device(device)
@@ -296,11 +310,14 @@ class Agent:
         """The network's bag arguments: () without a bag."""
         return () if bag is None else (bag.obs, bag.action)
 
-    def _q_context(self, network, obs_seq, act_seq, bag_in=(), ep_len=None):
-        """Seq-to-seq Q over [B, L] windows: [B, L, A]."""
+    def _q_context(self, network, obs_seq, act_seq, bag_in=(), ep_len=None,
+                   draws: Optional[DropoutDraws] = None):
+        """Seq-to-seq Q over [B, L] windows: [B, L, A].  ``draws`` makes
+        the transformer's forward a train-mode one (the reference's
+        net.train(), dqn.py:113-115)."""
         kind = self.config.kind
         if kind == "transformer":
-            return network(obs_seq, act_seq, *bag_in)
+            return network(obs_seq, act_seq, *bag_in, draws=draws)
         if kind == "feedforward":
             return network(obs_seq)
         q, _ = network(obs_seq, act_seq, episode_lengths=ep_len)
@@ -472,20 +489,39 @@ class Agent:
         batch = self.sample_batch(state.buffer, state.generator)
         return self.apply_update(state, batch)
 
-    def apply_update(self, state: AgentState, batch: replay.Batch):
-        """The gradient step on a given batch (dtqn.py:196-269)."""
+    def dropout_draws(self, state: AgentState, masks=None):
+        """The masks of one train-mode forward: None without dropout (or
+        outside DTQN, whose option it is: the other models ignore it, as in
+        the JAX package), else drawn from the agent's generator or, for
+        tests, the given ones."""
+        if self.config.dropout <= 0.0 or self.config.kind != "transformer":
+            return None
+        if masks is not None:
+            return DropoutDraws(masks=masks)
+        return DropoutDraws(generator=state.generator)
+
+    def apply_update(self, state: AgentState, batch: replay.Batch,
+                     masks=None):
+        """The gradient step on a given batch (dtqn.py:196-269).  With
+        dropout, ``masks`` may give each forward's masks in call order, as
+        (policy next-Q, target next-Q, loss) lists."""
         cfg = self.config
         ok = replay.can_sample(state.buffer, cfg.batch_size)
         hist = cfg.history
         bag_in = (batch.bag_obs, batch.bag_action) if self.use_bag else ()
+        policy_masks, target_masks, loss_masks = masks or (None,) * 3
 
         # DDQN target: policy-net argmax selector, target-net value
-        # (dtqn.py:221-238), both without gradients.
+        # (dtqn.py:221-238), both without gradients, each lane with masks
+        # of its own.
         with torch.no_grad():
             next_q_policy, next_q_target = (
                 self._q_context(net, batch.next_obs, batch.next_action,
-                                bag_in, batch.ep_len)
-                for net in (state.network, state.target_network)
+                                bag_in, batch.ep_len,
+                                self.dropout_draws(state, lane_masks))
+                for net, lane_masks in (
+                    (state.network, policy_masks),
+                    (state.target_network, target_masks))
             )
             next_act = torch.argmax(next_q_policy, dim=-1)
             next_q = torch.gather(
@@ -495,7 +531,8 @@ class Agent:
             targets = batch.reward + (1.0 - dones) * cfg.gamma * next_q
 
         q_all = self._q_context(state.network, batch.obs, batch.action,
-                                bag_in, batch.ep_len)
+                                bag_in, batch.ep_len,
+                                self.dropout_draws(state, loss_masks))
         q_taken = torch.gather(
             q_all, -1, batch.action.to(torch.int64)[..., None]
         )[..., 0].to(torch.float32)

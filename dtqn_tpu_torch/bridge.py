@@ -5,6 +5,7 @@ arrays, as ``flax.serialization.msgpack_restore`` or ``jax.device_get``
 give it) to a ``state_dict`` of ``dtqn_tpu_torch.models.DTQN``:
 
     ContinuousObsEmbedding_0/Dense_0   -> obs_embedding.dense_0
+    ImageObsEmbedding_0/Conv_{i}, Dense_0 -> obs_embedding.conv_{i}, dense_0
     DiscreteObsEmbedding_0/Embed_0     -> obs_embedding.embedding.weight
     DiscreteObsEmbedding_0/Dense_0     -> obs_embedding.dense_0
     action_embed/Embed_0/embedding     -> action_embed.embedding.weight
@@ -12,6 +13,8 @@ give it) to a ``state_dict`` of ``dtqn_tpu_torch.models.DTQN``:
     layer_{i}/attention/qkv, out       -> layers.{i}.attention.qkv, out
     layer_{i}/ffn/Dense_0, Dense_1     -> layers.{i}.ffn.dense_0, dense_1
     layer_{i}/layernorm{1,2}           -> layers.{i}.layernorm{1,2}
+    layer_{i}/GRUGate_{0,1}/{w,u}_{z,r,g}
+                                       -> layers.{i}.{attn,mlp}_gate.{w,u}_...
     bag_attention/query, key, value, out -> bag_attention.query, ...
     head_hidden, head_out              -> head_hidden, head_out
 
@@ -23,8 +26,10 @@ and a DQN / DRQN / ADRQN / DARQN tree (``dtqn_tpu/models/recurrent.py``):
     core/cell/..., core/attention/{W,linear,linear2}
                                        -> core.cell..., core.attention...
 
-A Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``;
-LayerNorm ``scale`` becomes ``weight``.  The older separate
+A Dense ``kernel [in, out]`` becomes a Linear ``weight [out, in]``, a Conv
+``kernel`` HWIO torch's OIHW; LayerNorm ``scale`` becomes ``weight``.  A
+layer's first GRU gate (flax's ``GRUGate_0``) gates the attention, its
+second the FFN.  The older separate
 query/key/value projections are fused into ``qkv`` in q, k, v order, as
 ``tools/convert_policy_qkv.py`` does; the bag cross-attention keeps its
 three projections, in both packages.  An LSTM cell's four input kernels
@@ -47,10 +52,16 @@ import torch
 _MODULES = {
     "ContinuousObsEmbedding_0": "obs_embedding",
     "DiscreteObsEmbedding_0": "obs_embedding",
+    "ImageObsEmbedding_0": "obs_embedding",
     "Dense_0": "dense_0",
     "Dense_1": "dense_1",
     "Embed_0": "embedding",
+    "GRUGate_0": "attn_gate",
+    "GRUGate_1": "mlp_gate",
+    **{f"Conv_{i}": f"conv_{i}" for i in range(5)},
 }
+# HWIO (flax) -> OIHW (torch), and back.
+_CONV_TO_TORCH, _CONV_TO_JAX = (3, 2, 0, 1), (2, 3, 1, 0)
 _LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
            "embedding": "weight"}
 
@@ -144,26 +155,29 @@ def params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
                 continue
             arr = np.asarray(val, dtype=np.float32)
             if key == "kernel":
-                arr = arr.T
+                arr = (arr.transpose(_CONV_TO_TORCH) if arr.ndim == 4
+                       else arr.T)
             state[_torch_name(path + (key,))] = torch.tensor(arr)
 
     walk(_fuse_recurrent(_fuse_qkv(tree)), ())
     return state
 
 
-_JAX_MODULES = {"dense_0": "Dense_0", "dense_1": "Dense_1",
-                "embedding": "Embed_0"}
+_JAX_MODULES = {torch_name: jax_name for jax_name, torch_name
+                in _MODULES.items() if torch_name != "obs_embedding"}
 
 
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     """torch ``state_dict`` -> flax parameter tree (numpy leaves)."""
     tree: Dict = {}
-    # Only the discrete obs embedder holds a token table.
-    obs_module = (
-        "DiscreteObsEmbedding_0"
-        if "obs_embedding.embedding.weight" in state_dict
-        else "ContinuousObsEmbedding_0"
-    )
+    # Only the discrete obs embedder holds a token table, and only the
+    # image one convolutions.
+    if "obs_embedding.embedding.weight" in state_dict:
+        obs_module = "DiscreteObsEmbedding_0"
+    elif "obs_embedding.conv_0.weight" in state_dict:
+        obs_module = "ImageObsEmbedding_0"
+    else:
+        obs_module = "ContinuousObsEmbedding_0"
     jax_modules = dict(_JAX_MODULES, obs_embedding=obs_module)
     for name, tensor in state_dict.items():
         arr = tensor.detach().cpu().numpy()
@@ -181,7 +195,9 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             is_norm = path[-1].startswith("layernorm")
             if leaf == "weight":
                 arr_leaf = "scale" if is_norm else "kernel"
-                if not is_norm:
+                if arr.ndim == 4:
+                    arr = arr.transpose(_CONV_TO_JAX)
+                elif not is_norm:
                     arr = arr.T
             else:
                 arr_leaf = leaf

@@ -1,6 +1,7 @@
-"""Environment registry (``dtqn_tpu/envs/__init__.py``): Car Flag, Memory
-Cards, Gridverse and the classic POMDPs (Hallway, HeavenHell and any
-Cassandra ``.pomdp`` file)."""
+"""Environment registry (``dtqn_tpu/envs/__init__.py``): Car Flag (discrete
+and continuous), Memory Cards, the image maze, Gridverse and the classic
+POMDPs (Hallway, HeavenHell and any Cassandra ``.pomdp`` file); several
+domains combine in ``MultiDomainEnv``."""
 
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ from dtqn_tpu_torch.envs.gridverse import (
     GridverseState,
     make_gridverse_env,
 )
+from dtqn_tpu_torch.envs.image_maze import ImageMaze, ImageMazeState
 from dtqn_tpu_torch.envs.memory_cards import MemoryCards, MemoryState
+from dtqn_tpu_torch.envs.multi import MultiDomainEnv, MultiDomainState
 from dtqn_tpu_torch.envs.pomdp import (
     TabularPOMDP,
     TabularState,
@@ -52,11 +55,13 @@ _REGISTRY = {
     "Memory-5-v0": lambda: MemoryCards(num_pairs=5, max_episode_steps=50),
     # Car Flag (reference envs/__init__.py:42-47: 200-step limit)
     "DiscreteCarFlag-v0": CarFlag,
+    # Continuous-force mode (car_flag.py:58-63): scripted or external
+    # policies only; the Q agents are discrete-action, as in the reference.
+    "CarFlag-continuous-v0": lambda: CarFlag(discrete=False),
+    "ImageMaze-9-v0": lambda: ImageMaze(size=9),
     "POMDP-hallway-episodic-v0": _make_hallway_env,
     "POMDP-heavenhell_3-episodic-v0": lambda: make_heavenhell(3),
 }
-# Registered in the JAX package, not ported yet.
-NOT_PORTED = ("CarFlag-continuous-v0", "ImageMaze-9-v0")
 
 
 def make_env(name: str) -> Environment:
@@ -77,11 +82,6 @@ def make_env(name: str) -> Environment:
         )
     if name.startswith("gv_"):
         return make_gridverse_env(name)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"environment {name!r} is not ported yet; see ROADMAP.md queue 1 "
-            "item 12b"
-        )
     raise KeyError(
         f"Unknown environment {name!r}. Registered: {sorted(_REGISTRY)}"
     )
@@ -89,7 +89,8 @@ def make_env(name: str) -> Environment:
 
 __all__ = [
     "CarFlag", "CarFlagState", "Environment", "GridverseMemory",
-    "GridverseState", "MemoryCards", "MemoryState", "ObsKind",
+    "GridverseState", "ImageMaze", "ImageMazeState", "MemoryCards",
+    "MemoryState", "MultiDomainEnv", "MultiDomainState", "ObsKind",
     "TabularPOMDP", "TabularState", "Timestep", "make_env",
     "make_gridverse_env", "make_hallway", "make_heavenhell",
 ]

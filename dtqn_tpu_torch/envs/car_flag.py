@@ -5,6 +5,9 @@ A car on [-1.1, 1.1] with velocity clamped to +-0.07 accelerates with force
 x = 0.5 (+-0.2) reveals heaven's side in the third obs component.  Reward
 +1 at heaven, -1 at hell; the episode ends at either.  Obs = [position,
 velocity, priest_hint]; actions {0, 1, 2} -> force {-1, 0, 1}.  200-step cap.
+``CarFlag(discrete=False)`` takes a Box(1) force clipped to [-1, 1] instead
+(car_flag.py:58-63,82-83): an env for scripted or external policies, which
+the discrete-action Q agents refuse.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ class CarFlagState:
 
 
 class CarFlag(Environment):
-    """Discrete-action Car Flag (the continuous-force mode is not ported)."""
+    """Car Flag; ``discrete=False`` switches to Box(1) force actions."""
 
     name = "DiscreteCarFlag-v0"
     num_actions = 3
@@ -43,11 +46,11 @@ class CarFlag(Environment):
     goal_position = 1.0
 
     def __init__(self, discrete: bool = True):
+        self.discrete = discrete
         if not discrete:
-            raise NotImplementedError(
-                "CarFlag-continuous-v0 is not ported yet; see ROADMAP.md "
-                "queue 1 item 12b"
-            )
+            # num_actions 0 marks the env unusable by the Q agents.
+            self.name = "CarFlag-continuous-v0"
+            self.num_actions = 0
 
     @property
     def obs_mask(self) -> float:
@@ -116,7 +119,12 @@ class CarFlag(Environment):
 
     def step_env(self, generator, state: CarFlagState, action):
         del generator  # dynamics are deterministic
-        force = action.to(torch.float32) - 1.0
+        if self.discrete:
+            force = action.to(torch.float32) - 1.0
+        else:  # [E] or [E, 1] forces
+            force = torch.clamp(
+                action.to(torch.float32).reshape(action.shape[0]), -1.0, 1.0
+            )
         velocity = torch.clamp(
             state.velocity + force * self.power, -self.max_speed,
             self.max_speed,

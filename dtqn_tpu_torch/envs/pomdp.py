@@ -119,6 +119,13 @@ class TabularPOMDP(Environment):
             }
         return self._constants[key]
 
+    def _own(self, s: torch.Tensor) -> torch.Tensor:
+        """States clamped into this POMDP's range.  A multi-domain env steps
+        every member on every lane and keeps each lane's own member's
+        result; a lane of a larger member must not index out of range, as a
+        JAX gather clamps."""
+        return torch.clamp(s, max=self.num_states - 1)
+
     def reset_with(self, s: torch.Tensor,
                    obs: torch.Tensor) -> Tuple[torch.Tensor, TabularState]:
         """Fresh episodes from given outcomes: start states ``s`` [E] and
@@ -140,7 +147,8 @@ class TabularPOMDP(Environment):
         observations ``obs`` [E].  Returns (obs, state, reward, terminated,
         info), as ``step_env``."""
         c = self._on(s2.device)
-        s, a, s2 = (x.to(torch.int64) for x in (state.s, action, s2))
+        s, a, s2 = (x.to(torch.int64)
+                    for x in (self._own(state.s), action, s2))
         reward = c["R"][s, a, s2]
         new_state = TabularState(s=s2.to(torch.int32), t=state.t + 1)
         info = {"is_success": reward > self.success_reward_threshold}
@@ -150,7 +158,8 @@ class TabularPOMDP(Environment):
     def step_env(self, generator, state: TabularState, action):
         c = self._on(state.s.device)
         a = action.to(torch.int64)
-        s2 = draw(generator, c["log_T"][state.s.to(torch.int64), a])
+        s = self._own(state.s).to(torch.int64)
+        s2 = draw(generator, c["log_T"][s, a])
         obs = draw(generator, c["log_O"][a, s2])
         return self.step_with(state, action, s2, obs)
 

@@ -3,7 +3,8 @@ network, as the reference's MODEL_MAP (utils/agent_utils.py:17-24)."""
 
 from __future__ import annotations
 
-from typing import Optional
+import re
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,6 +19,7 @@ from dtqn_tpu_torch.models.recurrent import (
     LSTMCarry,
     zero_carry,
 )
+from dtqn_tpu_torch.models.transformer import MultiHeadAttention
 
 MODEL_MAP = {
     "DTQN": DTQN,
@@ -100,7 +102,37 @@ def build_network(
     )
 
 
+def _flax_path(name: str) -> str:
+    """A module's flax path: ``layers.0.attention`` -> ``layer_0/attention``."""
+    return re.sub(r"layers\.(\d+)", r"layer_\1", name).replace(".", "/")
+
+
+def attention_weights(
+    network: nn.Module, *args, **kwargs
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Per-layer head-averaged attention maps for visualization
+    (``dtqn_tpu/models/__init__.py:95-114``, the reference's ``layer.alpha``):
+    (Q of the ordinary forward, [maps]), each map [B, Lq, Lk], sorted by
+    module path as flax's intermediates are: DTQN-bag's ``bag_attention``
+    first, then ``layer_0`` ... ``layer_{n-1}``.  The maps are the stock-op
+    probabilities on either device: the kernels keep none."""
+    modules = sorted(
+        ((_flax_path(name), m) for name, m in network.named_modules()
+         if isinstance(m, MultiHeadAttention)),
+        key=lambda pm: pm[0],
+    )
+    for _, m in modules:
+        m.maps = []
+    try:
+        q = network(*args, **kwargs)
+        maps = [mp for _, m in modules for mp in m.maps]
+    finally:
+        for _, m in modules:
+            m.maps = None
+    return q, maps
+
+
 __all__ = [
-    "MODEL_MAP", "RECURRENT_MODELS", "build_network",
+    "MODEL_MAP", "RECURRENT_MODELS", "attention_weights", "build_network",
     "DTQN", "DQN", "DRQN", "ADRQN", "DARQN", "LSTMCarry", "zero_carry",
 ]

@@ -3,8 +3,9 @@
 The obs embedding gets ``inner_embed - action_dim`` features; with
 ``action_dim > 0`` the previous-action embedding is right-shifted one step
 (first step zeroed) and concatenated in front (dtqn.py:63-64,184-192).
-Then learned positions, N post-LN transformer layers and a ReLU MLP head;
-Q is [B, L, num_actions] for every timestep.
+Then the position encoding, input dropout, N transformer layers and a ReLU
+MLP head; Q is [B, L, num_actions] for every timestep.  Dropout acts only
+in a train-mode forward, one given ``DropoutDraws``.
 
 With ``bag_size > 0`` (DTQN-bag) the working memory cross-attends over the
 embedded persistent-memory bag (query = context, keys and values = bag) and
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from dtqn_tpu_torch.envs.core import ObsKind
+from dtqn_tpu_torch.models.dropout import DropoutDraws, apply_dropout
 from dtqn_tpu_torch.models.embeddings import (
     ActionEmbedding,
     make_obs_embedding,
@@ -62,10 +64,7 @@ class DTQN(nn.Module):
         the sentinel lies outside the observable range, which
         ``build_network`` enforces (discrete-observation envs only)."""
         super().__init__()
-        if dropout > 0.0:
-            raise NotImplementedError(
-                "dropout > 0 is not ported yet; see ROADMAP.md queue 1 item 12b"
-            )
+        self.dropout = dropout
         self.context_len = context_len
         self.action_dim = action_dim
         self.bag_size = bag_size
@@ -106,9 +105,12 @@ class DTQN(nn.Module):
         actions: Optional[torch.Tensor] = None,
         bag_obss: Optional[torch.Tensor] = None,
         bag_actions: Optional[torch.Tensor] = None,
+        *,
+        draws: Optional[DropoutDraws] = None,
     ) -> torch.Tensor:
         """obss: [B, L, *obs_shape]; actions: [B, L] int; bag_*: [B, bag,
-        ...] -> Q [B, L, A]."""
+        ...] -> Q [B, L, A].  ``draws`` makes it a train-mode forward
+        (flax's ``deterministic=False``)."""
         seq_len = obss.shape[1]
         if seq_len > self.context_len:
             raise ValueError(
@@ -127,15 +129,17 @@ class DTQN(nn.Module):
                     dim=1,
                 )
             tokens = torch.cat([act_tok, tokens], dim=-1)
-        x = tokens + self.position()[:, :seq_len]
+        x = apply_dropout(tokens + self.position()[:, :seq_len],
+                          self.dropout, draws)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, draws)
         if self.bag_attention is not None:
-            x = torch.cat([x, self._persistent(x, bag_obss, bag_actions)],
-                          dim=-1)
+            x = torch.cat(
+                [x, self._persistent(x, bag_obss, bag_actions, draws)],
+                dim=-1)
         return self.head_out(torch.relu(self.head_hidden(x)))
 
-    def _persistent(self, x, bag_obss, bag_actions) -> torch.Tensor:
+    def _persistent(self, x, bag_obss, bag_actions, draws) -> torch.Tensor:
         """Cross-attention of the working memory ``x`` over the (possibly
         padded) bag."""
         if bag_obss is None:
@@ -150,11 +154,12 @@ class DTQN(nn.Module):
         if not self.bag_mask:
             # The reference always attends over the full bag, padding
             # included (dtqn.py:201-213).
-            return self.bag_attention(x, bag_tokens)
+            return self.bag_attention(x, bag_tokens, draws=draws)
         # A slot is empty when every obs element equals the padding
         # sentinel; the persistent features are zero where no slot is valid.
         slot_dims = tuple(range(2, bag_obss.dim()))
         kv_mask = ~torch.all(bag_obss == self.obs_mask_value, dim=slot_dims)
-        persistent = self.bag_attention(x, bag_tokens, kv_mask=kv_mask)
+        persistent = self.bag_attention(x, bag_tokens, kv_mask=kv_mask,
+                                        draws=draws)
         any_valid = torch.any(kv_mask, dim=-1)
         return torch.where(any_valid[:, None, None], persistent, 0.0)

@@ -1,15 +1,14 @@
 """Observation / action embedders (``dtqn_tpu/models/embeddings.py``).
 
-Ported: the discrete-obs token Embedding -> flatten -> Linear
+The discrete-obs token Embedding -> flatten -> Linear
 (representations.py:26-52), the continuous-obs Linear
-(representations.py:64-75) and the action Embedding
-(representations.py:146-155).  The image embedder is not ported yet
-(ROADMAP.md queue 1 item 12b).
+(representations.py:64-75), the image CNN (representations.py:77-130) and
+the action Embedding (representations.py:146-155).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,6 +78,72 @@ class ContinuousObsEmbedding(nn.Module):
         return self.dense_0(obs.to(torch.float32))
 
 
+class Conv3x3(nn.Module):
+    """A 3x3 convolution with padding 1 (flax's ``padding=1`` pads both
+    sides) of an NHWC batch, as one GEMM over the patches of a strided view
+    (``Tensor.unfold``): NHWC in, NHWC out.
+
+    Its backward is GEMMs and ``unfold``'s backward, which gathers each
+    input element's sum, so gradients repeat bit for bit on the card, where
+    cuDNN's weight-gradient algorithms may sum with atomics; and the GEMMs
+    follow PyTorch's float32 matmul precision (TF32 off unless the caller
+    turns it on), where a cuDNN convolution would take TF32 by default.
+    (``F.unfold`` would launch one im2col kernel per image on the card.)
+    The weight is torch's OIHW, N(0, 0.02); the bias zero.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, 3, 3))
+        normal_(self.weight, generator)
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # [N, OH, OW, C, 3, 3]: each output pixel's patch in (C, kh, kw)
+        # order, as the OIHW weight flattens.
+        patches = F.pad(x, (0, 0, 1, 1, 1, 1)).unfold(
+            1, 3, self.stride).unfold(2, 3, self.stride)
+        n, oh, ow = patches.shape[:3]
+        out = F.linear(patches.reshape(n * oh * ow, -1),
+                       self.weight.reshape(self.weight.shape[0], -1),
+                       self.bias)
+        return out.reshape(n, oh, ow, -1)
+
+
+CNN_CHANNELS, CNN_STRIDES = (64, 64, 64, 128, 128), (2, 1, 2, 1, 2)
+
+
+class ImageObsEmbedding(nn.Module):
+    """5-layer CNN for [C, H, W] uint8 images (representations.py:77-130):
+    3x3 convolutions of 64/64/64/128/128 channels at strides 2/1/2/1/2, each
+    followed by ReLU, then a Linear from the flattened features.  They are
+    flattened in flax's NHWC order, so a Dense kernel from the JAX package
+    reads the features it was trained on."""
+
+    def __init__(self, obs_shape: Tuple[int, int, int], features: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c, h, w = obs_shape
+        self.obs_shape = (c, h, w)
+        self.features = features
+        for i, (out_ch, stride) in enumerate(zip(CNN_CHANNELS, CNN_STRIDES)):
+            setattr(self, f"conv_{i}", Conv3x3(c, out_ch, stride, generator))
+            c, h, w = out_ch, (h - 1) // stride + 1, (w - 1) // stride + 1
+        self.dense_0 = make_dense(c * h * w, features, generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        prefix = obs.shape[:-3]
+        x = obs.reshape(-1, *self.obs_shape).to(torch.float32)
+        x = x.permute(0, 2, 3, 1)  # CHW -> HWC
+        for i in range(len(CNN_CHANNELS)):
+            x = torch.relu(getattr(self, f"conv_{i}")(x))
+        x = self.dense_0(x.reshape(x.shape[0], -1))
+        return x.reshape(*prefix, self.features)
+
+
 class ActionEmbedding(nn.Module):
     """Embed(num_actions, action_dim): [...] int -> [..., action_dim],
     looked up through ``lookup`` so that its table gradient repeats bit for
@@ -105,10 +170,7 @@ def make_obs_embedding(
 ) -> nn.Module:
     """The obs embedder for the env's observation kind (dtqn.py:71-94)."""
     if obs_kind == ObsKind.IMAGE:
-        raise NotImplementedError(
-            "IMAGE observation embedding is not ported yet; see ROADMAP.md "
-            "queue 1 item 12b"
-        )
+        return ImageObsEmbedding(tuple(obs_shape), features, generator)
     if obs_kind == ObsKind.DISCRETE:
         return DiscreteObsEmbedding(
             vocab_size, int(obs_shape[0]), embed_per_obs_dim, features,

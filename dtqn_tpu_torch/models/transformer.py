@@ -2,30 +2,32 @@
 
 Post-LN ``TransformerLayer`` (transformer.py:63-78): causal MHA -> **ReLU on
 the attention output** (a deliberate reference quirk) -> gate -> LayerNorm
--> 4x ReLU FFN -> ReLU -> gate -> LayerNorm.  LayerNorm eps is flax's 1e-6,
-not torch's 1e-5.  The attention core dispatches by device through
-``dtqn_tpu_torch.ops.attention``.  Dropout and the identity (pre-LN) layer
-are not ported yet.
+-> 4x ReLU FFN -> ReLU -> gate -> LayerNorm.  ``identity=True`` is the GTrXL
+identity-map order (pre-LN, no LayerNorm after the gates;
+transformer.py:81-101).  LayerNorm eps is flax's 1e-6, not torch's 1e-5.
+The attention core dispatches by device through
+``dtqn_tpu_torch.ops.attention``; a train-mode forward with dropout takes
+the attention probabilities in stock ops instead, drops them out, and never
+reaches the kernels, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch import nn
 
+from dtqn_tpu_torch.models.dropout import DropoutDraws, apply_dropout
 from dtqn_tpu_torch.models.gates import make_gate
 from dtqn_tpu_torch.models.init import make_dense
-from dtqn_tpu_torch.ops.attention import dot_product_attention
+from dtqn_tpu_torch.ops.attention import (
+    apply_probs,
+    attention_probs,
+    dot_product_attention,
+)
 
 LAYERNORM_EPS = 1e-6  # flax nn.LayerNorm's default
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet; see ROADMAP.md queue 1 item 12b"
-    )
 
 
 class MultiHeadAttention(nn.Module):
@@ -35,6 +37,9 @@ class MultiHeadAttention(nn.Module):
     splits in q, k, v order (transformer.py:55-57).  ``cross=True`` builds
     the separate ``query`` / ``key`` / ``value`` projections of attention
     over another sequence (transformer.py:58-61): the bag.
+
+    While ``maps`` is a list, each forward appends its head-averaged
+    attention probabilities [B, Lq, Lk] to it (``attention_weights``).
     """
 
     def __init__(self, features: int, num_heads: int, dropout: float = 0.0,
@@ -43,9 +48,9 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if features % num_heads:
             raise ValueError("features must divide num_heads")
-        if dropout > 0.0:
-            raise _not_ported("attention dropout")
         self.num_heads = num_heads
+        self.dropout = dropout
+        self.maps: Optional[List[torch.Tensor]] = None
         self.cross = cross
         if cross:
             self.query = make_dense(features, features, generator)
@@ -57,10 +62,12 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None, *,
                 causal: bool = False,
-                kv_mask: Optional[torch.Tensor] = None):
+                kv_mask: Optional[torch.Tensor] = None,
+                draws: Optional[DropoutDraws] = None):
         """``x`` [B, Lq, F] queries; ``kv`` [B, Lk, F] the keys' and values'
         source (cross-attention only); ``kv_mask`` [B, Lk] bool hides
-        key/value positions (False = masked)."""
+        key/value positions (False = masked); ``draws`` makes it a
+        train-mode forward."""
         if self.cross != (kv is not None):
             raise ValueError(
                 "cross-attention takes kv and self-attention does not"
@@ -69,9 +76,23 @@ class MultiHeadAttention(nn.Module):
             q, k, v = self.query(x), self.key(kv), self.value(kv)
         else:
             q, k, v = (t.contiguous() for t in self.qkv(x).chunk(3, dim=-1))
-        out = dot_product_attention(
-            q, k, v, num_heads=self.num_heads, causal=causal, kv_mask=kv_mask
-        )
+        if draws is not None and self.dropout > 0.0:
+            # Dropout acts on the softmax probabilities (the reference's
+            # nn.MultiheadAttention, transformer.py:30-36), which only this
+            # stock-op path materializes.
+            probs = attention_probs(q, k, num_heads=self.num_heads,
+                                    causal=causal, kv_mask=kv_mask)
+            out = apply_probs(draws(probs, self.dropout), v)
+        else:
+            out = dot_product_attention(
+                q, k, v, num_heads=self.num_heads, causal=causal,
+                kv_mask=kv_mask,
+            )
+        if self.maps is not None:
+            self.maps.append(attention_probs(
+                q, k, num_heads=self.num_heads, causal=causal,
+                kv_mask=kv_mask,
+            ).mean(dim=1))
         return self.out(out)
 
 
@@ -82,13 +103,14 @@ class FeedForward(nn.Module):
                  dropout: float = 0.0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if dropout > 0.0:
-            raise _not_ported("FFN dropout")
+        self.dropout = dropout
         self.dense_0 = make_dense(features, widening * features, generator)
         self.dense_1 = make_dense(widening * features, features, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.dense_1(torch.relu(self.dense_0(x)))
+    def forward(self, x: torch.Tensor,
+                draws: Optional[DropoutDraws] = None) -> torch.Tensor:
+        return apply_dropout(self.dense_1(torch.relu(self.dense_0(x))),
+                             self.dropout, draws)
 
 
 class TransformerLayer(nn.Module):
@@ -96,19 +118,24 @@ class TransformerLayer(nn.Module):
                  gate: str = "res", identity: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if identity:
-            raise _not_ported("the identity (pre-LN) layer")
+        self.identity = identity
         self.attention = MultiHeadAttention(
             features, num_heads, dropout, generator
         )
         self.ffn = FeedForward(features, dropout=dropout, generator=generator)
-        self.attn_gate = make_gate(gate, features)
-        self.mlp_gate = make_gate(gate, features)
+        self.attn_gate = make_gate(gate, features, generator)
+        self.mlp_gate = make_gate(gate, features, generator)
         self.layernorm1 = nn.LayerNorm(features, eps=LAYERNORM_EPS)
         self.layernorm2 = nn.LayerNorm(features, eps=LAYERNORM_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        att = self.attention(x, causal=True)
+    def forward(self, x: torch.Tensor,
+                draws: Optional[DropoutDraws] = None) -> torch.Tensor:
+        if self.identity:
+            att = self.attention(self.layernorm1(x), causal=True, draws=draws)
+            x = self.attn_gate(x, torch.relu(att))
+            y = self.ffn(self.layernorm2(x), draws)
+            return self.mlp_gate(x, torch.relu(y))
+        att = self.attention(x, causal=True, draws=draws)
         x = self.layernorm1(self.attn_gate(x, torch.relu(att)))
-        y = self.ffn(x)
+        y = self.ffn(x, draws)
         return self.layernorm2(self.mlp_gate(x, torch.relu(y)))

@@ -27,22 +27,24 @@ import torch
 from dtqn_tpu_torch.ops.cuda_attention import cuda_attention_packed
 
 
-def plain_attention_packed(
+def attention_probs(
     q: torch.Tensor,
     k: torch.Tensor,
-    v: torch.Tensor,
+    *,
     num_heads: int,
     causal: bool = False,
     kv_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``_xla_attention`` in plain PyTorch: q [B, Lq, E], k/v [B, Lk, E];
-    ``kv_mask`` [B, Lk] bool hides key/value positions (False = masked)."""
+    """Softmax attention probabilities [B, H, Lq, Lk] of packed q [B, Lq, E]
+    and k [B, Lk, E], in stock ops on either device
+    (``dtqn_tpu/ops/attention.py:66-95``): the kernels keep no
+    probabilities.  The train-mode forward with dropout and
+    ``attention_weights`` read them."""
     b, lq, e = q.shape
     lk = k.shape[1]
     d = e // num_heads
     qh = q.reshape(b, lq, num_heads, d)
     kh = k.reshape(b, lk, num_heads, d)
-    vh = v.reshape(b, lk, num_heads, d)
     scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=q.dtype))
     scores = torch.einsum("blhd,bmhd->bhlm", qh, kh) * scale
     if causal:
@@ -56,8 +58,31 @@ def plain_attention_packed(
         scores = torch.where(
             kv_mask[:, None, None, :], scores, torch.finfo(scores.dtype).min
         )
-    weights = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhlm,bmhd->blhd", weights, vh).reshape(b, lq, e)
+    return torch.softmax(scores, dim=-1)
+
+
+def apply_probs(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Probabilities [B, H, Lq, Lk] over packed values [B, Lk, E] ->
+    [B, Lq, E]."""
+    b, h, lq, lk = probs.shape
+    e = v.shape[-1]
+    vh = v.reshape(b, lk, h, e // h)
+    return torch.einsum("bhlm,bmhd->blhd", probs, vh).reshape(b, lq, e)
+
+
+def plain_attention_packed(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    causal: bool = False,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``_xla_attention`` in plain PyTorch: q [B, Lq, E], k/v [B, Lk, E];
+    ``kv_mask`` [B, Lk] bool hides key/value positions (False = masked)."""
+    probs = attention_probs(q, k, num_heads=num_heads, causal=causal,
+                            kv_mask=kv_mask)
+    return apply_probs(probs, v)
 
 
 def dot_product_attention(

@@ -25,7 +25,7 @@ import torch
 from dtqn_tpu_torch import replay
 from dtqn_tpu_torch.agents import Agent
 from dtqn_tpu_torch.config import ExperimentConfig
-from dtqn_tpu_torch.envs import make_env
+from dtqn_tpu_torch.envs import MultiDomainEnv, make_env, make_gridverse_env
 from dtqn_tpu_torch.models import zero_carry
 from dtqn_tpu_torch.train.loop import (
     make_evaluate_fn,
@@ -120,16 +120,24 @@ class HostRunningAverage:
 
 
 def build_envs(config: ExperimentConfig):
-    """(train_env, eval_envs) for the configured domain list; several
-    domains (a new one per episode, run.py:287) are not ported yet
-    (``envs/multi.py``)."""
+    """(train_env, eval_envs) for the configured domain list.
+
+    Several ``--envs`` draw a new domain per episode (run.py:287) through
+    ``MultiDomainEnv``; Gridverse members of different sizes are padded to
+    the largest grid so that their states share one shape, and each domain
+    is evaluated on its own (padded) env.
+    """
     names = config.envs
-    if len(names) != 1:
-        raise NotImplementedError(
-            "several --envs (envs/multi.py) are not ported yet; see "
-            "ROADMAP.md queue 1 item 12b"
-        )
-    return make_env(names[0]), [make_env(names[0])]
+    if len(names) == 1:
+        return make_env(names[0]), [make_env(names[0])]
+    if all(n.startswith("gv_") for n in names):
+        pad = max(int(n.split(".")[1].split("x")[0]) for n in names)
+        members = [make_gridverse_env(n, pad_to=pad) for n in names]
+        evals = [make_gridverse_env(n, pad_to=pad) for n in names]
+    else:
+        members = [make_env(n) for n in names]
+        evals = [make_env(n) for n in names]
+    return MultiDomainEnv(members), evals
 
 
 def run_experiment(config: ExperimentConfig) -> dict:

@@ -47,6 +47,8 @@ def test_port_imports_no_jax():
         "dtqn_tpu_torch/replay/bag.py", "dtqn_tpu_torch/envs/gridverse.py",
         "dtqn_tpu_torch/envs/pomdp.py", "dtqn_tpu_torch/envs/pomdp_parser.py",
         "dtqn_tpu_torch/models/recurrent.py",
+        "dtqn_tpu_torch/models/dropout.py",
+        "dtqn_tpu_torch/envs/image_maze.py", "dtqn_tpu_torch/envs/multi.py",
     }
     assert len(paths) > 30
     offenders = {

@@ -475,17 +475,19 @@ def test_host_running_average_and_build_envs():
     assert HostRunningAverage(3).mean() == 0.0
     env, evals = build_envs(runner_config(envs=["Memory-5-v0"]))
     assert env.name == evals[0].name == "Memory-5-v0" and env is not evals[0]
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    env, evals = build_envs(runner_config(
+        envs=["gv_memory.7x7.yaml", "gv_memory.5x5.yaml"]))
+    assert env.name == "gv_memory.7x7.yaml+gv_memory.5x5.yaml"
+    assert [m.pad for m in env.envs] == [e.pad for e in evals] == [7, 7]
+    assert [e.name for e in evals] == ["gv_memory.7x7.yaml",
+                                       "gv_memory.5x5.yaml"]
+    with pytest.raises(ValueError, match="share observation/action"):
         build_envs(runner_config(envs=["Memory-5-v0", "DiscreteCarFlag-v0"]))
 
 
 NOT_PORTED = [
     (dict(dp_devices=2), "item 14"), (dict(bf16=True), "item 13"),
-    (dict(profile_dir="prof"), "item 14"), (dict(gate="gru"), "item 12b"),
-    (dict(identity=True), "item 12b"), (dict(pos="sin"), "item 12b"),
-    (dict(pos="none"), "item 12b"), (dict(dropout=0.1), "item 12b"),
-    (dict(envs=["gv_memory.7x7.yaml", "gv_memory.5x5.yaml"]), "item 12b"),
-    (dict(envs=["ImageMaze-9-v0"]), "item 12b"),
+    (dict(profile_dir="prof"), "item 14"),
 ]
 
 
@@ -497,6 +499,45 @@ def test_not_ported_flags_raise(kw, item, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         run_experiment(runner_config(**kw))
     assert not os.listdir(tmp_path)  # refused before anything is written
+
+
+# DTQN's variants, the image maze and several domains: each trains and
+# evaluates through the runner (cases of what was refused before they were
+# ported, under the same ids).
+VARIANT_FLAGS = [
+    dict(gate="gru"), dict(identity=True), dict(pos="sin"), dict(pos="none"),
+    dict(dropout=0.1), dict(envs=["gv_memory.7x7.yaml", "gv_memory.5x5.yaml"]),
+    dict(envs=["ImageMaze-9-v0"]),
+]
+
+
+@pytest.mark.parametrize("kw", VARIANT_FLAGS,
+                         ids=[str(list(kw.values())[0]) + "-" + list(kw)[0]
+                              for kw in VARIANT_FLAGS])
+def test_variant_flags_train_and_evaluate(kw, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    # Two chunks of two iterations of 4 envs, at context 4: the CNN and the
+    # dropout forwards cost most on the CPU.
+    cfg = runner_config(num_steps=16, num_envs=4, context=4, history=4,
+                        batch=2, eval_frequency=8, eval_episodes=1,
+                        prepop_steps=100, updates_per_iter=1,
+                        max_episode_steps=10, **kw)
+    out = run_experiment(cfg)
+    assert out["losses/Grad_Norm"] > 0.0  # the updates were applied
+    results = read_csv(cfg.policy_path() + "_results.csv")
+    head = ["Hours", "Step"]
+    for env in cfg.envs:
+        head += [f"{env}/SuccessRate", f"{env}/EpisodeLength",
+                 f"{env}/Return"]
+    assert results[0] == head
+    assert [r[1] for r in results[1:]] == ["8", "16"]
+    for row in results[1:]:
+        assert all(np.isfinite(float(x)) for x in row)
+        for i in range(len(cfg.envs)):
+            assert 0.0 <= float(row[2 + 3 * i]) <= 1.0
+            assert 1.0 <= float(row[3 + 3 * i]) <= cfg.max_episode_steps
+    assert os.path.exists(cfg.policy_path() + "_policy.pt")
+    assert run_experiment(cfg) == {"completed": True, "step": 16}
 
 
 def test_agent_refuses_bag_fields():
