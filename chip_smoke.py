@@ -10,7 +10,8 @@ Phases (any failure exits non-zero and prints no result):
   3. hold each kernel against its plain PyTorch version on the card, at the
      main path's shapes and at the edges of every kernel instance
      (PARITY_CASES; float32, TF32 off; atol 2e-5 forward, 5e-5
-     gradients), and check that two backward launches are bit-equal;
+     gradients), and check that two backward launches are bit-equal at
+     every shape;
   4. drive the main path through the port's entry points at the flagless
      bench.py configuration (DiscreteCarFlag-v0, DTQN in_embed 64, 8 heads,
      2 layers, context 50, batch 32, 64 envs, buffer 500k, target update
@@ -80,7 +81,9 @@ Phases (any failure exits non-zero and prints no result):
  16. time each kernel, its plain version and the matching PyTorch call
      (scaled_dot_product_attention, timed here only) at the causal and the
      bag's non-causal shapes of the driven paths, inside CUDA graphs so
-     that host launch cost is left out;
+     that host launch cost is left out; then the streamed <16, 0> at head
+     width 16, Lk = 50 (B = 32 and 1664), held against its plain version
+     and timed in turns with the staged <16, 2> that the shape picks;
  17. profile one more train iteration (torch.profiler): the device's busy
      share, device operations per update and the costliest kernels; the
      same for one iteration of each run of phases 10-12 and 14 but
@@ -122,6 +125,9 @@ HALLWAY, HEAVENHELL = ("POMDP-hallway-episodic-v0",
 # The baselines' runs: (model, env, in_embed).
 BASELINES = [("DRQN", "Memory-5-v0", 128), ("DQN", "Memory-5-v0", 128),
              ("ADRQN", HALLWAY, 64), ("DARQN", "DiscreteCarFlag-v0", 64)]
+# The instances that driven paths launch, as ptxas_usage names them: head
+# width 8 (Car Flag, the POMDPs, the Car Flag bag) and 16 (in_embed 128).
+DRIVEN_INSTANCES = ("<8,1>", "<8,2>", "<16,2>")
 REPLACES = {
     "attention_fwd": "dtqn_tpu/ops/pallas_attention.py:62",
     "attention_bwd": "dtqn_tpu/ops/pallas_attention.py:77",
@@ -165,8 +171,12 @@ def rand(gen, *shape):
 # act step's and the evict forward's batch (gv_memory: bag 25, head width
 # 16, 64 * 26 candidates; Car Flag: bag 10, head width 8, 64 * 11), and the
 # bag evaluation's 10 episodes (greedy forward at 10, evict forward at
-# 10 * 26).  Between them they reach every kernel instance, and
-# check_ledger refuses a launch of the bag phase at a shape not listed.
+# 10 * 26).  Then the staged <16, 2>'s edges at head width 16 (Lk 33, 50
+# and 64, causal and not, B = 1; Lq != Lk; Lq past one 64-row forward tile;
+# a backward past 48 KB of shared memory) and the shapes past Lk = 64 that
+# still take the streamed <16, 0>.  Between them they reach every kernel
+# instance, and check_ledger refuses a launch of a driven path at a shape
+# not listed.
 PARITY_CASES = [
     (64, 50, 50, 8, True, 64), (32, 50, 50, 8, True, 64),
     (4, 7, 3, 8, False, 64), (4, 1, 50, 8, False, 64),
@@ -188,6 +198,12 @@ PARITY_CASES = [
     (1664, 50, 10, 8, False, 64), (704, 50, 50, 8, True, 64),
     (10, 50, 25, 8, False, 128), (260, 50, 25, 8, False, 128),
     (260, 50, 50, 8, True, 128), (704, 50, 10, 8, False, 64),
+    (1, 33, 33, 8, True, 128), (1, 33, 33, 8, False, 128),
+    (1, 50, 50, 8, True, 128), (1, 50, 50, 8, False, 128),
+    (1, 64, 64, 8, True, 128), (1, 64, 64, 8, False, 128),
+    (2, 7, 50, 8, False, 128), (4, 1, 64, 8, False, 128),
+    (3, 100, 33, 8, False, 128), (2, 130, 64, 8, False, 128),
+    (2, 100, 100, 8, True, 128), (2, 7, 65, 8, False, 128),
 ]
 
 
@@ -198,9 +214,11 @@ def parity(ca):
     errs = {"attention_fwd": 0.0, "attention_bwd": 0.0}
     covered = set()
     for b, lq, lk, h, causal, e in PARITY_CASES:
+        pairs = []
         for kind in errs:
             cfg = ca.launch_config(kind, lq, lk, e // h)
-            covered.add((cfg.head_dim_pad, cfg.keys_per_lane))
+            pairs.append((cfg.head_dim_pad, cfg.keys_per_lane))
+        covered.update(pairs)
         q, dout = rand(gen, b, lq, e), rand(gen, b, lq, e)
         k, v = rand(gen, b, lk, e), rand(gen, b, lk, e)
         out = ca.attention_fwd(q, k, v, h, causal)
@@ -213,7 +231,7 @@ def parity(ca):
         e_bwd = max((a - r).abs().max().item()
                     for a, r in zip(grads, ref_grads))
         log(f"parity B={b} Lq={lq} Lk={lk} H={h} D={e // h} "
-            f"causal={causal}: fwd {e_fwd:.3e} bwd {e_bwd:.3e}")
+            f"causal={causal} {pairs}: fwd {e_fwd:.3e} bwd {e_bwd:.3e}")
         check(e_fwd <= FWD_ATOL, f"attention_fwd disagrees: {e_fwd}")
         check(e_bwd <= GRAD_ATOL, f"attention_bwd disagrees: {e_bwd}")
         check(all(torch.equal(a, r) for a, r in zip(grads, again)),
@@ -1051,7 +1069,7 @@ def bag_phase(seed, ca):
         "carflag_bag": [ca.launch_config(k, 50, 10, 8)[:2]
                         for k in ("attention_fwd", "attention_bwd")],
     }
-    check(instances == {"causal": [(16, 0)] * 2, "bag": [(16, 1)] * 2,
+    check(instances == {"causal": [(16, 2)] * 2, "bag": [(16, 2)] * 2,
                         "carflag_bag": [(8, 1)] * 2},
           f"bag instances {instances}")
 
@@ -1314,7 +1332,7 @@ def image_phase(seed, ca):
 
     instances = [ca.launch_config(k, 50, 50, 128 // 8)[:2]
                  for k in ("attention_fwd", "attention_bwd")]
-    check(instances == [(16, 0)] * 2, f"image instances {instances}")
+    check(instances == [(16, 2)] * 2, f"image instances {instances}")
     run, agent, state, train_iter = drive(
         seed, ca, IMAGE_ENV, 110, 2, evaluate=True, model="DTQN",
         inner_embed=128, bag_size=0)
@@ -1595,6 +1613,55 @@ BAG_TIMING_SHAPES = [
 ]
 
 
+# The streamed <16, 0>, which head width 16 took at Lk = 50 before the
+# staged <16, 2>: (kernel, B) at Lq = Lk = 50, H = 8, D = 16, causal.
+STREAMED_SHAPES = [("attention_fwd", 32), ("attention_bwd", 32),
+                   ("attention_fwd", 1664), ("attention_bwd", 1664)]
+
+
+def streamed_timings(ca):
+    """The streamed form at each STREAMED_SHAPES shape, launched through the
+    C entry point with its own configuration (these launches count
+    nothing), held against the plain version and timed in turns with the
+    form the shape picks: streamed, picked, picked, streamed."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    heads, d, length = 8, 16, 50
+    out = {}
+    for kind, b in STREAMED_SHAPES:
+        q, k, v, dout = (rand(gen, b, length, heads * d) for _ in range(4))
+        streamed = ca.launch_config(kind, length, length, d, streamed=True)
+        picked = ca.launch_config(kind, length, length, d)
+        if kind == "attention_fwd":
+            args = (q, k, v, heads, True)
+            got = (ca.launch_fwd(*args, streamed),)
+            ref = (ca.plain_attention_fwd(*args),)
+            launch, atol = ca.launch_fwd, FWD_ATOL
+        else:
+            args = (q, k, v, dout, heads, True)
+            got = ca.launch_bwd(*args, streamed)
+            ref = ca.plain_attention_bwd(*args)
+            launch, atol = ca.launch_bwd, GRAD_ATOL
+        err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+        check(err <= atol, f"streamed {kind} at B={b} disagrees with the "
+                           f"plain version: {err}")
+        turns = [graph_ms(lambda: launch(*args, cfg))
+                 for cfg in (streamed, picked, picked, streamed)]
+        bound, by = bound_ms(kind, b, length, length, heads, d, True)
+        name = (f"{kind} <16, 0> B={b} Lq={length} Lk={length} H={heads} "
+                f"D={d} causal f32")
+        out[name] = {
+            "ms": (turns[0] + turns[3]) / 2,
+            "picked": f"<{picked.head_dim_pad}, {picked.keys_per_lane}>",
+            "picked_ms": (turns[1] + turns[2]) / 2,
+            "turns_ms": turns,
+            "max_abs_err": err,
+            "bound_ms": bound,
+            "bound_by": by,
+        }
+        log(f"streamed {name}: {json.dumps(out[name])}")
+    return out
+
+
 def run(seed):
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
@@ -1618,6 +1685,10 @@ def run(seed):
         log(f"ptxas: {json.dumps(u)}")
     check(len(usage) == 2 * len(ca.INSTANCES),
           f"ptxas reported {len(usage)} kernels")
+    spilled = [u["kernel"] for u in usage
+               if u["kernel"][u["kernel"].index("<"):] in DRIVEN_INSTANCES
+               and u.get("spill_stores", 0) + u.get("spill_loads", 0)]
+    check(not spilled, f"instances on driven paths spill: {spilled}")
     errs = parity(ca)
     main, agent, state, train_iter = main_path(seed, ca)
     runner, whole_weights = runner_phase(seed, ca)
@@ -1636,8 +1707,11 @@ def run(seed):
     continuous = continuous_phase(seed)
     main_shape, t_main = timings(ca, 32)  # each update's batch
     _, t_act = timings(ca, 64)  # the act forward's batch
-    _, t_wide = timings(ca, 32, d=16)  # the discrete path's update
+    _, t_wide = timings(ca, 32, d=16)  # the in_embed-128 paths' update
+    # ... their act step and their evaluation's batch
+    t_d16 = dict(timings(ca, b, d=16) for b in (64, 10))
     t_bag = dict(timings(ca, **shape) for shape in BAG_TIMING_SHAPES)
+    t_streamed = streamed_timings(ca)
 
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
@@ -1665,6 +1739,11 @@ def run(seed):
             "shape": main_shape,
             "bag_path_shapes": {shape: t[name]
                                 for shape, t in t_bag.items()},
+            "head_width_16_shapes": {shape: t[name]
+                                     for shape, t in t_d16.items()},
+            "streamed_16_0_in_turns": {
+                shape: t for shape, t in t_streamed.items()
+                if shape.startswith(name)},
         })
     prof = profile_iteration(state, train_iter)
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1674,7 +1753,8 @@ def run(seed):
                       "image": image, "variants": variants,
                       "four_rooms": multi, "continuous_car_flag": continuous,
                       "timings_b64": t_act, "timings_b32_d16": t_wide,
-                      "timings_bag": t_bag,
+                      "timings_d16": t_d16, "timings_bag": t_bag,
+                      "timings_streamed": t_streamed,
                       "profile": prof,
                       "ptxas": usage}), flush=True)
     print(card, flush=True)

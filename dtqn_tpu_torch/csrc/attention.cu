@@ -12,20 +12,20 @@
 //   scaled, dQ = dS K, dK = dS^T Q.
 //
 // What bounds it on an H100: at DTQN's shapes (B = 32..64, L = 50, H = 8,
-// D = 8) a call reads and writes 1-2 MB, well under a microsecond at
+// D = 8 or 16) a call reads and writes 1-2 MB, well under a microsecond at
 // 3.35 TB/s, and does a few MFLOP.  The time goes to the launch and to the
 // latency of each warp's dependent chain (load, dot, shuffle, exp), so the
-// design keeps that chain short and keeps many warps in flight.  Above
-// these shapes (long rows, wide heads) the bytes of K and V re-read per
-// query row through L1 become the bound.
+// design keeps that chain short and keeps many warps in flight.  At the bag
+// evict forward's B = 1664 (170 MB at D = 16) the bytes bound it, so every
+// byte of a head is to be read from device memory once.
 //
 // Design: keys on lanes.  A warp takes query rows of one (batch, head);
 // lane t owns keys j = t, t + 32, ...  A row's scores live in the lanes'
 // registers: the row max, the row sum and rowsum(dP * P) are warp shuffles,
 // and P V (or dS K) is a per-lane partial of the D columns that a butterfly
-// reduce-scatter leaves one column to a lane.  No score matrix exists
-// anywhere.  Causally masked keys (j > i) are skipped, which is exact:
-// exp(-1e30 - m) is 0 in float32, and key 0 is always live.
+// reduce-scatter leaves one column to a lane.  Causally masked keys
+// (j > i) are skipped, which is exact: exp(-1e30 - m) is 0 in float32, and
+// key 0 is always live.  Three forms, by where a lane's K and V rows live:
 //   - Register instances (KPL = 1, 2 keys per lane, KPL * D <= 16): each
 //     lane holds its keys' K and V rows (and, backward, its dK and dV sums)
 //     in registers for the whole block, loaded once with 16-byte loads.
@@ -33,17 +33,44 @@
 //     per warp, no shared memory and no barrier.  Backward: one block per
 //     (batch, head), the warps share its query rows, and the warps' dK / dV
 //     partials are summed through shared memory in warp order after the one
-//     barrier, so two launches give bit-equal gradients (no atomics).
+//     barrier.
+//   - Staged instances (KPL = 2 with D = 16, any Lk up to 64: 32 floats of
+//     K a lane, past the register budget; at Lk <= 32 it also beats a lane
+//     holding one key in registers, which the forward re-loaded for every
+//     8-row tile): the block copies its head's rows into shared
+//     memory once with 16-byte cp.async copies (each head row is 64 bytes at
+//     a stride of H * D floats), in rows padded to D + 4 floats so that the
+//     8 lanes of a quarter-warp reading neighbouring keys' 16-byte pieces
+//     fall on 8 different groups of 4 banks.  Forward: one block per
+//     (batch, head, tile of up to 64 query rows), so at Lq <= 64 one block
+//     per (batch, head) and every byte of K and V is read once (re-staging
+//     K and V per smaller tile would multiply the bytes of the byte-bound
+//     B = 1664 call; 8 warps a block keep B = 32's 256 blocks at ~15 warps
+//     an SM); a row's scores are computed once, then max and sum by
+//     shuffle and P V as per-lane partials: one pass.  Backward: one block
+//     per (batch, head) stages Q, dO, K and V, then two phases around one
+//     barrier: (a) rows on warps, keys on lanes, each row's P and dS
+//     computed once and kept in shared [Lq][Lk] tiles, dQ = dS K by
+//     reduce-scatter; (b) the 2 * Lk * D outputs of dK = dS^T Q and
+//     dV = P^T dO spread over every thread of the block, four columns a
+//     thread, each summed over the rows in order while the dS / P column is
+//     read by broadcast.  Both tiles are read along their rows in both
+//     phases, so they need no padding.
 //   - Streamed instances (KPL = 0, any Lk, D up to 64): a lane re-reads its
 //     keys' rows through L1 for each query row, 32 keys at a time, and the
 //     row takes two passes (max, then exp / sum / P V); the backward takes
 //     four for dQ, keeps each row's max, sum and rowsum(dP * P) in shared
 //     memory, and after the one barrier gives each thread a key whose dK and
-//     dV it sums over the rows in order.
+//     dV it sums over the rows in order.  At D = 16 they take only Lk > 64.
+// Every backward sums in a fixed order without atomics, so two launches
+// give bit-equal gradients.
 // No tensor cores and no TMA: TF32 mma / wgmma keeps about three digits,
-// which breaks float32 parity with the plain version, and at D = 8 a
-// 64-row wgmma tile would be mostly padding; a TMA box needs a tensor map
-// encoded on the host for every call, on a path the host already bounds.
+// which breaks float32 parity with the plain version (2e-5), and the work
+// is small (the B = 1664 forward at D = 16 is 1.09 GFLOP, 0.016 ms at the
+// 67 TFLOP/s float32 rate, a third of its byte bound; at B = 32 latency
+// bounds it); a TMA box needs a tensor map encoded on the host for every
+// call, on a path the host already bounds.  bf16 instances, where tensor
+// cores might pay, are not built.
 //
 // Plain C interface (built with nvcc into a shared library and loaded with
 // ctypes).  The caller works out the launch configuration (instance, warps,
@@ -59,7 +86,7 @@
 // The (head width, keys per lane) instances; KPL 0 is the streamed form.
 // ops/cuda_attention.py INSTANCES lists the same pairs.
 #define DTQN_INSTANCES(X) \
-  X(8, 1) X(8, 2) X(16, 1) X(8, 0) X(16, 0) X(32, 0) X(64, 0)
+  X(8, 1) X(8, 2) X(16, 2) X(8, 0) X(16, 0) X(32, 0) X(64, 0)
 
 namespace {
 
@@ -85,7 +112,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // One head's row of DP floats (the first d real, the rest 0).  `vec` holds
-// when d == DP and every base pointer is 16-byte aligned.
+// when d == DP and every base pointer is 16-byte aligned (the staged
+// backward's dK and dV too: it stores them 16 bytes at a time).
 template <int DP>
 __device__ __forceinline__ void load_row(const float* __restrict__ src, int d,
                                          bool vec, float (&r)[DP]) {
@@ -138,6 +166,70 @@ __device__ __forceinline__ int reduce_scatter(float (&v)[DP], int lane) {
   }
 }
 
+// The staged form: KPL keys a lane whose K and V rows (KPL * DP floats
+// each) exceed the 16 floats a lane keeps in registers.
+template <int DP, int KPL>
+constexpr bool kStaged = KPL > 0 && KPL * DP > 16;
+
+// Floats per staged head row: DP padded by 4, so that the rows of the 8
+// keys a quarter-warp reads 16 bytes of start 4 banks apart (at DP = 16:
+// banks 0, 20, 8, 28, 16, 4, 24, 12, each 4 wide).
+template <int DP>
+constexpr int kStagedRow = DP + 4;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
+               "l"(src)
+               : "memory");
+}
+
+// Rows [0, n) of one head (d floats at a stride of e) into shared rows of
+// kStagedRow<DP> floats, columns d..DP zeroed.  With `vec` (d == DP, every
+// base 16-byte aligned) each row goes as DP / 4 asynchronous 16-byte
+// copies, neighbouring threads on neighbouring pieces; else a float at a
+// time.  staged_barrier() completes the copies.
+template <int DP>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int n, int d, int e, bool vec) {
+  constexpr int kRow = kStagedRow<DP>;
+  if (vec) {
+    constexpr int kPieces = DP / 4;
+    for (int x = threadIdx.x; x < n * kPieces; x += blockDim.x) {
+      const int r = x / kPieces;
+      const int c = (x - r * kPieces) * 4;
+      cp_async16(dst + r * kRow + c, src + (size_t)r * e + c);
+    }
+  } else {
+    for (int x = threadIdx.x; x < n * DP; x += blockDim.x) {
+      const int r = x / DP;
+      const int c = x - r * DP;
+      dst[r * kRow + c] = c < d ? __ldg(src + (size_t)r * e + c) : 0.f;
+    }
+  }
+}
+
+// Waits for this thread's copies, then for the whole block's.
+__device__ __forceinline__ void staged_barrier() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+  __syncthreads();
+}
+
+// One staged row of DP floats, 16 bytes at a time.
+template <int DP>
+__device__ __forceinline__ void shared_row(const float* src, float (&r)[DP]) {
+#pragma unroll
+  for (int c = 0; c < DP; c += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(src + c);
+    r[c] = x.x;
+    r[c + 1] = x.y;
+    r[c + 2] = x.z;
+    r[c + 3] = x.w;
+  }
+}
+
 // Sums acc over the warp and writes the row's d columns, divided by `norm`.
 template <int DP>
 __device__ __forceinline__ void write_row(float (&acc)[DP], int lane,
@@ -154,11 +246,13 @@ __device__ __forceinline__ void write_row(float (&acc)[DP], int lane,
   }
 }
 
+// Forward of the register and streamed forms.
 template <int DP, int KPL>
-__global__ void __launch_bounds__(128)
-attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     Dims s) {
+__device__ __forceinline__ void fwd_lanes(const float* __restrict__ q,
+                                          const float* __restrict__ k,
+                                          const float* __restrict__ v,
+                                          float* __restrict__ o,
+                                          const Dims& s) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -244,6 +338,96 @@ attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       norm = warp_sum(sum);
     }
     write_row(acc, lane, o + q_base + (size_t)i * e, s.d, norm);
+  }
+}
+
+// Forward of the staged form.  Shared memory: the tile's query rows, then
+// the head's K and V rows, [rows_per_block + 2 * Lk][DP + 4].
+template <int DP, int KPL>
+__device__ __forceinline__ void fwd_staged(const float* __restrict__ q,
+                                           const float* __restrict__ k,
+                                           const float* __restrict__ v,
+                                           float* __restrict__ o,
+                                           const Dims& s, float* smem) {
+  constexpr int kRow = kStagedRow<DP>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int b = blockIdx.x / s.heads;
+  const int h = blockIdx.x - b * s.heads;
+  const int e = s.heads * s.d;
+  const int row0 = blockIdx.y * s.rows_per_block;
+  const int row_end = min(s.lq, row0 + s.rows_per_block);
+  const size_t q_base = (size_t)b * s.lq * e + (size_t)h * s.d;
+  const size_t kv_base = (size_t)b * s.lk * e + (size_t)h * s.d;
+  const bool vec = s.vec != 0;
+  float* qs = smem;
+  float* ks = qs + s.rows_per_block * kRow;
+  float* vs = ks + s.lk * kRow;
+  // Keys that some row of this tile sees.
+  const int nk = s.causal ? min(s.lk, row_end) : s.lk;
+  stage_rows<DP>(qs, q + q_base + (size_t)row0 * e, row_end - row0, s.d, e,
+                 vec);
+  stage_rows<DP>(ks, k + kv_base, nk, s.d, e, vec);
+  stage_rows<DP>(vs, v + kv_base, nk, s.d, e, vec);
+  staged_barrier();
+
+  for (int i = row0 + warp; i < row_end; i += warps) {
+    float qr[DP];
+    shared_row(qs + (i - row0) * kRow, qr);
+    const int live = s.causal ? min(s.lk, i + 1) : s.lk;  // keys [0, live)
+    float p[KPL];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      const int j = lane + 32 * m;
+      p[m] = -INFINITY;
+      if (j < live) {
+        float kk[DP];
+        shared_row(ks + j * kRow, kk);
+        p[m] = dot(qr, kk) * s.scale;
+      }
+      mx = fmaxf(mx, p[m]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      p[m] = lane + 32 * m < live ? expf(p[m] - mx) : 0.f;
+      sum += p[m];
+    }
+    sum = warp_sum(sum);
+    float acc[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      const int j = lane + 32 * m;
+      if (j < live) {
+        const float pm = p[m] / sum;
+        float vv[DP];
+        shared_row(vs + j * kRow, vv);
+#pragma unroll
+        for (int c = 0; c < DP; ++c) acc[c] = fmaf(pm, vv[c], acc[c]);
+      }
+    }
+    write_row(acc, lane, o + q_base + (size_t)i * e, s.d, 1.f);
+  }
+}
+
+// The staged forward launches 256 threads but keeps CUDA's default bound of
+// 1024: at a bound of 256, ptxas fits a fifth block an SM into 48 registers
+// and spills 8 bytes; at 1024 it takes 58 and spills none.
+template <int DP, int KPL>
+__global__ void __launch_bounds__((kStaged<DP, KPL> ? 1024 : 128))
+attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     Dims s) {
+  extern __shared__ float4 shared4[];
+  if constexpr (kStaged<DP, KPL>) {
+    fwd_staged<DP, KPL>(q, k, v, o, s, reinterpret_cast<float*>(shared4));
+  } else {
+    fwd_lanes<DP, KPL>(q, k, v, o, s);
   }
 }
 
@@ -449,19 +633,144 @@ __device__ __forceinline__ void bwd_streamed(
   }
 }
 
+// Backward of the staged form.  Shared memory: Q and dO rows [2][Lq][DP + 4],
+// K and V rows [2][Lk][DP + 4], then the P and dS tiles [2][Lq][Lk].
+template <int DP, int KPL>
+__device__ __forceinline__ void bwd_staged(
+    const float* __restrict__ qh, const float* __restrict__ kh,
+    const float* __restrict__ vh, const float* __restrict__ doh,
+    float* __restrict__ dqh, float* __restrict__ dkh, float* __restrict__ dvh,
+    const Dims& s, int e, float* smem) {
+  constexpr int kRow = kStagedRow<DP>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const bool vec = s.vec != 0;
+  float* qs = smem;
+  float* gs = qs + s.lq * kRow;
+  float* ks = gs + s.lq * kRow;
+  float* vs = ks + s.lk * kRow;
+  float* ps = vs + s.lk * kRow;
+  float* dss = ps + s.lq * s.lk;
+  stage_rows<DP>(qs, qh, s.lq, s.d, e, vec);
+  stage_rows<DP>(gs, doh, s.lq, s.d, e, vec);
+  stage_rows<DP>(ks, kh, s.lk, s.d, e, vec);
+  stage_rows<DP>(vs, vh, s.lk, s.d, e, vec);
+  staged_barrier();
+
+  // (a) Rows on warps, keys on lanes: each row's P and dS once, and dQ.
+  // Entries (i, j) past a causal row's live keys are never written: phase
+  // (b) reads row i of key j only where j <= i.
+  for (int i = warp; i < s.lq; i += warps) {
+    float qr[DP], gr[DP];
+    shared_row(qs + i * kRow, qr);
+    shared_row(gs + i * kRow, gr);
+    const int live = s.causal ? min(s.lk, i + 1) : s.lk;
+    float kk[KPL][DP];
+    float p[KPL], ds[KPL];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      const int j = lane + 32 * m;
+      p[m] = -INFINITY;
+      if (j < live) {
+        shared_row(ks + j * kRow, kk[m]);
+        p[m] = dot(qr, kk[m]) * s.scale;
+      }
+      mx = fmaxf(mx, p[m]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      p[m] = lane + 32 * m < live ? expf(p[m] - mx) : 0.f;
+      sum += p[m];
+    }
+    sum = warp_sum(sum);
+    float rd = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      const int j = lane + 32 * m;
+      ds[m] = 0.f;
+      if (j < live) {
+        float vv[DP];
+        shared_row(vs + j * kRow, vv);
+        p[m] = p[m] / sum;
+        ds[m] = dot(gr, vv);  // dP
+        rd += p[m] * ds[m];
+      }
+    }
+    rd = warp_sum(rd);
+    float acc[DP];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] = 0.f;
+#pragma unroll
+    for (int m = 0; m < KPL; ++m) {
+      const int j = lane + 32 * m;
+      if (j < live) {
+        ds[m] = p[m] * (ds[m] - rd) * s.scale;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) acc[c] = fmaf(ds[m], kk[m][c], acc[c]);
+        ps[i * s.lk + j] = p[m];
+        dss[i * s.lk + j] = ds[m];
+      }
+    }
+    write_row(acc, lane, dqh + (size_t)i * e, s.d, 1.f);
+  }
+  __syncthreads();
+
+  // (b) dK = dS^T Q and dV = P^T dO over every thread: four columns of one
+  // key a thread, summed over the rows in order.  A warp covers 8 keys: its
+  // dS / P reads are 8 neighbouring words, its Q / dO reads one 64-byte row
+  // piece, each shared by broadcast.
+  constexpr int kQuads = DP / 4;
+  const int tasks = s.lk * kQuads;
+  for (int t = threadIdx.x; t < 2 * tasks; t += blockDim.x) {
+    const bool is_v = t >= tasks;
+    const int r = is_v ? t - tasks : t;
+    const int j = r / kQuads;
+    const int c = (r - j * kQuads) * 4;
+    const float* w = is_v ? ps : dss;
+    const float* x = (is_v ? gs : qs) + c;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = s.causal ? j : 0; i < s.lq; ++i) {
+      const float a = w[i * s.lk + j];
+      const float4 y = *reinterpret_cast<const float4*>(x + i * kRow);
+      acc.x = fmaf(a, y.x, acc.x);
+      acc.y = fmaf(a, y.y, acc.y);
+      acc.z = fmaf(a, y.z, acc.z);
+      acc.w = fmaf(a, y.w, acc.w);
+    }
+    float* dst = (is_v ? dvh : dkh) + (size_t)j * e + c;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = acc;
+    } else {
+      const float out[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+      for (int x4 = 0; x4 < 4; ++x4) {
+        if (c + x4 < s.d) dst[x4] = out[x4];
+      }
+    }
+  }
+}
+
 template <int DP, int KPL>
 __global__ void __launch_bounds__(256)
 attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout, float* __restrict__ dq,
                      float* __restrict__ dk, float* __restrict__ dv, Dims s) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 shared4[];
+  float* smem = reinterpret_cast<float*>(shared4);
   const int b = blockIdx.x / s.heads;
   const int h = blockIdx.x - b * s.heads;
   const int e = s.heads * s.d;
   const size_t q_off = (size_t)b * s.lq * e + (size_t)h * s.d;
   const size_t kv_off = (size_t)b * s.lk * e + (size_t)h * s.d;
-  if constexpr (KPL > 0) {
+  if constexpr (kStaged<DP, KPL>) {
+    bwd_staged<DP, KPL>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
+                        dq + q_off, dk + kv_off, dv + kv_off, s, e, smem);
+  } else if constexpr (KPL > 0) {
     bwd_registers<DP, KPL>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
                            dq + q_off, dk + kv_off, dv + kv_off, s, e, smem);
   } else {
@@ -549,7 +858,8 @@ int dtqn_attention_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return (int)err;
   const Dims s = make_dims(
       lq, lk, heads, head_dim, causal, scale, dp, rows_per_block,
-      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout);
+      (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
+          (uintptr_t)dk | (uintptr_t)dv);
   kernel<<<batch * heads, warps * 32, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (float*)dq, (float*)dk, (float*)dv, s);

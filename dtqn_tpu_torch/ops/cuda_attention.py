@@ -11,19 +11,23 @@ with a plain C interface at first use, under ``dtqn_tpu_torch/_build/``
 keyed by a hash of the source and the flags, and loaded with ctypes.
 
 What bounds them on an H100: at the main path's shapes (B = 32..64,
-L = 50, E = 64, float32) a call moves 1-2 MB, under a microsecond at
+L = 50, E = 64 or 128, float32) a call moves 1-2 MB, under a microsecond at
 3.35 TB/s, and does a few MFLOP, so the time goes to the launch and to the
-latency of each warp's dependent chain; above those shapes (long rows, wide
-heads) the bytes of K and V re-read per query row become the bound.  The
-design puts keys on lanes: a warp takes query rows of one (batch, head),
-each lane holds its keys' scores in registers, the softmax sums are warp
-shuffles and no score matrix exists anywhere.  ``launch_config`` picks the
-instance (head width padded to 8, 16, 32 or 64; keys per lane 1 or 2 with
-K and V in registers, or 0 for the streamed form that takes any Lk), the
-warps, the query rows per block and the shared memory, and the C entry
-point launches that instance.  No tensor cores (TF32 keeps about three
-digits, and at D = 8 a wgmma tile is mostly padding) and no TMA (a tensor
-map would be encoded on the host for every call).
+latency of each warp's dependent chain; at the bag evict forward's
+B = 1664 the bytes bound it.  The design puts keys on lanes: a warp takes
+query rows of one (batch, head), each lane holds its keys' scores in
+registers and the softmax sums are warp shuffles.  ``launch_config`` picks
+the instance (head width padded to 8, 16, 32 or 64, and keys per lane):
+1 or 2 keys a lane with K and V in registers where that is at most
+``REGISTER_KEY_FLOATS`` floats (head width 8); 2 keys a lane at head width
+16 (Lk up to 64) with the head's rows staged once in shared memory by
+``cp.async`` (the
+backward also keeps P and dS as [Lq, Lk] tiles there, and spreads dK and
+dV over the whole block); or 0, the streamed form that takes any Lk.  It
+also picks the warps, the query rows per block and the shared memory, and
+the C entry point launches that instance.  No tensor cores (TF32 keeps
+about three digits, and at D = 8 a wgmma tile is mostly padding) and no
+TMA (a tensor map would be encoded on the host for every call).
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version, which
 repeats the kernels' math (``plain_attention_fwd`` / ``plain_attention_bwd``);
@@ -51,12 +55,16 @@ MAX_SMEM_BYTES = 232_448  # what one block may use on sm_90 (227 KB)
 
 # (head width, keys per lane) pairs built in csrc/attention.cu
 # (DTQN_INSTANCES); keys per lane 0 is the streamed form, which takes any Lk.
-INSTANCES = ((8, 1), (8, 2), (16, 1), (8, 0), (16, 0), (32, 0), (64, 0))
+INSTANCES = ((8, 1), (8, 2), (16, 2), (8, 0), (16, 0), (32, 0), (64, 0))
 # A lane holds its keys' K and V rows (and, backward, their dK and dV sums)
-# in registers when keys per lane times the head width is at most this.
+# in registers when keys per lane times the head width is at most this;
+# past it, an instance stages the head's rows in shared memory.
 REGISTER_KEY_FLOATS = 16
 FWD_WARPS, FWD_ROWS_PER_WARP = 4, 2
 BWD_MAX_WARPS, BWD_ROWS_PER_WARP = 8, 4
+# The staged form: 8 warps a block, up to 64 query rows a forward block
+# (one block per (batch, head) at Lq <= 64), head rows padded by 4 floats.
+STAGED_WARPS, STAGED_FWD_ROWS, STAGED_ROW_PAD = 8, 64, 4
 
 _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "attention.cu"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -176,33 +184,61 @@ class LaunchConfig(NamedTuple):
     smem_bytes: int
 
 
-@functools.lru_cache(maxsize=256)
-def launch_config(kind: str, lq: int, lk: int, d: int) -> LaunchConfig:
-    """The launch of ``kind`` ("attention_fwd" or "attention_bwd") at
-    Lq, Lk and head width d; raises ValueError past the kernels' limits."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d} is not in [1, {MAX_HEAD_DIM}]")
-    dp = max(8, 1 << (d - 1).bit_length())
-    kpl = -(-lk // 32)
-    if kpl * dp > REGISTER_KEY_FLOATS:
-        kpl = 0
+def _lanes_config(kind, lq, lk, dp, kpl):
+    """The register (kpl 1, 2) and streamed (kpl 0) forms."""
     if kind == "attention_fwd":
         warps = min(FWD_WARPS, -(-lq // FWD_ROWS_PER_WARP))
-        rows, smem = warps * FWD_ROWS_PER_WARP, 0
-    elif kind == "attention_bwd":
-        # One block per (batch, head) owns its dK and dV: the warps' partials
-        # ([2][warps][Lk][dp]) or each row's max, sum and rowsum(dP * P).
-        warps = min(BWD_MAX_WARPS, -(-lq // BWD_ROWS_PER_WARP))
-        rows = lq
-        smem = 4 * (2 * warps * lk * dp if kpl else 3 * lq)
-    else:
+        return LaunchConfig(dp, kpl, warps, warps * FWD_ROWS_PER_WARP, 0)
+    # One block per (batch, head) owns its dK and dV: the warps' partials
+    # ([2][warps][Lk][dp]) or each row's max, sum and rowsum(dP * P).
+    warps = min(BWD_MAX_WARPS, -(-lq // BWD_ROWS_PER_WARP))
+    smem = 4 * (2 * warps * lk * dp if kpl else 3 * lq)
+    return LaunchConfig(dp, kpl, warps, lq, smem)
+
+
+def _staged_config(kind, lq, lk, dp, kpl):
+    """The staged form: the forward's shared memory holds the tile's query
+    rows and the head's K and V rows; the backward's Q, dO, K and V rows
+    and the [Lq, Lk] tiles of P and dS."""
+    row = dp + STAGED_ROW_PAD
+    if kind == "attention_fwd":
+        rows = min(lq, STAGED_FWD_ROWS)
+        return LaunchConfig(dp, kpl, min(STAGED_WARPS, rows), rows,
+                            4 * row * (rows + 2 * lk))
+    smem = 4 * (row * (2 * lq + 2 * lk) + 2 * lq * lk)
+    return LaunchConfig(dp, kpl, STAGED_WARPS, lq, smem)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_config(kind: str, lq: int, lk: int, d: int,
+                  streamed: bool = False) -> LaunchConfig:
+    """The launch of ``kind`` ("attention_fwd" or "attention_bwd") at
+    Lq, Lk and head width d; raises ValueError past the kernels' limits.
+    The shape picks the instance of its width with the fewest keys a lane
+    that takes Lk, else the streamed form, which also takes the shapes
+    whose staged backward outgrows a block's shared memory (Lq past ~330
+    at Lk = 64).  ``streamed`` asks for the streamed form at any shape (to
+    time it against the picked one)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} is not in [1, {MAX_HEAD_DIM}]")
+    if kind not in launch_counts:
         raise ValueError(f"unknown kernel {kind!r}")
-    if smem > MAX_SMEM_BYTES:
+    dp = max(8, 1 << (d - 1).bit_length())
+    kpl = 0 if streamed else min(
+        (k for w, k in INSTANCES if w == dp and 32 * k >= lk), default=0)
+    if kpl * dp > REGISTER_KEY_FLOATS:
+        cfg = _staged_config(kind, lq, lk, dp, kpl)
+        if cfg.smem_bytes > MAX_SMEM_BYTES:
+            cfg = _lanes_config(kind, lq, lk, dp, 0)
+    else:
+        cfg = _lanes_config(kind, lq, lk, dp, kpl)
+    if cfg.smem_bytes > MAX_SMEM_BYTES:
         raise ValueError(
-            f"{kind} at Lq={lq}, Lk={lk}, D={d} needs {smem} bytes of "
-            f"shared memory, more than the {MAX_SMEM_BYTES} a block may use"
+            f"{kind} at Lq={lq}, Lk={lk}, D={d} needs {cfg.smem_bytes} "
+            f"bytes of shared memory, more than the {MAX_SMEM_BYTES} a "
+            f"block may use"
         )
-    return LaunchConfig(dp, kpl, warps, rows, smem)
+    return cfg
 
 
 # -------------------------------------------------------------------- build
@@ -292,12 +328,11 @@ def _raise_on_error(lib, code: int, what: str) -> None:
 
 
 # ----------------------------------------------------------------- wrappers
-def attention_fwd(q, k, v, num_heads: int, causal: bool) -> torch.Tensor:
-    """Forward on packed [B, L, H*D]: the kernel on CUDA, plain on CPU."""
+def launch_fwd(q, k, v, num_heads: int, causal: bool,
+               cfg: LaunchConfig) -> torch.Tensor:
+    """Launches the forward instance ``cfg`` on CUDA tensors; counts
+    nothing (``attention_fwd`` counts its launches)."""
     b, lq, lk, h, d = check_shapes(q, k, v, num_heads, causal)
-    if q.device.type == "cpu":
-        return plain_attention_fwd(q, k, v, num_heads, causal)
-    cfg = launch_config("attention_fwd", lq, lk, d)
     _check_cuda((q, k, v), b, lq, lk)
     lib = build()
     out = torch.empty_like(q)
@@ -307,18 +342,14 @@ def attention_fwd(q, k, v, num_heads: int, causal: bool) -> torch.Tensor:
         b, lq, lk, h, d, int(causal), _scale(d), *cfg, stream,
     )
     _raise_on_error(lib, code, "attention_fwd")
-    launch_counts["attention_fwd"] += 1
     return out
 
 
-def attention_bwd(q, k, v, dout, num_heads: int, causal: bool):
-    """Recompute backward: (dq, dk, dv), the kernel on CUDA, plain on CPU."""
+def launch_bwd(q, k, v, dout, num_heads: int, causal: bool,
+               cfg: LaunchConfig):
+    """Launches the backward instance ``cfg`` on CUDA tensors: (dq, dk,
+    dv); counts nothing (``attention_bwd`` counts its launches)."""
     b, lq, lk, h, d = check_shapes(q, k, v, num_heads, causal)
-    if dout.shape != q.shape:
-        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
-    if q.device.type == "cpu":
-        return plain_attention_bwd(q, k, v, dout, num_heads, causal)
-    cfg = launch_config("attention_bwd", lq, lk, d)
     _check_cuda((q, k, v, dout), b, lq, lk)
     lib = build()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -329,8 +360,31 @@ def attention_bwd(q, k, v, dout, num_heads: int, causal: bool):
         b, lq, lk, h, d, int(causal), _scale(d), *cfg, stream,
     )
     _raise_on_error(lib, code, "attention_bwd")
-    launch_counts["attention_bwd"] += 1
     return dq, dk, dv
+
+
+def attention_fwd(q, k, v, num_heads: int, causal: bool) -> torch.Tensor:
+    """Forward on packed [B, L, H*D]: the kernel on CUDA, plain on CPU."""
+    _, lq, lk, _, d = check_shapes(q, k, v, num_heads, causal)
+    if q.device.type == "cpu":
+        return plain_attention_fwd(q, k, v, num_heads, causal)
+    out = launch_fwd(q, k, v, num_heads, causal,
+                     launch_config("attention_fwd", lq, lk, d))
+    launch_counts["attention_fwd"] += 1
+    return out
+
+
+def attention_bwd(q, k, v, dout, num_heads: int, causal: bool):
+    """Recompute backward: (dq, dk, dv), the kernel on CUDA, plain on CPU."""
+    _, lq, lk, _, d = check_shapes(q, k, v, num_heads, causal)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        return plain_attention_bwd(q, k, v, dout, num_heads, causal)
+    grads = launch_bwd(q, k, v, dout, num_heads, causal,
+                       launch_config("attention_bwd", lq, lk, d))
+    launch_counts["attention_bwd"] += 1
+    return grads
 
 
 class AttentionFunction(torch.autograd.Function):

@@ -70,6 +70,9 @@ CASES = [
     pytest.param(3, 50, 25, 8, 16, False, id="bag-gridverse-lk25-d16"),
     pytest.param(3, 50, 10, 8, 8, False, id="bag-carflag-lk10-d8"),
     pytest.param(8, 6, 3, 2, 8, False, id="bag-small-lk3"),
+    # Head width 16 at the staged <16, 2>'s edges.
+    pytest.param(3, 33, 33, 4, 16, True, id="staged-causal-33"),
+    pytest.param(2, 64, 64, 4, 16, True, id="staged-causal-64"),
 ]
 
 
@@ -216,26 +219,56 @@ def test_instances_match_the_kernel_source():
     # the main path: keys in registers, two a lane
     (50, 50, 8, (8, 2, 4, 8, 0), (8, 2, 8, 50, 4 * 2 * 8 * 50 * 8)),
     (1, 32, 8, (8, 1, 1, 2, 0), (8, 1, 1, 1, 4 * 2 * 1 * 32 * 8)),
-    (20, 20, 16, (16, 1, 4, 8, 0), (16, 1, 5, 20, 4 * 2 * 5 * 20 * 16)),
+    (20, 20, 16, (16, 2, 8, 20, 4 * 20 * (20 + 2 * 20)),
+     (16, 2, 8, 20, 4 * (20 * (2 * 20 + 2 * 20) + 2 * 20 * 20))),
     # streamed: K and V re-read per row, row statistics in shared memory
     (50, 65, 8, (8, 0, 4, 8, 0), (8, 0, 8, 50, 4 * 3 * 50)),
     (100, 100, 32, (32, 0, 4, 8, 0), (32, 0, 8, 100, 4 * 3 * 100)),
     (7, 65, 64, (64, 0, 4, 8, 0), (64, 0, 2, 7, 4 * 3 * 7)),
     (30, 30, 4, (8, 1, 4, 8, 0), (8, 1, 8, 30, 4 * 2 * 8 * 30 * 8)),
-    (40, 40, 12, (16, 0, 4, 8, 0), (16, 0, 8, 40, 4 * 3 * 40)),
-    # the bag cross-attention (non-causal, one key a lane): gv_memory at
-    # in_embed 128 with bag 25, and Car Flag at in_embed 64 with bag 10
-    (50, 25, 16, (16, 1, 4, 8, 0), (16, 1, 8, 50, 4 * 2 * 8 * 25 * 16)),
+    (40, 40, 12, (16, 2, 8, 40, 4 * 20 * (40 + 2 * 40)),
+     (16, 2, 8, 40, 4 * (20 * (2 * 40 + 2 * 40) + 2 * 40 * 40))),
+    # the bag cross-attention (non-causal): gv_memory at in_embed 128 with
+    # bag 25 (staged), and Car Flag at in_embed 64 with bag 10 (registers)
+    (50, 25, 16, (16, 2, 8, 50, 4 * 20 * (50 + 2 * 25)),
+     (16, 2, 8, 50, 4 * (20 * (2 * 50 + 2 * 25) + 2 * 50 * 25))),
     (50, 10, 8, (8, 1, 4, 8, 0), (8, 1, 8, 50, 4 * 2 * 8 * 10 * 8)),
+    # staged, head width 16 at Lk up to 64: head rows padded to 20 floats
+    (50, 50, 16, (16, 2, 8, 50, 4 * 20 * (50 + 2 * 50)),
+     (16, 2, 8, 50, 4 * (20 * (2 * 50 + 2 * 50) + 2 * 50 * 50))),
+    (50, 64, 16, (16, 2, 8, 50, 4 * 20 * (50 + 2 * 64)),
+     (16, 2, 8, 50, 4 * (20 * (2 * 50 + 2 * 64) + 2 * 50 * 64))),
+    (50, 33, 16, (16, 2, 8, 50, 4 * 20 * (50 + 2 * 33)),
+     (16, 2, 8, 50, 4 * (20 * (2 * 50 + 2 * 33) + 2 * 50 * 33))),
+    (50, 65, 16, (16, 0, 4, 8, 0), (16, 0, 8, 50, 4 * 3 * 50)),
+    # a forward tile of 64 rows; a backward whose tiles outgrow 227 KB
+    (420, 50, 16, (16, 2, 8, 64, 4 * 20 * (64 + 2 * 50)),
+     (16, 0, 8, 420, 4 * 3 * 420)),
 ])
 def test_launch_config_layout(lq, lk, d, fwd, bwd):
     """Instance, warps, rows per block and shared bytes of each layout:
     the register backward's [2][warps][Lk][D] partials, the streamed
-    backward's [3][Lq] row statistics, no shared memory forward."""
+    backward's [3][Lq] row statistics, no shared memory forward; the staged
+    forward's query tile and K and V rows, the staged backward's Q, dO, K
+    and V rows and its [Lq, Lk] tiles of P and dS."""
     assert tuple(cuda_attention.launch_config("attention_fwd", lq, lk,
                                               d)) == fwd
     assert tuple(cuda_attention.launch_config("attention_bwd", lq, lk,
                                               d)) == bwd
+
+
+def test_launch_config_asked_for_the_streamed_form():
+    """``streamed`` asks for the streamed form, with its layout, at shapes
+    that pick another: the staged one and the register ones."""
+    for lq, lk, d, fwd, bwd in (
+            (50, 50, 16, (16, 0, 4, 8, 0), (16, 0, 8, 50, 4 * 3 * 50)),
+            (50, 10, 8, (8, 0, 4, 8, 0), (8, 0, 8, 50, 4 * 3 * 50)),
+            (1, 32, 8, (8, 0, 1, 2, 0), (8, 0, 1, 1, 4 * 3 * 1))):
+        for kind, want in (("attention_fwd", fwd), ("attention_bwd", bwd)):
+            assert cuda_attention.launch_config(kind, lq, lk,
+                                                d).keys_per_lane > 0
+            assert tuple(cuda_attention.launch_config(
+                kind, lq, lk, d, streamed=True)) == want
 
 
 def test_launch_config_takes_what_the_score_matrix_layout_took():
