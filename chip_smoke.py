@@ -78,13 +78,24 @@ Phases (any failure exits non-zero and prints no result):
      image and four-rooms paths and of the main path timed in turns;
  15. continuous Car Flag: 200 steps of random forces on 64 envs, the card
      against the CPU, bit for bit;
- 16. time each kernel, its plain version and the matching PyTorch call
+ 16. the multi-seed sweep: the flagless configuration at 5 stacked seeds
+     (each 64 envs and a 500k buffer): prepopulation, two train iterations
+     with every attention launch reckoned at the seeds' folded batches,
+     one evaluation per seed, card Q against CPU Q per seed, gradients
+     repeating; its update against the main path's in turns (1, 5, 5, 1
+     seeds): device kernels (at most 2x, and as many attention launches),
+     device time, host time, and the aggregate env-steps/s of an
+     iteration; a profiled iteration of each; the bag at 2 seeds (evict
+     forward at 2 * 1664) and at 1 and 5 seeds timed in turns;
+     ``run_sweep`` at 2 seeds whole, then cut and resumed bit-equal;
+ 17. time each kernel, its plain version and the matching PyTorch call
      (scaled_dot_product_attention, timed here only) at the causal and the
-     bag's non-causal shapes of the driven paths, inside CUDA graphs so
-     that host launch cost is left out; then the streamed <16, 0> at head
-     width 16, Lk = 50 (B = 32 and 1664), held against its plain version
-     and timed in turns with the staged <16, 2> that the shape picks;
- 17. profile one more train iteration (torch.profiler): the device's busy
+     bag's non-causal shapes of the driven paths, the sweep's folded ones
+     included, inside CUDA graphs so that host launch cost is left out;
+     then the streamed <16, 0> at head width 16, Lk = 50 (B = 32 and
+     1664), held against its plain version and timed in turns with the
+     staged <16, 2> that the shape picks;
+ 18. profile one more train iteration (torch.profiler): the device's busy
      share, device operations per update and the costliest kernels; the
      same for one iteration of each run of phases 10-12 and 14 but
      ADRQN's.
@@ -204,6 +215,19 @@ PARITY_CASES = [
     (2, 7, 50, 8, False, 128), (4, 1, 64, 8, False, 128),
     (3, 100, 33, 8, False, 128), (2, 130, 64, 8, False, 128),
     (2, 100, 100, 8, True, 128), (2, 7, 65, 8, False, 128),
+    # The sweep's folded batches (the seeds' batches in one launch): Car
+    # Flag at 5 seeds (update 5 * 32, act 5 * 64, evaluation 5 * 10) and the
+    # runner at 2 (act 2 * 64, evaluation 2 * 10); the bag at 2 seeds (act
+    # 2 * 64, evict 2 * 64 * 26; its update is the single act's 64) and at 5
+    # (update 5 * 32, act 5 * 64, evict 5 * 64 * 26).
+    (160, 50, 50, 8, True, 64), (320, 50, 50, 8, True, 64),
+    (50, 50, 50, 8, True, 64), (128, 50, 50, 8, True, 64),
+    (20, 50, 50, 8, True, 64),
+    (128, 50, 50, 8, True, 128), (128, 50, 25, 8, False, 128),
+    (3328, 50, 50, 8, True, 128), (3328, 50, 25, 8, False, 128),
+    (160, 50, 50, 8, True, 128), (160, 50, 25, 8, False, 128),
+    (320, 50, 50, 8, True, 128), (320, 50, 25, 8, False, 128),
+    (8320, 50, 50, 8, True, 128), (8320, 50, 25, 8, False, 128),
 ]
 
 
@@ -872,24 +896,40 @@ def check_ledger(ca, ledger, expected, what):
     return show(ledger)
 
 
+def seed_blocks(state):
+    """(seed count, each seed's single-network weights) of a state: one
+    block, or a stacked state's S seed-major blocks."""
+    if not state.seed_shape:
+        return 1, [state.network.state_dict()]
+    n = state.seed_shape[0]
+    return n, [state.network.seed_state_dict(i) for i in range(n)]
+
+
 def q_card_vs_cpu(agent, state, what):
     """The network's Q on the run's own contexts and bags (for the recurrent
     models over each context's filled rows): the card's path against the
-    plain path on the CPU."""
-    cpu_net = agent.build_network()
-    cpu_net.load_state_dict(state.network.state_dict())
+    plain path on the CPU, for a stacked state each seed's block against a
+    single network with that seed's weights."""
     ctx = state.context
     inputs = (ctx.obs, ctx.action, agent._bag_in(state.bag),
               ctx.last_index + 1)
+    seeds, weights = seed_blocks(state)
 
-    def on_cpu(x):
-        return tuple(map(on_cpu, x)) if isinstance(x, tuple) else x.cpu()
+    def block(x, i):
+        if isinstance(x, tuple):
+            return tuple(block(y, i) for y in x)
+        return x.chunk(seeds)[i].cpu()
 
+    q_cpu = []
     with torch.no_grad():
         q_gpu = agent._q_context(state.network, *inputs)
-        q_cpu = agent._q_context(cpu_net, *on_cpu(inputs))
+        for i, w in enumerate(weights):
+            cpu_net = agent.build_network()
+            cpu_net.load_state_dict(w)
+            q_cpu.append(agent._q_context(cpu_net, *block(inputs, i)))
+    q_cpu = torch.cat(q_cpu)
     cfg = agent.config
-    check(tuple(q_gpu.shape) == (cfg.num_envs, cfg.context_len,
+    check(tuple(q_gpu.shape) == (seeds * cfg.num_envs, cfg.context_len,
                                  agent.env.num_actions),
           f"{what}: Q shape {tuple(q_gpu.shape)}")
     check(bool(torch.isfinite(q_gpu).all()), f"{what}: non-finite Q")
@@ -901,17 +941,22 @@ def q_card_vs_cpu(agent, state, what):
 def gradients_repeat(agent, state, what):
     """Three gradient computations on one sampled batch agree bit for bit in
     every parameter: what a bit-equal resume rests on.  With dropout each is
-    a train-mode forward whose masks come from one generator state, as a
-    resumed run's do."""
+    a train-mode forward whose masks come from one generator state (each
+    seed's, stacked), as a resumed run's do."""
     batch = agent.sample_batch(state.buffer, state.generator)
     bag_in = (batch.bag_obs, batch.bag_action) if agent.use_bag else ()
     names, params = zip(*state.network.named_parameters())
     grads = []
-    start = state.generator.get_state()
+    gens = (state.generator if isinstance(state.generator, list)
+            else [state.generator])
+    start = [g.get_state() for g in gens]
     for _ in range(3):
-        state.generator.set_state(start)
+        for g, s in zip(gens, start):
+            g.set_state(s)
         q = agent._q_context(state.network, batch.obs, batch.action, bag_in,
-                             batch.ep_len, agent.dropout_draws(state))
+                             batch.ep_len,
+                             agent.dropout_draws(state,
+                                                 window=batch.obs.shape[:2]))
         grads.append(torch.autograd.grad(q.square().mean(), params))
     differing = [n for n, *g in zip(names, *grads)
                  if not all(torch.equal(g[0], x) for x in g[1:])]
@@ -921,14 +966,15 @@ def gradients_repeat(agent, state, what):
 
 
 def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
-          max_episode_steps=None, **kw):
+          max_episode_steps=None, seeds=None, **kw):
     """Init, prepopulation and ``iters`` train iterations of 64 updates of
     an agent on the card (by default DTQN-bag at the bag configuration;
     ``kw`` replaces AgentConfig fields) on ``env_name``, or on a list of
     names as the runner combines them, every attention launch held against
-    the reckoning; optionally one 10-episode evaluation.
+    the reckoning; optionally one 10-episode evaluation (per seed).
     ``max_episode_steps`` replaces the env's cap, as the CLI's
-    ``--max-episode-steps`` does."""
+    ``--max-episode-steps`` does.  With ``seeds``, a stacked state of those
+    seeds (the sweep): one launch per forward at the seeds' folded batch."""
     from dtqn_tpu_torch.agents import Agent, AgentConfig
     from dtqn_tpu_torch.config import ExperimentConfig
     from dtqn_tpu_torch.envs import make_env
@@ -946,31 +992,38 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
         inner_embed=128, num_heads=8, num_layers=2, batch_size=32,
         buffer_size=500_000, target_update_frequency=10_000,
         bag_size=GV_BAG), **kw))
-    what = f"drive {env_name} {kw}"
+    what = f"drive {env_name} {kw}" + (f" seeds {seeds}" if seeds else "")
     env = (make_env(env_name) if isinstance(env_name, str)
            else build_envs(ExperimentConfig(envs=list(env_name)))[0])
     if max_episode_steps:
         env.max_episode_steps = max_episode_steps
     agent = Agent(cfg, env, device=DEVICE)
     cfg = agent.config  # DQN's context is 1
+    n = len(seeds) if seeds else 1
+    # The launches' shapes: the seeds' envs and batches folded.
+    folded = dataclasses.replace(cfg, num_envs=n * cfg.num_envs,
+                                 batch_size=n * cfg.batch_size)
     train_iter = make_train_chunk_fn(
         agent, EpsilonSchedule(1.0, 0.1, 200_000),
         updates_per_iter=updates, iters_per_chunk=1)
-    result = {"config": kw, "env": env_name}
+    result = {"config": kw, "env": env_name, "seeds": seeds}
 
     with launch_ledger(ca) as ledger:
         ca.reset_launch_counts()
         t0 = time.perf_counter()
-        state = agent.init_state(seed)
+        state = (agent.init_sweep_state(seeds) if seeds
+                 else agent.init_state(seed))
         make_prepopulate_fn(agent, prepop_iters)(state)
         torch.cuda.synchronize()
         result["init_and_prepopulate_s"] = time.perf_counter() - t0
         # Random actions: no greedy forward, one evict forward per step.
         result["launches_prepopulation"] = check_ledger(
-            ca, ledger, reckoned_launches(cfg, 0, 0, evict_steps=prepop_iters),
+            ca, ledger,
+            reckoned_launches(folded, 0, 0, evict_steps=prepop_iters),
             f"{what}, prepopulation")
-    flushed = int(state.buffer.flushed_total)
-    check(flushed > cfg.batch_size, f"prepopulation flushed only {flushed}")
+    flushed = state.buffer.flushed_total.reshape(-1).tolist()
+    check(min(flushed) > cfg.batch_size,
+          f"{what}: prepopulation flushed only {flushed}")
 
     with launch_ledger(ca) as ledger:
         ca.reset_launch_counts()
@@ -982,14 +1035,15 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
             t_iter = time.perf_counter() - t0
         result["launches"] = dict(ca.launch_counts)
         result["launches_by_shape"] = check_ledger(
-            ca, ledger, reckoned_launches(cfg, iters, iters * updates),
+            ca, ledger, reckoned_launches(folded, iters, iters * updates),
             f"{what}, {iters} train iterations")
-    check(int(state.train_steps) == iters * updates,
-          f"{what}: train_steps {int(state.train_steps)}")
-    check(int(state.nonfinite_grads) == 0,
+    applied = state.train_steps.reshape(-1).tolist()
+    check(applied == [iters * updates] * n, f"{what}: train_steps {applied}")
+    check(int(state.nonfinite_grads.sum()) == 0,
           f"{what}: non-finite gradient steps")
-    diags = {k: float(v) for k, v in state.diagnostics.means().items()}
-    check(all(map(math.isfinite, diags.values())),
+    diags = {k: v.tolist() for k, v in state.diagnostics.means().items()}
+    check(all(math.isfinite(x) for v in diags.values()
+              for x in (v if seeds else [v])),
           f"{what}: diagnostics not finite: {diags}")
     if agent.use_bag:
         check(int(state.bag.pos.max()) > 0, f"{what}: every bag is empty")
@@ -998,31 +1052,35 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
         check(bool(state.carry.h.abs().sum() > 0),
               f"{what}: the act-time carry never moved")
     result.update(
-        env_steps_per_s=cfg.num_envs / t_iter, timed_iteration_s=t_iter,
-        flushed_episodes=flushed, train_steps=iters * updates,
+        env_steps_per_s=n * cfg.num_envs / t_iter, timed_iteration_s=t_iter,
+        flushed_episodes=flushed, train_steps=applied,
         q_max_abs_err_vs_cpu=q_card_vs_cpu(agent, state, what),
         parameters_with_repeating_gradients=gradients_repeat(agent, state,
                                                              what),
         diagnostics=diags)
 
     if evaluate:
+        gens = [torch.Generator(device=DEVICE).manual_seed(s + 1)
+                for s in (seeds or [seed])]
         with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
             ca.reset_launch_counts()
             t0 = time.perf_counter()
-            sr, ret, length = (
-                float(x) for x in make_evaluate_fn(agent, env, 10)(
-                    state.network,
-                    torch.Generator(device=DEVICE).manual_seed(seed + 1)))
+            out = make_evaluate_fn(agent, env, 10)(
+                state.network, gens if seeds else gens[0])
+            sr, ret, length = (x.reshape(-1).tolist() for x in out)
             result["evaluation_s"] = time.perf_counter() - t0
             steps = len(calls)
-            eval_cfg = dataclasses.replace(cfg, num_envs=10)
+            eval_cfg = dataclasses.replace(cfg, num_envs=10 * n)
             result["launches_evaluation"] = check_ledger(
                 ca, ledger, reckoned_launches(eval_cfg, steps, 0),
                 f"{what}, evaluation")
         cap = env.max_episode_steps
-        check(0.0 <= sr <= 1.0 and 1.0 <= length <= cap and 1 <= steps <= cap
-              and abs(ret) <= cap,
-              f"{what}: evaluation out of range: {sr}, {ret}, {length}")
+        check(1 <= steps <= cap and all(
+            0.0 <= a <= 1.0 and 1.0 <= b <= cap and abs(c) <= cap
+            for a, b, c in zip(sr, length, ret)),
+            f"{what}: evaluation out of range: {sr}, {ret}, {length}")
+        if not seeds:
+            sr, ret, length = sr[0], ret[0], length[0]
         result.update(evaluation=[sr, ret, length], evaluation_steps=steps)
     log(f"{what}: {json.dumps(result)}")
     return result, agent, state, train_iter
@@ -1507,6 +1565,192 @@ def continuous_phase(seed):
     return result
 
 
+# ------------------------------------------------------------------ sweep
+SWEEP_SEEDS = 5  # the reference protocol's seeds 1-5 (README.md:35-36)
+# At S seeds, one update may launch at most this many times the kernels of a
+# single-seed update (a loop over the seeds would launch S times as many).
+SWEEP_KERNEL_RATIO = 2.0
+TURNS = (1, SWEEP_SEEDS, SWEEP_SEEDS, 1)
+
+
+def update_kernels_in_turns(ca, runs):
+    """Device kernels, device time and attention launches of one update of
+    each of ``runs`` ({seed count: (agent, state)}), profiled in turns (1,
+    S, S, 1); the means of each count's two turns."""
+    for agent, state in runs.values():
+        agent.learn(state)  # warm
+    seen = {n: [] for n in runs}
+    for n in TURNS:
+        agent, state = runs[n]
+        ca.reset_launch_counts()
+        _, by_name = device_events(lambda: agent.learn(state))
+        seen[n].append((sum(k for k, _ in by_name.values()),
+                        sum(us for _, us in by_name.values()),
+                        dict(ca.launch_counts)))
+    out = {}
+    for n, turns in seen.items():
+        out[n] = {
+            "device_kernels": [t[0] for t in turns],
+            "device_us": [t[1] for t in turns],
+            "attention_launches": turns[0][2],
+            "mean_device_kernels": sum(t[0] for t in turns) / len(turns),
+            "mean_device_us": sum(t[1] for t in turns) / len(turns),
+        }
+        check(all(t[2] == turns[0][2] for t in turns),
+              f"S={n}: attention launches differ between turns")
+    one, many = out[1], out[SWEEP_SEEDS]
+    ratio = many["mean_device_kernels"] / one["mean_device_kernels"]
+    check(ratio <= SWEEP_KERNEL_RATIO,
+          f"an update at {SWEEP_SEEDS} seeds launches {ratio:.2f}x the "
+          f"kernels of one seed's (at most {SWEEP_KERNEL_RATIO})")
+    check(many["attention_launches"] == one["attention_launches"],
+          f"attention launches per update: {many['attention_launches']} at "
+          f"{SWEEP_SEEDS} seeds, {one['attention_launches']} at one")
+    out["kernel_ratio"] = ratio
+    log(f"update kernels in turns: {json.dumps(out)}")
+    return out
+
+
+def rates_in_turns(runs, what):
+    """Aggregate env-steps/s of one train iteration (64 env steps per seed,
+    64 updates) of each of ``runs`` ({seed count: (state, train_iter)}),
+    timed in turns (1, S, S, 1), over every seed's env steps."""
+    turns = {n: [] for n in runs}
+    for n in TURNS:
+        state, train_iter = runs[n]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_iter(state)
+        torch.cuda.synchronize()
+        turns[n].append(n * 64 / (time.perf_counter() - t0))
+    out = {n: {"env_steps_per_s_turns": t,
+               "env_steps_per_s": sum(t) / len(t)} for n, t in turns.items()}
+    out["aggregate_ratio"] = (out[SWEEP_SEEDS]["env_steps_per_s"]
+                              / out[1]["env_steps_per_s"])
+    log(f"{what} rates in turns: {json.dumps(out)}")
+    return out
+
+
+def sweep_runner_phase(seed, ca):
+    """``run_sweep`` at 2 seeds on the runner's schedule (bench width): the
+    per-seed CSVs and policies, the completion sentinel, the launches; the
+    same sweep cut by a time limit after its first chunk, resumed, and each
+    seed's final policy held bit for bit against the uninterrupted one's."""
+    from types import SimpleNamespace
+
+    from dtqn_tpu_torch.train.sweep import run_sweep, sweep_path
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+
+    seeds = [seed, seed + 1]
+
+    def config(**kw):
+        return runner_config(seed, prepop_steps=64 * 210, **kw)
+
+    def per_seed(cfg):
+        return [dataclasses.replace(cfg, seed=s) for s in seeds]
+
+    def policies(cfg):
+        return [torch.load(c.policy_path() + "_policy.pt", weights_only=True)
+                for c in per_seed(cfg)]
+
+    cfg = config()
+    iters = cfg.num_steps // cfg.num_envs
+    cut_at = cfg.resolved_iters_per_chunk * cfg.num_envs
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
+            counted_greedy_calls() as calls:
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        final = run_sweep(cfg, seeds)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        launches, eval_steps = check_launches(
+            ca, SimpleNamespace(greedy_calls=calls), cfg, iters,
+            "sweep runner")
+        for c in per_seed(cfg):
+            check_csvs(c, [cut_at, cfg.num_steps])
+        check(all(math.isfinite(v) for s in seeds for v in final[s].values())
+              and all(final[s]["losses/Grad_Norm"] > 0.0 for s in seeds),
+              f"sweep runner: final logs {final}")
+        ck = sweep_path(cfg, seeds)
+        check(ckpt.load_mini_checkpoint(ck)
+              == {"step": cfg.num_steps, "wandb_id": None},
+              "sweep completion sentinel")
+        check(ckpt.has_checkpoint(ck), "a finished sweep kept no checkpoint")
+        whole = policies(cfg)
+        check(run_sweep(cfg, seeds)
+              == {"completed": True, "step": cfg.num_steps},
+              "a second sweep call did not short-circuit")
+
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
+        cut = config(time_limit=1e-9)
+        run_sweep(cut, seeds)
+        ck = sweep_path(cfg, seeds)  # paths are under the working directory
+        check(ckpt.load_mini_checkpoint(ck)["step"] == cut_at,
+              f"the cut sweep's mini checkpoint is not at step {cut_at}")
+        nbytes = os.path.getsize(ck + "_checkpoint.pt")
+        for c in per_seed(cut):
+            check_csvs(c, [cut_at])
+        run_sweep(cfg, seeds)
+        check(ckpt.load_mini_checkpoint(ck)["step"] == cfg.num_steps,
+              "the resumed sweep did not finish")
+        for c in per_seed(cfg):
+            check_csvs(c, [cut_at, cfg.num_steps])
+        resumed = policies(cfg)
+    for s, got, ref in zip(seeds, resumed, whole):
+        differing = [k for k in ref if not torch.equal(got[k], ref[k])]
+        check(not differing, f"seed {s}: the resumed sweep's parameters "
+                             f"differ from the uninterrupted one's in "
+                             f"{differing}")
+    result = {"seeds": seeds, "whole_run_s": whole_s, "launches": launches,
+              "evaluation_steps": eval_steps, "checkpoint_bytes": nbytes,
+              "final_parameters_bit_equal": True,
+              "final_log": {str(s): final[s] for s in seeds}}
+    log(f"sweep runner: {json.dumps(result)}")
+    return result
+
+
+def sweep_phase(seed, ca, flagless):
+    """The multi-seed sweep: the flagless configuration at SWEEP_SEEDS
+    stacked seeds (prepopulation, two iterations, an evaluation; launches by
+    folded shape, card Q against CPU Q per seed, gradients repeating); its
+    update against the main path's ``flagless`` (agent, state, train_iter)
+    in turns: kernels, device time, attention launches, host time, and the
+    aggregate env-steps/s of an iteration; a profiled iteration of each;
+    the bag at 2 seeds (the evict forward at 2 * 1664) and at 1 and
+    SWEEP_SEEDS seeds timed in turns; ``run_sweep`` whole, cut and
+    resumed."""
+    seeds = [seed + i for i in range(SWEEP_SEEDS)]
+    one_agent, one_state, one_iter = flagless
+    run, agent, state, train_iter = drive(
+        seed, ca, "DiscreteCarFlag-v0", 210, 2, evaluate=True, seeds=seeds,
+        model="DTQN", inner_embed=64, bag_size=0)
+    result = {"flagless": run}
+    runs = {1: (one_agent, one_state), SWEEP_SEEDS: (agent, state)}
+    result["update_kernels_in_turns"] = update_kernels_in_turns(ca, runs)
+    result["update_ms_in_turns"] = update_ms_in_turns(
+        {str(n): r for n, r in runs.items()})
+    result["flagless_rates_in_turns"] = rates_in_turns(
+        {1: (one_state, one_iter), SWEEP_SEEDS: (state, train_iter)},
+        "flagless")
+    result["profile"] = {
+        str(n): profile_iteration(st, it, what=f"one iteration at {n} seeds")
+        for n, (st, it) in ((1, (one_state, one_iter)),
+                            (SWEEP_SEEDS, (state, train_iter)))}
+    del agent, state, train_iter, runs
+
+    result["bag_x2"], *_ = drive(seed, ca, GV_ENV, 300, 1, seeds=seeds[:2])
+    bag_one, _, one_bag, one_bag_iter = drive(seed, ca, GV_ENV, 300, 1)
+    bag_many, _, many_bag, many_bag_iter = drive(seed, ca, GV_ENV, 300, 1,
+                                                 seeds=seeds)
+    result["bag_x1"], result[f"bag_x{SWEEP_SEEDS}"] = bag_one, bag_many
+    result["bag_rates_in_turns"] = rates_in_turns(
+        {1: (one_bag, one_bag_iter), SWEEP_SEEDS: (many_bag, many_bag_iter)},
+        "bag")
+    del one_bag, many_bag, one_bag_iter, many_bag_iter
+    result["runner"] = sweep_runner_phase(seed, ca)
+    return result
+
+
 # ------------------------------------------------------------------ timing
 def graph_ms(fn, calls=100, replays=20):
     """Device time of one ``fn()``: ``calls`` calls captured in a CUDA
@@ -1549,7 +1793,9 @@ def bound_ms(kind, b, lq, lk, heads, d, causal):
                                        else "operations")
 
 
-def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True):
+def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True, calls=100):
+    """Device ms of each kernel, its plain version and SDPA at one shape,
+    ``calls`` calls per CUDA graph."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1573,19 +1819,21 @@ def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True):
         torch.autograd.grad(out, (qg, kg, vg), do_h)
 
     fwd = {
-        "ms": graph_ms(lambda: ca.attention_fwd(q, k, v, heads, causal)),
+        "ms": graph_ms(lambda: ca.attention_fwd(q, k, v, heads, causal),
+                       calls),
         "plain_ms": graph_ms(
-            lambda: ca.plain_attention_fwd(q, k, v, heads, causal)),
-        "library_ms": graph_ms(lambda: sdpa(q, k, v)),
+            lambda: ca.plain_attention_fwd(q, k, v, heads, causal), calls),
+        "library_ms": graph_ms(lambda: sdpa(q, k, v), calls),
     }
     # SDPA's backward alone is no single call: time forward + backward and
     # take the forward's time off.
-    lib_both = graph_ms(sdpa_fwd_bwd)
+    lib_both = graph_ms(sdpa_fwd_bwd, calls)
     bwd = {
         "ms": graph_ms(
-            lambda: ca.attention_bwd(q, k, v, dout, heads, causal)),
+            lambda: ca.attention_bwd(q, k, v, dout, heads, causal), calls),
         "plain_ms": graph_ms(
-            lambda: ca.plain_attention_bwd(q, k, v, dout, heads, causal)),
+            lambda: ca.plain_attention_bwd(q, k, v, dout, heads, causal),
+            calls),
         "library_ms": max(lib_both - fwd["library_ms"], 0.0),
     }
     out = {}
@@ -1610,6 +1858,22 @@ BAG_TIMING_SHAPES = [
     dict(b=64, lk=10, d=8, causal=False),
     dict(b=1664, lk=10, d=8, causal=False),
     dict(b=1664, d=16),
+]
+
+
+# The sweep's folded batches (Lq = 50): the flagless path at 5 seeds
+# (update, act, evaluation; head width 8, causal) and the bag at 2 and 5
+# seeds (act, evict and, at 5, the update; head width 16, causal and over
+# the bag of 25).  The largest take fewer calls per graph.
+SWEEP_TIMING_SHAPES = [
+    dict(b=160), dict(b=320), dict(b=50),
+    dict(b=128, d=16), dict(b=128, lk=25, d=16, causal=False),
+    dict(b=3328, d=16, calls=10),
+    dict(b=3328, lk=25, d=16, causal=False, calls=10),
+    dict(b=160, d=16), dict(b=160, lk=25, d=16, causal=False),
+    dict(b=320, d=16), dict(b=320, lk=25, d=16, causal=False),
+    dict(b=8320, d=16, calls=4),
+    dict(b=8320, lk=25, d=16, causal=False, calls=4),
 ]
 
 
@@ -1705,6 +1969,7 @@ def run(seed):
                                          "four rooms": multi_run})
     del image_run, multi_run
     continuous = continuous_phase(seed)
+    sweep = sweep_phase(seed, ca, (agent, state, train_iter))
     main_shape, t_main = timings(ca, 32)  # each update's batch
     _, t_act = timings(ca, 64)  # the act forward's batch
     _, t_wide = timings(ca, 32, d=16)  # the in_embed-128 paths' update
@@ -1712,6 +1977,7 @@ def run(seed):
     t_d16 = dict(timings(ca, b, d=16) for b in (64, 10))
     t_bag = dict(timings(ca, **shape) for shape in BAG_TIMING_SHAPES)
     t_streamed = streamed_timings(ca)
+    t_sweep = dict(timings(ca, **shape) for shape in SWEEP_TIMING_SHAPES)
 
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
@@ -1730,6 +1996,7 @@ def run(seed):
             "launches_variant_paths": {
                 v: variants[v]["launches"][name] for v, _ in VARIANTS},
             "launches_four_rooms_path": multi["launches"][name],
+            "launches_sweep_path": sweep["flagless"]["launches"][name],
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1744,6 +2011,7 @@ def run(seed):
             "streamed_16_0_in_turns": {
                 shape: t for shape, t in t_streamed.items()
                 if shape.startswith(name)},
+            "sweep_shapes": {shape: t[name] for shape, t in t_sweep.items()},
         })
     prof = profile_iteration(state, train_iter)
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1752,6 +2020,7 @@ def run(seed):
                       "bag": bag, "pomdp": pomdp, "baselines": baselines,
                       "image": image, "variants": variants,
                       "four_rooms": multi, "continuous_car_flag": continuous,
+                      "sweep": sweep, "timings_sweep": t_sweep,
                       "timings_b64": t_act, "timings_b32_d16": t_wide,
                       "timings_d16": t_d16, "timings_bag": t_bag,
                       "timings_streamed": t_streamed,

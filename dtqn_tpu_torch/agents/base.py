@@ -26,6 +26,15 @@ the update is gated by ``can_sample & isfinite(grad_norm)`` with
 ``torch.where``, and clip + Adam are written out over one flat parameter
 vector (as ``optax.flatten`` does) so the gate covers the optimizer state
 too.  The state is updated in place.
+
+``init_sweep_state(seeds)`` stacks S seeds into one state, the port's
+counterpart of ``jax.vmap`` over stacked ``AgentState``s
+(``dtqn_tpu/train/sweep.py``): parameters, target and Adam moments [S, P]
+behind a ``StackedNetwork``; counters, epsilon and diagnostics [S]; the S*E
+envs, contexts, bags, carries and replay rows one batch, seed-major; one
+generator per seed, from which each seed draws what its own run draws, in
+the same order.  Every function below takes either state; each dispatched
+operation then serves all S seeds.
 """
 
 from __future__ import annotations
@@ -38,7 +47,12 @@ import torch
 from torch import nn
 
 from dtqn_tpu_torch import replay
-from dtqn_tpu_torch.envs.core import Environment, where_batch
+from dtqn_tpu_torch.envs.core import (
+    Environment,
+    cat_batch,
+    stack_batch,
+    where_batch,
+)
 from dtqn_tpu_torch.models import (
     MODEL_MAP,
     RECURRENT_MODELS,
@@ -47,8 +61,10 @@ from dtqn_tpu_torch.models import (
     zero_carry,
 )
 from dtqn_tpu_torch.models.dropout import DropoutDraws
+from dtqn_tpu_torch.models.stacked import StackedNetwork
 from dtqn_tpu_torch.utils.device import resolve_device
 from dtqn_tpu_torch.utils.metrics import TrainDiagnostics
+from dtqn_tpu_torch.utils.rng import folded_draw
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam defaults
 
@@ -109,7 +125,9 @@ class AgentState:
     ``network`` / ``target_network`` are the policy and target networks;
     their parameters are views into the flat vectors ``params`` /
     ``target_params``.  ``carry`` is the recurrent models' act-time LSTM
-    state (None for the others).
+    state (None for the others).  A stacked state (``init_sweep_state``)
+    holds ``StackedNetwork``s, [S, P] vectors, [S] scalars, S*E envs and a
+    list of S generators.
     """
 
     network: nn.Module
@@ -123,12 +141,17 @@ class AgentState:
     carry: Optional[LSTMCarry]
     env_state: Any
     obs: torch.Tensor  # [E, *obs_shape] current observations
-    generator: torch.Generator
+    generator: Any  # torch.Generator, or one per seed (stacked)
     env_steps: torch.Tensor  # int64 scalar
     train_steps: torch.Tensor  # int32 scalar: gradient updates applied
     epsilon: torch.Tensor  # f32 scalar
     diagnostics: TrainDiagnostics
     nonfinite_grads: torch.Tensor  # int32 scalar
+
+    @property
+    def seed_shape(self):
+        """() for one seed, (S,) for a stacked state."""
+        return self.train_steps.shape
 
 
 def flatten_parameters(module: nn.Module) -> torch.Tensor:
@@ -158,21 +181,28 @@ def clip_adam_update(
 
     ``gnorm`` is the global norm of ``grads``.  The clip leaves g as it is
     when gnorm < max_norm, else scales it by max_norm / gnorm (no epsilon,
-    unlike ``clip_grad_norm_``).
+    unlike ``clip_grad_norm_``).  Stacked, ``params`` and ``grads`` are
+    [S, P] and ``gnorm``, ``apply`` and the count [S]: each seed clips by
+    its own norm and is gated on its own.
     """
-    g = torch.where(gnorm < max_norm, grads, grads / gnorm * max_norm)
+    def col(x):  # a per-seed value against [S, P]
+        return x[..., None] if params.dim() > 1 else x
+
+    g = torch.where(col(gnorm < max_norm), grads,
+                    grads / col(gnorm) * max_norm)
     count = opt.count + 1
     mu = (1 - ADAM_B1) * g + ADAM_B1 * opt.mu
     nu = (1 - ADAM_B2) * g * g + ADAM_B2 * opt.nu
-    countf = count.to(torch.float32)
+    countf = col(count.to(torch.float32))
     mu_hat = mu / (1 - torch.pow(ADAM_B1, countf))
     nu_hat = nu / (1 - torch.pow(ADAM_B2, countf))
     new_params = params + (-learning_rate) * (
         mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
     )
-    params.copy_(torch.where(apply, new_params, params))
-    opt.mu.copy_(torch.where(apply, mu, opt.mu))
-    opt.nu.copy_(torch.where(apply, nu, opt.nu))
+    gate = col(apply)
+    params.copy_(torch.where(gate, new_params, params))
+    opt.mu.copy_(torch.where(gate, mu, opt.mu))
+    opt.nu.copy_(torch.where(gate, nu, opt.nu))
     opt.count = torch.where(apply, count, opt.count)
 
 
@@ -304,6 +334,42 @@ class Agent:
             nonfinite_grads=scalar(0, torch.int32),
         )
 
+    def init_sweep_state(self, seeds) -> AgentState:
+        """The seeds' initial states stacked into one (the JAX sweep's
+        ``jax.vmap(agent._init_state_impl)``): seed i's part is bit for bit
+        ``init_state(seeds[i])``, its weights and its generator included."""
+        states = [self.init_state(seed) for seed in seeds]
+        first = states[0]
+
+        def cat(name):
+            parts = [getattr(st, name) for st in states]
+            return None if parts[0] is None else cat_batch(parts)
+
+        def stack(name):
+            return stack_batch([getattr(st, name) for st in states])
+
+        params, target_params = stack("params"), stack("target_params")
+        return AgentState(
+            network=StackedNetwork(first.network, params),
+            target_network=StackedNetwork(first.target_network,
+                                          target_params),
+            params=params,
+            target_params=target_params,
+            opt_state=stack("opt_state"),
+            buffer=replay.stack_buffers([st.buffer for st in states]),
+            context=cat("context"),
+            bag=cat("bag"),
+            carry=cat("carry"),
+            env_state=cat("env_state"),
+            obs=cat("obs"),
+            generator=[st.generator for st in states],
+            env_steps=stack("env_steps"),
+            train_steps=stack("train_steps"),
+            epsilon=stack("epsilon"),
+            diagnostics=stack("diagnostics"),
+            nonfinite_grads=stack("nonfinite_grads"),
+        )
+
     # ------------------------------------------------------------ forwards
     @staticmethod
     def _bag_in(bag):
@@ -354,15 +420,19 @@ class Agent:
 
     def select_actions(self, state: AgentState, epsilon):
         """Epsilon-greedy (dqn.py:117-131): (actions, carry).  The carry
-        steps whether the draw explores or not."""
-        n, gen = self.config.num_envs, state.generator
+        steps whether the draw explores or not.  Stacked, ``epsilon`` is
+        per seed."""
+        gen, device = state.generator, self.device
         greedy, carry = self.greedy_actions(
             state.network, state.context, state.bag, state.carry, state.obs
         )
-        explore = torch.rand((n,), generator=gen,
-                             device=self.device) < epsilon
-        randoms = torch.randint(0, self.env.num_actions, (n,), generator=gen,
-                                device=self.device)
+        n = greedy.shape[0]
+        u = folded_draw(gen, n, lambda g, k: torch.rand(
+            (k,), generator=g, device=device))
+        randoms = folded_draw(gen, n, lambda g, k: torch.randint(
+            0, self.env.num_actions, (k,), generator=g, device=device))
+        explore = (u.reshape(epsilon.shape + (-1,))
+                   < epsilon[..., None]).reshape(-1)
         return torch.where(explore, randoms, greedy), carry
 
     # ------------------------------------------------------------ bag logic
@@ -489,25 +559,41 @@ class Agent:
         batch = self.sample_batch(state.buffer, state.generator)
         return self.apply_update(state, batch)
 
-    def dropout_draws(self, state: AgentState, masks=None):
+    def dropout_draws(self, state: AgentState, masks=None, window=None):
         """The masks of one train-mode forward: None without dropout (or
         outside DTQN, whose option it is: the other models ignore it, as in
         the JAX package), else drawn from the agent's generator or, for
-        tests, the given ones."""
+        tests, the given ones.  A stacked state draws them here, for a
+        forward over ``window`` = (S*B, L): each seed's masks from its own
+        generator, site by site in the order a forward's sites draw them."""
         if self.config.dropout <= 0.0 or self.config.kind != "transformer":
             return None
         if masks is not None:
             return DropoutDraws(masks=masks)
-        return DropoutDraws(generator=state.generator)
+        gen = state.generator
+        if isinstance(gen, torch.Generator):
+            return DropoutDraws(generator=gen)
+        total, length = window
+        keep = 1.0 - self.config.dropout
+        shapes = state.network.module.dropout_shapes(total // len(gen),
+                                                     length)
+        return DropoutDraws(masks=[
+            folded_draw(gen, total, lambda g, n, shape=shape: torch.rand(
+                (n, *shape[1:]), generator=g, device=self.device) < keep)
+            for shape in shapes])
 
     def apply_update(self, state: AgentState, batch: replay.Batch,
                      masks=None):
         """The gradient step on a given batch (dtqn.py:196-269).  With
         dropout, ``masks`` may give each forward's masks in call order, as
-        (policy next-Q, target next-Q, loss) lists."""
+        (policy next-Q, target next-Q, loss) lists.  Stacked, the batch is
+        S seed-major blocks of B windows and each seed's loss, gradient,
+        clip, Adam step, gate and target swap are its own."""
         cfg = self.config
+        seeds = state.seed_shape
         ok = replay.can_sample(state.buffer, cfg.batch_size)
         hist = cfg.history
+        window = batch.obs.shape[:2]
         bag_in = (batch.bag_obs, batch.bag_action) if self.use_bag else ()
         policy_masks, target_masks, loss_masks = masks or (None,) * 3
 
@@ -518,7 +604,7 @@ class Agent:
             next_q_policy, next_q_target = (
                 self._q_context(net, batch.next_obs, batch.next_action,
                                 bag_in, batch.ep_len,
-                                self.dropout_draws(state, lane_masks))
+                                self.dropout_draws(state, lane_masks, window))
                 for net, lane_masks in (
                     (state.network, policy_masks),
                     (state.target_network, target_masks))
@@ -532,22 +618,30 @@ class Agent:
 
         q_all = self._q_context(state.network, batch.obs, batch.action,
                                 bag_in, batch.ep_len,
-                                self.dropout_draws(state, loss_masks))
+                                self.dropout_draws(state, loss_masks, window))
         q_taken = torch.gather(
             q_all, -1, batch.action.to(torch.int64)[..., None]
         )[..., 0].to(torch.float32)
         q_h = q_taken[:, -hist:]
         t_h = targets[:, -hist:]
-        loss = torch.mean(torch.square(q_h - t_h))
+        if seeds:
+            # Seeds share no term: each seed's slice of the gradient of the
+            # sum is the gradient of its own loss.
+            td = torch.square(q_h - t_h).reshape(seeds + (-1,)).mean(-1)
+            loss = td.sum()
+        else:
+            td = loss = torch.mean(torch.square(q_h - t_h))
         params = list(state.network.parameters())
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         flat_grads = torch.cat([
-            (g if g is not None else torch.zeros_like(p)).reshape(-1)
+            (g if g is not None else torch.zeros_like(p)).reshape(
+                seeds + (-1,))
             for g, p in zip(grads, params)
-        ])
+        ], dim=-1)
 
         with torch.no_grad():
-            gnorm = torch.linalg.vector_norm(flat_grads)
+            gnorm = torch.linalg.vector_norm(flat_grads,
+                                             dim=-1 if seeds else None)
             finite = torch.isfinite(gnorm)
             apply = ok & finite  # apply only when sampling was legal
             clip_adam_update(
@@ -560,11 +654,11 @@ class Agent:
             swap = apply & (
                 state.train_steps % cfg.target_update_frequency == 0
             )
-            state.target_params.copy_(
-                torch.where(swap, state.params, state.target_params)
-            )
+            state.target_params.copy_(torch.where(
+                swap[..., None] if seeds else swap, state.params,
+                state.target_params))
             state.diagnostics.update(
-                apply, td=loss.detach(), gnorm=gnorm, q=q_h.detach(),
+                apply, td=td.detach(), gnorm=gnorm, q=q_h.detach(),
                 targets=t_h,
             )
             state.nonfinite_grads = state.nonfinite_grads + (

@@ -1,7 +1,8 @@
 """Port benchmark: DTQN env-steps/s at the reference's 1:1 update ratio, on
 one GPU.
 
-    python -m dtqn_tpu_torch.bench [--bag N] [--device cpu] [--iters N]
+    python -m dtqn_tpu_torch.bench [--bag N] [--seeds N] [--device cpu]
+                                   [--iters N]
 
 Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "device": ...}
@@ -13,6 +14,9 @@ DiscreteCarFlag-v0, DTQN in_embed 64, context 50, 8 heads, 2 layers, batch
 (run.py:290-298), so "env-steps/s" also equals learner updates/s.
 ``--bag N`` is that script's second line: gv_memory.7x7.yaml, in_embed 128,
 and the persistent-memory bag of N slots; the metric's name then says so.
+``--seeds N`` trains seeds 0..N-1 at once (``Agent.init_sweep_state``,
+the JAX script's ``jax.vmap`` over stacked states): the value counts the
+env steps of every seed and the metric's name ends in ``_x{N}seeds``.
 It prepopulates 625 iterations, runs one warm-up chunk of ``--iters``
 iterations (default 50), and reports the best of 4 timed chunks.  Only
 ``--device cpu`` runs on the CPU; ``--iters`` shortens the chunks so a test
@@ -44,8 +48,8 @@ def card_line() -> str:
 
 def sync(state) -> None:
     """Wait for the whole learn chain: read values that depend on it."""
-    _ = int(state.train_steps)
-    _ = float(state.params[0])
+    _ = state.train_steps.tolist()
+    _ = state.params.reshape(-1)[0].item()
 
 
 def main(argv=None) -> dict:
@@ -55,23 +59,19 @@ def main(argv=None) -> dict:
     p.add_argument("--iters", type=int, default=DEFAULT_ITERS,
                    help="iterations (of 64 env steps and 64 updates) per "
                         "timed chunk")
-    # The JAX bench.py's optional modes, named so that they fail loudly.
-    p.add_argument("--seeds", type=int, default=1)
+    p.add_argument("--seeds", type=int, default=1,
+                   help="seeds trained at once (0..N-1)")
     p.add_argument("--bag", type=int, default=0,
                    help="bag slots; above 0 the configuration is "
                         "gv_memory.7x7.yaml at in_embed 128")
+    # The JAX bench.py's bf16 mode, named so that it fails loudly.
     p.add_argument("--bf16", action="store_true")
     args = p.parse_args(argv)
-    for is_set, what, item in (
-        (args.bf16, "--bf16", 13),
-        (args.seeds > 1, "--seeds", 14),
-    ):
-        if is_set:
-            raise NotImplementedError(
-                f"{what} is not ported yet; see ROADMAP.md queue 1 item {item}"
-            )
-    if args.iters < 1:
-        raise ValueError("--iters must be at least 1")
+    if args.bf16:
+        raise NotImplementedError(
+            "--bf16 is not ported yet; see ROADMAP.md queue 1 item 13")
+    if args.iters < 1 or args.seeds < 1:
+        raise ValueError("--iters and --seeds must be at least 1")
 
     from dtqn_tpu_torch.agents import Agent, AgentConfig
     from dtqn_tpu_torch.envs import make_env
@@ -86,6 +86,9 @@ def main(argv=None) -> dict:
         in_embed = 128  # README.md:116-117 (128 for gridverse)
     else:
         env_name, metric, in_embed = "DiscreteCarFlag-v0", METRIC, 64
+    seeds = args.seeds
+    if seeds > 1:
+        metric += f"_x{seeds}seeds"
     cfg = AgentConfig(
         model="DTQN",
         num_envs=NUM_ENVS,
@@ -113,10 +116,11 @@ def main(argv=None) -> dict:
         iters_per_chunk=iters,
     )
 
-    state = agent.init_state(0)
+    state = (agent.init_sweep_state(list(range(seeds))) if seeds > 1
+             else agent.init_state(0))
     # Enough prepopulation that learn() steps actually apply.
     state = prepopulate(state)
-    if int(state.buffer.flushed_total) <= cfg.batch_size:
+    if int(state.buffer.flushed_total.min()) <= cfg.batch_size:
         raise RuntimeError("prepopulation finished too few episodes")
 
     state = chunk(state)  # warm-up (builds the kernels on a GPU)
@@ -128,14 +132,16 @@ def main(argv=None) -> dict:
         state = chunk(state)
         sync(state)
         best = min(best, time.perf_counter() - t0)
-    if int(state.train_steps) != 5 * iters * NUM_ENVS:
-        raise RuntimeError(f"only {int(state.train_steps)} updates applied")
-    if int(state.nonfinite_grads) != 0:
+    # Every seed applied every update.
+    applied = state.train_steps.reshape(-1).tolist()
+    if applied != [5 * iters * NUM_ENVS] * seeds:
+        raise RuntimeError(f"updates applied per seed: {applied}")
+    if int(state.nonfinite_grads.sum()) != 0:
         raise FloatingPointError("non-finite gradient steps")
 
     line = {
         "metric": metric,
-        "value": round(iters * NUM_ENVS / best, 1),
+        "value": round(iters * NUM_ENVS * seeds / best, 1),
         "unit": "env-steps/s (== learner updates/s)",
         "device": (torch.cuda.get_device_name(0) if on_card else "cpu"),
     }

@@ -38,7 +38,8 @@ four hidden kernels and biases into one ``hidden_proj``; flax's QHead
 names its output layer ``Dense_0`` and its hidden one ``Dense_1``.  Reading a msgpack file is the
 caller's job, which keeps this package free of flax.
 ``params_to_jax`` is the inverse (self-attention always in the fused
-layout).
+layout).  ``stacked_params_from_jax`` / ``stacked_params_to_jax`` do the
+same for trees stacked along a leading seed axis (the JAX sweep's state).
 """
 
 from __future__ import annotations
@@ -206,3 +207,38 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             node = node.setdefault(p, {})
         node[arr_leaf] = np.ascontiguousarray(arr)
     return _split_recurrent(tree)
+
+
+def stacked_params_from_jax(tree: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """A flax tree stacked along a leading seed axis (as
+    ``jax.vmap(agent._init_state_impl)`` gives it) -> [S, *shape] weights
+    by parameter name, for ``StackedNetwork.load_stacked_state_dict``:
+    each seed's slice through ``params_from_jax``, stacked."""
+    def first_leaf(node):
+        val = next(iter(node.values()))
+        return first_leaf(val) if isinstance(val, Mapping) else val
+
+    seeds = np.asarray(first_leaf(tree)).shape[0]
+
+    def seed_slice(node, i):
+        return {k: seed_slice(v, i) if isinstance(v, Mapping)
+                else np.asarray(v)[i] for k, v in node.items()}
+
+    per_seed = [params_from_jax(seed_slice(tree, i)) for i in range(seeds)]
+    return OrderedDict((k, torch.stack([p[k] for p in per_seed]))
+                       for k in per_seed[0])
+
+
+def stacked_params_to_jax(weights: Mapping[str, torch.Tensor]) -> Dict:
+    """[S, *shape] weights by parameter name -> a flax tree stacked along
+    a leading seed axis (the inverse of ``stacked_params_from_jax``)."""
+    seeds = next(iter(weights.values())).shape[0]
+    per_seed = [params_to_jax({k: v[i] for k, v in weights.items()})
+                for i in range(seeds)]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack(nodes)
+
+    return stack(per_seed)

@@ -44,7 +44,8 @@ class ExperimentConfig:
     in_embed: int = 128
     max_episode_steps: int = -1
     seed: int = 1
-    # Multi-seed sweep (not ported yet); one listed seed replaces --seed.
+    # Multi-seed sweep: several seeds train at once (train/sweep.py); one
+    # listed seed replaces --seed.
     seeds: List[int] = dataclasses.field(default_factory=list)
     save_policy: bool = False
     verbose: bool = False
@@ -173,8 +174,8 @@ def get_args(argv=None) -> ExperimentConfig:
     p.add_argument("--max-episode-steps", type=int, default=d.max_episode_steps)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--seeds", type=int, nargs="+", default=list(d.seeds),
-                   help="One seed replaces --seed; training several "
-                        "seeds at once is not ported yet.")
+                   help="Train these seeds at once (stacked on one GPU); "
+                        "one seed replaces --seed.")
     p.add_argument("--save-policy", action="store_true")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--render", action="store_true")

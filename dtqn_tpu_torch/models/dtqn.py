@@ -139,6 +139,22 @@ class DTQN(nn.Module):
                 dim=-1)
         return self.head_out(torch.relu(self.head_hidden(x)))
 
+    def dropout_shapes(self, batch: int, seq_len: int):
+        """The shape of each dropout mask of a train-mode forward at [batch,
+        seq_len], in the order the sites draw them (``DropoutDraws``): the
+        input; per layer the attention probabilities and the FFN output;
+        the bag attention's probabilities."""
+        features = self.head_hidden.out_features
+        tokens = (batch, seq_len, features)
+        shapes = [tokens]
+        for layer in self.layers:
+            heads = layer.attention.num_heads
+            shapes += [(batch, heads, seq_len, seq_len), tokens]
+        if self.bag_attention is not None:
+            shapes.append((batch, self.bag_attention.num_heads, seq_len,
+                           self.bag_size))
+        return shapes
+
     def _persistent(self, x, bag_obss, bag_actions, draws) -> torch.Tensor:
         """Cross-attention of the working memory ``x`` over the (possibly
         padded) bag."""

@@ -27,19 +27,39 @@ class _Lookup(torch.autograd.Function):
     resumed run no longer equals the uninterrupted one.  Here the gradient
     is one matrix product, ``one_hot(tokens)^T @ grad``, whose order of
     summation is fixed; the one-hot matrix exists only in the backward.
+
+    Under ``torch.func.vmap`` (one table per seed) the ``vmap`` rule stacks
+    the tables into one of S*V rows, offsets each seed's tokens by its
+    block, and makes one lookup.
     """
 
     @staticmethod
-    def forward(ctx, table, tokens):
+    def forward(table, tokens):
+        return F.embedding(tokens, table)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, tokens = inputs
         ctx.save_for_backward(tokens)
         ctx.rows = table.shape[0]
-        return F.embedding(tokens, table)
 
     @staticmethod
     def backward(ctx, grad):
         (tokens,) = ctx.saved_tensors
         hot = F.one_hot(tokens.reshape(-1).to(torch.int64), ctx.rows)
         return hot.to(grad.dtype).t() @ grad.reshape(-1, grad.shape[-1]), None
+
+    @staticmethod
+    def vmap(info, in_dims, table, tokens):
+        s = info.batch_size
+        table, tokens = (x.expand(s, *x.shape) if dim is None
+                         else x.movedim(dim, 0)
+                         for x, dim in zip((table, tokens), in_dims))
+        rows = table.shape[1]
+        start = torch.arange(0, s * rows, rows, device=tokens.device,
+                             dtype=tokens.dtype)
+        offset = tokens + start.reshape(-1, *(1,) * (tokens.dim() - 1))
+        return _Lookup.apply(table.reshape(s * rows, -1), offset), 0
 
 
 def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

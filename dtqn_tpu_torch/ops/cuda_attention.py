@@ -389,13 +389,21 @@ def attention_bwd(q, k, v, dout, num_heads: int, causal: bool):
 
 class AttentionFunction(torch.autograd.Function):
     """``pallas_attention_packed``'s custom_vjp: forward kernel, recompute
-    backward kernel; num_heads and causal are not differentiated."""
+    backward kernel; num_heads and causal are not differentiated.
+
+    Under ``torch.func.vmap`` (a stack of networks, one per seed) the
+    ``vmap`` rule folds the mapped axis into B of the packed layout and
+    makes one call: one launch at the folded batch, forward and backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads: int, causal: bool):
+    def forward(q, k, v, num_heads: int, causal: bool):
+        return attention_fwd(q, k, v, num_heads, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, num_heads, causal = inputs
         ctx.save_for_backward(q, k, v)
         ctx.num_heads, ctx.causal = num_heads, causal
-        return attention_fwd(q, k, v, num_heads, causal)
 
     @staticmethod
     def backward(ctx, dout):
@@ -404,6 +412,18 @@ class AttentionFunction(torch.autograd.Function):
             q, k, v, dout.contiguous(), ctx.num_heads, ctx.causal
         )
         return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, num_heads: int, causal: bool):
+        """[S, B, L, E] (the mapped axis moved first, an unmapped operand
+        expanded) -> one call at [S*B, L, E] -> [S, B, Lq, E]."""
+        folded = []
+        for x, dim in zip((q, k, v), in_dims[:3]):
+            x = (x.expand(info.batch_size, *x.shape) if dim is None
+                 else x.movedim(dim, 0))
+            folded.append(x.reshape(-1, *x.shape[2:]).contiguous())
+        out = AttentionFunction.apply(*folded, num_heads, causal)
+        return out.unflatten(0, (info.batch_size, -1)), 0
 
 
 def cuda_attention_packed(q, k, v, num_heads: int, causal: bool = False):

@@ -10,6 +10,7 @@ from dtqn_tpu_torch.replay.buffer import (
     sample,
     sample_with_bag,
     sample_with_stored_bag,
+    stack_buffers,
     store_act_bag,
     store_first_obs,
     store_step,
@@ -34,6 +35,7 @@ __all__ = [
     "sample",
     "sample_with_bag",
     "sample_with_stored_bag",
+    "stack_buffers",
     "store_act_bag",
     "init_bag",
     "reset_bag",

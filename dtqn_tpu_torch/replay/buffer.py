@@ -18,6 +18,10 @@
     the act-time bag per timestep as (episode obs index, action) pairs, and
     train on the stored bag of the sampled window's last acting step
   - episode lengths are int32
+  - a stacked run of S seeds (``stack_buffers``) keeps S rings in one: seed
+    s owns rows [s * R, (s + 1) * R) and envs [s * E, (s + 1) * E) (the
+    seed-major folded layout), ``flushed_total`` is [S], and each seed
+    samples its own rows from its own generator
 
 Unlike the JAX package, the write functions update the buffer's tensors in
 place (and also return the buffer).
@@ -31,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 
 from dtqn_tpu_torch.envs.core import where_batch
+from dtqn_tpu_torch.utils.rng import folded_draw, stacked_draw
 
 
 @dataclasses.dataclass
@@ -43,7 +48,7 @@ class BufferState:
     ep_valid: torch.Tensor  # [R] bool: completed episode, samplable
     write_pos: torch.Tensor  # [E] int32: step cursor in current episode
     ep_count: torch.Tensor  # [E] int32: episodes started per env
-    flushed_total: torch.Tensor  # int32 scalar: completed episodes
+    flushed_total: torch.Tensor  # int32 scalar ([S] stacked): completed
     # Act-time bag storage (--bag-store): slot p holds the bag state after
     # transition p+1 = the bag used when acting at episode obs index p+1.
     bag_idx: Optional[torch.Tensor] = None  # [R, T, bag] int32, -1 = empty
@@ -229,30 +234,52 @@ def flush(buf: BufferState, mask: torch.Tensor) -> BufferState:
     buf.ep_count = buf.ep_count + mask.to(torch.int32)
     buf.write_pos = torch.where(mask, torch.zeros_like(buf.write_pos),
                                 buf.write_pos)
-    buf.flushed_total = buf.flushed_total + mask.sum().to(torch.int32)
+    buf.flushed_total = buf.flushed_total + mask.reshape(
+        buf.flushed_total.shape + (-1,)).sum(-1).to(torch.int32)
     return buf
+
+
+def stack_buffers(buffers) -> BufferState:
+    """S single-seed rings (of one configuration) as one stacked ring."""
+    first = buffers[0]
+    return dataclasses.replace(first, **{
+        f.name: (None if getattr(first, f.name) is None else
+                 (torch.stack if f.name == "flushed_total" else torch.cat)(
+                     [getattr(b, f.name) for b in buffers]))
+        for f in dataclasses.fields(first)
+    })
 
 
 def can_sample(buf: BufferState, batch_size: int) -> torch.Tensor:
     """batch_size < completed episodes (replay_buffer.py:94-95): a device
-    bool, never read on the host by the learner."""
+    bool ([S] stacked), never read on the host by the learner."""
     return buf.flushed_total > batch_size
 
 
 def _draw_windows(buf: BufferState, generator, batch_size, context_len):
     """Uniform valid rows (Gumbel-max over the validity logits, as
-    ``jax.random.categorical``) and uniform window starts."""
+    ``jax.random.categorical``) and uniform window starts.  Stacked (a list
+    of per-seed generators), each seed draws ``batch_size`` windows from
+    its own rows: [S * batch_size], seed-major."""
     device = buf.ep_valid.device
+    seeds = buf.flushed_total.shape  # () or (S,)
+    valid = buf.ep_valid.reshape(seeds + (-1,))
     logits = torch.where(
-        buf.ep_valid,
+        valid,
         torch.zeros((), device=device),
         torch.full((), -float("inf"), device=device),
     )
-    u = torch.rand((batch_size, logits.shape[0]), generator=generator,
-                   device=device)
-    rows = torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    u = stacked_draw(generator, lambda g: torch.rand(
+        (batch_size, valid.shape[-1]), generator=g, device=device))
+    rows = torch.argmax(logits[..., None, :] - torch.log(-torch.log(u)),
+                        dim=-1)
+    if seeds:
+        first = torch.arange(0, buf.ep_valid.shape[0], valid.shape[-1],
+                             device=device)
+        rows = (rows + first[:, None]).reshape(-1)
     max_start = torch.clamp_min(buf.ep_len[rows] - context_len, 0)
-    u_start = torch.rand((batch_size,), generator=generator, device=device)
+    u_start = folded_draw(generator, rows.shape[0], lambda g, n: torch.rand(
+        (n,), generator=g, device=device))
     starts = torch.floor(u_start * (max_start + 1).to(torch.float32))
     starts = torch.minimum(starts.to(torch.int32), max_start)
     return rows, starts
@@ -344,8 +371,8 @@ def sample_with_bag(
     unmasked bag cross-attention).
     """
     rows, starts = _draw_windows(buf, generator, batch_size, context_len)
-    scores = torch.rand((batch_size, buf.max_episode_steps),
-                        generator=generator, device=starts.device)
+    scores = folded_draw(generator, rows.shape[0], lambda g, n: torch.rand(
+        (n, buf.max_episode_steps), generator=g, device=starts.device))
     bag_obs, bag_act = random_bags(buf, rows, starts, scores, bag_size,
                                    obs_mask)
     return _window_batch(buf, rows, starts, context_len, bag_obs, bag_act)

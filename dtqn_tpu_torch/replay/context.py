@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 
 from dtqn_tpu_torch.envs.core import where_batch
+from dtqn_tpu_torch.utils.rng import folded_draw
 
 
 @dataclasses.dataclass
@@ -47,15 +48,17 @@ def init_context(
     first_obs: torch.Tensor,
 ) -> ContextState:
     """Fresh contexts seeded with each env's first observation, on
-    ``first_obs``'s device (context.py:36-54)."""
+    ``first_obs``'s device (context.py:36-54).  With a list of per-seed
+    generators the ``num_envs`` are S seed-major blocks, each drawing its
+    actions from its seed's generator."""
     device = first_obs.device
     obs = torch.full((num_envs, context_len, *obs_shape), obs_mask,
                      dtype=obs_dtype, device=device)
     obs[:, 0] = first_obs.to(obs_dtype)
-    action = torch.randint(
-        0, num_actions, (num_envs, context_len), generator=generator,
-        device=device, dtype=torch.int32,
-    )
+    action = folded_draw(generator, num_envs, lambda g, n: torch.randint(
+        0, num_actions, (n, context_len), generator=g, device=device,
+        dtype=torch.int32,
+    ))
     return ContextState(
         obs=obs,
         action=action,

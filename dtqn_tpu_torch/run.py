@@ -11,6 +11,10 @@ package's ``run.py``.  Examples:
         --in-embed 64
     python -m dtqn_tpu_torch.run --envs data/hallway.pomdp
 
+    # Seeds 1-5 at once (the multi-seed sweep, train/sweep.py):
+    python -m dtqn_tpu_torch.run --envs DiscreteCarFlag-v0 --in-embed 64 \
+        --seeds 1 2 3 4 5
+
     # On the CPU (the default is the GPU, and fails when there is none):
     python -m dtqn_tpu_torch.run --device cpu --envs Memory-5-v0 \
         --num-steps 2000 --verbose
@@ -27,10 +31,9 @@ def main(argv=None) -> dict:
             "ROADMAP.md queue 1 item 14"
         )
     if len(config.seeds) > 1:
-        raise NotImplementedError(
-            "--seeds with more than one seed (the multi-seed sweep) is not "
-            "ported yet; see ROADMAP.md queue 1 item 14"
-        )
+        from dtqn_tpu_torch.train.sweep import run_sweep
+
+        return run_sweep(config, config.seeds)
     from dtqn_tpu_torch.train.runner import run_experiment
 
     if config.seeds:

@@ -8,6 +8,12 @@ over device work that never reads a value back to the host (evaluation
 reads one flag every ``EVAL_EXIT_CHECK_EVERY`` steps, to stop once every
 episode is over).  The scan knobs (``unroll``, ``outer_unroll``,
 ``presample``) have no counterpart.
+
+Each function also takes a stacked state (``Agent.init_sweep_state``): the
+envs of S seeds step as one batch, ``env.step_vec`` running once per seed
+on its block with its generator (``envs.core.per_seed``), and an
+evaluation runs ``eval_episodes`` episodes per seed and returns [S]
+results.
 """
 
 from __future__ import annotations
@@ -18,9 +24,10 @@ import torch
 
 from dtqn_tpu_torch import replay
 from dtqn_tpu_torch.agents.base import Agent, AgentState
-from dtqn_tpu_torch.envs.core import Environment, where_batch
+from dtqn_tpu_torch.envs.core import Environment, per_seed, where_batch
 from dtqn_tpu_torch.models import zero_carry
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+from dtqn_tpu_torch.utils.rng import folded_draw, seed_count
 
 # Evaluation freezes finished episodes and could run all max_episode_steps
 # steps without a host read, as the JAX scan does.  Reading
@@ -45,15 +52,14 @@ def env_step(
     if random_only:
         # Prepopulation uses uniformly random actions (run.py:380-405) and
         # leaves the act-time carry as it is.
-        actions = torch.randint(
-            0, env.num_actions, (cfg.num_envs,), generator=state.generator,
-            device=agent.device,
-        )
+        actions = folded_draw(
+            state.generator, state.obs.shape[0], lambda g, n: torch.randint(
+                0, env.num_actions, (n,), generator=g, device=agent.device))
     else:
         actions, state.carry = agent.select_actions(state, state.epsilon)
 
-    obs, state.env_state, ts = env.step_vec(
-        state.generator, state.env_state, actions
+    obs, state.env_state, ts = per_seed(
+        env.step_vec, state.generator, state.env_state, actions
     )
     state.obs = obs
     # TimeLimit truncation is not stored as done (run.py:371-374); ts.obs
@@ -108,7 +114,9 @@ def make_evaluate_fn(
     (and zero carries for the recurrent models) and returns (success_rate,
     mean_return, mean_ep_len) as device scalars.
     ``generator`` (on the agent's device) supplies every draw, so the
-    training stream is left alone."""
+    training stream is left alone.  With a ``StackedNetwork`` and one
+    generator per seed, each seed plays ``eval_episodes`` episodes of its
+    own and the results are [S]."""
     cfg = agent.config
     n = eval_episodes
     max_steps = eval_env.max_episode_steps
@@ -116,31 +124,34 @@ def make_evaluate_fn(
     @torch.no_grad()
     def evaluate(network, generator):
         device = agent.device
-        obs, env_state = eval_env.reset_vec(generator, n, device)
+        seeds = seed_count(generator)
+        total = seeds * n
+        obs, env_state = per_seed(
+            lambda g: eval_env.reset_vec(g, n, device), generator)
         context = replay.init_context(
-            generator, n, cfg.context_len, tuple(eval_env.obs_shape),
+            generator, total, cfg.context_len, tuple(eval_env.obs_shape),
             eval_env.obs_dtype, eval_env.obs_mask, eval_env.num_actions, obs,
         )
         bag = (
             replay.init_bag(
-                n, cfg.bag_size, tuple(eval_env.obs_shape),
+                total, cfg.bag_size, tuple(eval_env.obs_shape),
                 eval_env.obs_dtype, eval_env.obs_mask, device,
             )
             if agent.use_bag
             else None
         )
-        carry = (zero_carry(n, cfg.inner_embed, device)
+        carry = (zero_carry(total, cfg.inner_embed, device)
                  if cfg.kind == "recurrent" else None)
-        finished = torch.zeros((n,), dtype=torch.bool, device=device)
-        ep_reward = torch.zeros((n,), dtype=torch.float32, device=device)
-        ep_len = torch.zeros((n,), dtype=torch.int32, device=device)
-        success = torch.zeros((n,), dtype=torch.bool, device=device)
+        finished = torch.zeros((total,), dtype=torch.bool, device=device)
+        ep_reward = torch.zeros((total,), dtype=torch.float32, device=device)
+        ep_len = torch.zeros((total,), dtype=torch.int32, device=device)
+        success = torch.zeros((total,), dtype=torch.bool, device=device)
 
         for t in range(max_steps):
             actions, carry_t = agent.greedy_actions(network, context, bag,
                                                     carry, obs)
-            obs_t, env_state_t, ts = eval_env.step(generator, env_state,
-                                                   actions)
+            obs_t, env_state_t, ts = per_seed(eval_env.step, generator,
+                                              env_state, actions)
             live = ~finished
             ep_reward = ep_reward + ts.reward * live
             done_now = live & ts.done
@@ -176,10 +187,13 @@ def make_evaluate_fn(
                 break
 
         episodes = max(n, 1)
-        return (
-            success.sum() / episodes,
-            ep_reward.sum() / episodes,
-            ep_len.sum() / episodes,
-        )
+        if isinstance(generator, torch.Generator):
+            return (
+                success.sum() / episodes,
+                ep_reward.sum() / episodes,
+                ep_len.sum() / episodes,
+            )
+        return tuple(x.reshape(seeds, n).sum(-1) / episodes
+                     for x in (success, ep_reward, ep_len))
 
     return evaluate

@@ -17,7 +17,9 @@ tensors in place: the networks' parameters are views into the flat
 ``params`` / ``target_params`` vectors, and a rebound vector would leave the
 optimizer updating memory the network no longer reads.  A generator's state
 loads only into a generator of the same device kind, so a checkpoint
-resumes on the device kind it was written on.
+resumes on the device kind it was written on.  A stacked state
+(``Agent.init_sweep_state``) is saved and restored the same way, its
+per-seed generators one leaf each.
 """
 
 from __future__ import annotations
@@ -25,10 +27,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
+
+from dtqn_tpu_torch.models.stacked import StackedNetwork
 
 _GENERATOR_DEVICE = "generator_device"
 
@@ -54,16 +58,21 @@ def _fields(node: Any) -> Iterator[Tuple[str, Any]]:
 
 def _leaves(node: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
     """(dotted name, tensor or generator) for every leaf of a tree of
-    dataclasses and named tuples.  Modules are left out: their parameters
-    are views of a leaf; so are the parts a configuration does not have
-    (``None``: no bag, no carry)."""
+    dataclasses, named tuples and lists of generators (a stacked state's,
+    one per seed).  Networks are left out: their parameters are views of a
+    leaf; so are the parts a configuration does not have (``None``: no bag,
+    no carry)."""
     for field, value in _fields(node):
         name = prefix + field
         if isinstance(value, (torch.Tensor, torch.Generator)):
             yield name, value
+        elif isinstance(value, list):
+            for i, generator in enumerate(value):
+                yield f"{name}.{i}", generator
         elif dataclasses.is_dataclass(value) or isinstance(value, tuple):
             yield from _leaves(value, name + ".")
-        elif value is not None and not isinstance(value, nn.Module):
+        elif value is not None and not isinstance(
+                value, (nn.Module, StackedNetwork)):
             raise TypeError(f"cannot checkpoint {name}: {type(value)}")
 
 
@@ -132,11 +141,13 @@ def load_checkpoint(path: str, template_state: Any) -> Tuple[Any, Dict[str, Any]
     return template_state, extra
 
 
-def save_policy(path: str, network: nn.Module) -> None:
-    """Policy-weights-only snapshot (run.py:337-338)."""
-    weights = {
-        k: v.detach().cpu().clone() for k, v in network.state_dict().items()
-    }
+def save_policy(path: str,
+                network: Union[nn.Module, Mapping[str, torch.Tensor]]) -> None:
+    """Policy-weights-only snapshot (run.py:337-338) of a network or of its
+    ``state_dict`` (a stacked run's seed: ``StackedNetwork.seed_state_dict``)."""
+    if isinstance(network, nn.Module):
+        network = network.state_dict()
+    weights = {k: v.detach().cpu().clone() for k, v in network.items()}
     torch.save(weights, path + "_policy.pt")
 
 

@@ -2,7 +2,10 @@
 
 The reference's ``RunningAverage`` over the last N values, kept as tensors on
 the device so the training loop never syncs to the host for diagnostics.
-Unlike the JAX package, updates happen in place.
+Unlike the JAX package, updates happen in place.  A stacked run of S seeds
+stacks them (``envs.core.stack_batch``): every field takes a leading seed
+axis, one ring per seed, and the means are [S] (the JAX sweep's
+``jax.vmap(lambda d: d.means())``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ DIAGNOSTIC_NAMES = (
 
 @dataclasses.dataclass
 class RunningAverage:
-    """Ring of the last ``window`` values; each value may be a vector."""
+    """Ring of the last ``window`` values; each value may be a vector.
+    Stacked, one ring per seed: ``buf`` [S, window, ...], ``idx`` and
+    ``count`` [S]."""
 
     buf: torch.Tensor  # [window, *value_shape] float32
     idx: torch.Tensor  # int64 scalar, next write slot
@@ -44,18 +49,27 @@ class RunningAverage:
         )
 
     def add_if(self, pred: torch.Tensor, value: torch.Tensor) -> None:
-        """Write ``value`` at the next slot when ``pred`` (a device bool)."""
-        slot = self.idx.reshape(1)
-        old = self.buf.index_select(0, slot)
+        """Write ``value`` at the next slot when ``pred`` (a device bool;
+        stacked, per seed: ``pred`` [S], ``value`` [S, ...])."""
+        seeds = self.idx.shape
+        window = self.buf.shape[len(seeds)]
+        rows = self.buf.view(-1, *self.buf.shape[len(seeds) + 1:])
+        slot = self.idx.reshape(-1)
+        if seeds:
+            slot = slot + torch.arange(0, rows.shape[0], window,
+                                       device=slot.device)
+        old = rows.index_select(0, slot)
         new = value.to(torch.float32).reshape(old.shape)
-        self.buf.index_copy_(0, slot, torch.where(pred, new, old))
-        self.idx = torch.where(pred, (self.idx + 1) % self.buf.shape[0],
-                               self.idx)
+        keep = pred.reshape(pred.shape + (1,) * (old.dim() - pred.dim()))
+        rows.index_copy_(0, slot, torch.where(keep, new, old))
+        self.idx = torch.where(pred, (self.idx + 1) % window, self.idx)
         self.count = self.count + pred.to(torch.int64)
 
     def mean(self) -> torch.Tensor:
-        n = torch.clamp_max(self.count, self.buf.shape[0])
-        total = self.buf.sum(dim=0) / torch.clamp_min(n, 1)
+        seeds = self.count.shape
+        n = torch.clamp_max(self.count, self.buf.shape[len(seeds)])
+        n = n.reshape(seeds + (1,) * (self.buf.dim() - len(seeds) - 1))
+        total = self.buf.sum(dim=len(seeds)) / torch.clamp_min(n, 1)
         return torch.where(n > 0, total, torch.zeros_like(total))
 
 
@@ -74,14 +88,20 @@ class TrainDiagnostics:
         return cls(RunningAverage.create(window, (8,), device))
 
     def update(self, pred, *, td, gnorm, q, targets) -> None:
+        """Stacked, ``pred``, ``td`` and ``gnorm`` are [S] and ``q`` and
+        ``targets`` [S*B, ...], seed-major."""
+        seeds = self.averages.idx.shape
+
+        def stats(x):
+            if not seeds:
+                return x.max(), x.mean(), x.min()
+            x = x.reshape(seeds + (-1,))
+            return x.amax(-1), x.mean(-1), x.amin(-1)
+
         self.averages.add_if(
-            pred,
-            torch.stack([
-                td, gnorm, q.max(), q.mean(), q.min(),
-                targets.max(), targets.mean(), targets.min(),
-            ]),
-        )
+            pred, torch.stack([td, gnorm, *stats(q), *stats(targets)], -1))
 
     def means(self) -> Dict[str, torch.Tensor]:
         values = self.averages.mean()
-        return {name: values[i] for i, name in enumerate(DIAGNOSTIC_NAMES)}
+        return {name: values[..., i]
+                for i, name in enumerate(DIAGNOSTIC_NAMES)}

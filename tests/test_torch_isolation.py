@@ -49,6 +49,7 @@ def test_port_imports_no_jax():
         "dtqn_tpu_torch/models/recurrent.py",
         "dtqn_tpu_torch/models/dropout.py",
         "dtqn_tpu_torch/envs/image_maze.py", "dtqn_tpu_torch/envs/multi.py",
+        "dtqn_tpu_torch/models/stacked.py", "dtqn_tpu_torch/train/sweep.py",
     }
     assert len(paths) > 30
     offenders = {
@@ -107,6 +108,11 @@ def test_runner_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
         bench.main([])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench.main(["--iters", "1", "--device", "cuda:0"])
+    # The multi-seed sweep too.
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(small + ["--seeds", "1", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main(["--seeds", "2"])
     assert not os.listdir(tmp_path)  # nothing ran, nothing was written
 
 

@@ -585,8 +585,15 @@ def test_run_module_main(tmp_path, monkeypatch, capsys):
     assert os.path.exists(cfg.policy_path() + "_policy.pt")
     assert run.main(["--envs", "DiscreteCarFlag-v0", "--seed", "3",
                      *CLI]) == {"completed": True, "step": 80}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        run.main(["--seeds", "1", "2", *CLI])
+    # Several seeds go to the sweep (train/sweep.py).
+    from dtqn_tpu_torch.train import sweep
+
+    calls = []
+    monkeypatch.setattr(sweep, "run_sweep",
+                        lambda cfg, seeds: calls.append((cfg, seeds)))
+    run.main(["--seeds", "1", "2", *CLI])
+    assert [seeds for _, seeds in calls] == [[1, 2]]
+    assert calls[0][0].device == "cpu"
     with pytest.raises(NotImplementedError, match="item 14"):
         run.main(["--envs", "MH-Room-5x5-v0", *CLI])
 
@@ -604,7 +611,24 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
     assert "vs_baseline" not in line
 
 
-@pytest.mark.parametrize("flags", [["--seeds", "5"], ["--bf16"]])
-def test_bench_extras_are_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item"):
-        bench.main(["--device", "cpu", *flags])
+@pytest.mark.parametrize("flags", [["--seeds", "2"], ["--bf16"]])
+def test_bench_extras_are_not_ported(flags, monkeypatch, capsys):
+    """The JAX script's extra modes: ``--seeds`` is ported (the stacked
+    sweep, at 8 envs here), ``--bf16`` still fails loudly."""
+    if flags == ["--bf16"]:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
+            bench.main(["--device", "cpu", *flags])
+        return
+    monkeypatch.setattr(bench, "NUM_ENVS", 8)
+    monkeypatch.setattr(bench, "PREPOP_STEPS", 8_000)
+    # One intra-op thread: the spare cores serve the other test processes.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        line = bench.main(["--device", "cpu", "--iters", "1", *flags])
+    finally:
+        torch.set_num_threads(threads)
+    assert json.loads(capsys.readouterr().out.strip()) == line
+    assert line["metric"] == (
+        "carflag_dtqn_torch_env_steps_per_s_1to1_updates_x2seeds")
+    assert line["device"] == "cpu" and line["value"] > 0
