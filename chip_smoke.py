@@ -98,11 +98,27 @@ Phases (any failure exits non-zero and prints no result):
  18. profile one more train iteration (torch.profiler): the device's busy
      share, device operations per update and the costliest kernels; the
      same for one iteration of each run of phases 10-12 and 14 but
-     ADRQN's.
+     ADRQN's;
+ 19. bf16 (the JAX package's --bf16): each bf16 instance against its plain
+     version in bf16 (BF16_PARITY_CASES: within 1 bf16 ulp plus the
+     float32 tolerance; two backward launches bit-equal); the flagless
+     configuration in bf16 (two iterations, every launch a bf16 one at a
+     shape held in bf16, card Q against CPU Q within BF16_Q_ULPS bf16 ulps
+     with cuBLAS's reduced-precision bf16 reduction off, the error with it
+     on reported) against phase 4's float32 run in turns (f32, bf16, bf16,
+     f32): operations, attention launches and device ms per update
+     (profiled), host ms per update, env-steps/s, busy share; the bag of
+     25, DRQN on Memory-5 and ImageMaze in bf16 (device ms of an update, an
+     act step and the evict forward beside phases 9, 11 and 12's; the
+     LSTM's outputs float32, the CNN's bf16); the runner in bf16 with
+     --profile-dir (the trace holds one chunk's bf16 attention kernels),
+     cut and resumed bit-equal; ``run_sweep`` in bf16 at 2 seeds; the bf16
+     instances timed at the driven shapes (SDPA in bf16 the library call).
 
 Before the last line it prints the script's total seconds, the card line
-and one ``{"kernels": [...]}`` JSON line; the last line is ``{"ok": true,
-"device": {...}}``.
+and one ``{"kernels": [...]}`` JSON line (each kernel with its dtype: the
+float32 instances, then the bf16 ones under ``*_bf16``); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -121,8 +137,15 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 FWD_ATOL, GRAD_ATOL = 2e-5, 5e-5
 Q_ATOL = 1e-4
+# bf16: a kernel's output within 1 bf16 ulp of its plain version's, plus
+# the float32 tolerance (the same products summed in another order can
+# flip one rounding); the card's Q within BF16_Q_ULPS bf16 ulps (at the
+# largest |Q|) of the CPU's: each bf16 GEMM on the way sums in another
+# order on the card and may round the other way.
+BF16_Q_ULPS = 8
 # The CNN's float32 pre-activations against float64 at the update's 1600
 # images, relative to each layer's largest entry: float32 sums over at most
 # 1152 products stay near 1e-6, where TF32's 10-bit mantissa gives ~1e-3.
@@ -136,9 +159,9 @@ HALLWAY, HEAVENHELL = ("POMDP-hallway-episodic-v0",
 # The baselines' runs: (model, env, in_embed).
 BASELINES = [("DRQN", "Memory-5-v0", 128), ("DQN", "Memory-5-v0", 128),
              ("ADRQN", HALLWAY, 64), ("DARQN", "DiscreteCarFlag-v0", 64)]
-# The instances that driven paths launch, as ptxas_usage names them: head
+# The instances that driven paths launch, in either element type: head
 # width 8 (Car Flag, the POMDPs, the Car Flag bag) and 16 (in_embed 128).
-DRIVEN_INSTANCES = ("<8,1>", "<8,2>", "<16,2>")
+DRIVEN_INSTANCES = ((8, 1), (8, 2), (16, 2))
 REPLACES = {
     "attention_fwd": "dtqn_tpu/ops/pallas_attention.py:62",
     "attention_bwd": "dtqn_tpu/ops/pallas_attention.py:77",
@@ -170,6 +193,13 @@ def card_line():
 
 def rand(gen, *shape):
     return torch.randn(shape, generator=gen, device="cuda")
+
+
+def bf16_ulp(x):
+    """The spacing of bfloat16 numbers at each value of ``x`` (0 at 0)."""
+    m, e = torch.frexp(x.float())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
 
 
 # ------------------------------------------------------------------ parity
@@ -229,6 +259,68 @@ PARITY_CASES = [
     (320, 50, 50, 8, True, 128), (320, 50, 25, 8, False, 128),
     (8320, 50, 50, 8, True, 128), (8320, 50, 25, 8, False, 128),
 ]
+
+
+# The bf16 instances' shapes (B, Lq, Lk, heads, causal, E): every shape a
+# bf16 drive launches (phase 19: the flagless path's update, act and
+# evaluation, and at 2 seeds folded; the bag of 25's update, act and evict
+# forward; ImageMaze's update and act), the Car Flag bag of 10's (<8, 1>),
+# and one streamed shape per head width.
+BF16_PARITY_CASES = [
+    (32, 50, 50, 8, True, 64), (64, 50, 50, 8, True, 64),
+    (10, 50, 50, 8, True, 64), (128, 50, 50, 8, True, 64),
+    (20, 50, 50, 8, True, 64),
+    (32, 50, 50, 8, True, 128), (64, 50, 50, 8, True, 128),
+    (10, 50, 50, 8, True, 128), (1664, 50, 50, 8, True, 128),
+    (32, 50, 25, 8, False, 128),
+    (64, 50, 25, 8, False, 128), (1664, 50, 25, 8, False, 128),
+    (32, 50, 10, 8, False, 64), (64, 50, 10, 8, False, 64),
+    (704, 50, 10, 8, False, 64),
+    (4, 50, 65, 8, False, 64), (2, 100, 100, 8, True, 128),
+    (2, 100, 100, 2, True, 64), (2, 50, 50, 1, True, 64),
+]
+
+
+def bf16_parity(ca):
+    """Each bf16 instance against its plain version in bf16 on the same
+    card inputs: within 1 bf16 ulp of the plain value plus the float32
+    tolerance, compared in float32; two backward launches bit-equal."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {"attention_fwd": 0.0, "attention_bwd": 0.0}
+    covered = set()
+    for b, lq, lk, h, causal, e in BF16_PARITY_CASES:
+        covered.update((c.head_dim_pad, c.keys_per_lane) for c in (
+            ca.launch_config(kind, lq, lk, e // h) for kind in errs))
+        q, dout = (rand(gen, b, lq, e).bfloat16() for _ in range(2))
+        k, v = (rand(gen, b, lk, e).bfloat16() for _ in range(2))
+        out = ca.attention_fwd(q, k, v, h, causal)
+        ref = ca.plain_attention_fwd(q, k, v, h, causal)
+        grads = ca.attention_bwd(q, k, v, dout, h, causal)
+        again = ca.attention_bwd(q, k, v, dout, h, causal)
+        ref_grads = ca.plain_attention_bwd(q, k, v, dout, h, causal)
+        torch.cuda.synchronize()
+        check(out.dtype == ref.dtype == torch.bfloat16
+              and all(g.dtype == torch.bfloat16 for g in grads),
+              "a bf16 call returned another dtype")
+        for kind, got, want, atol in (
+                ("attention_fwd", (out,), (ref,), FWD_ATOL),
+                ("attention_bwd", grads, ref_grads, GRAD_ATOL)):
+            err, excess = 0.0, -1.0
+            for a, r in zip(got, want):
+                diff = (a.float() - r.float()).abs()
+                err = max(err, diff.max().item())
+                excess = max(excess, (diff - bf16_ulp(r) - atol).max().item())
+            log(f"bf16 parity B={b} Lq={lq} Lk={lk} H={h} D={e // h} "
+                f"causal={causal} {kind}: max err {err:.3e}")
+            check(excess <= 0, f"bf16 {kind} at B={b} Lq={lq} Lk={lk} "
+                               f"D={e // h}: past 1 ulp + {atol} by {excess}")
+            errs[kind] = max(errs[kind], err)
+        check(all(torch.equal(a, r) for a, r in zip(grads, again)),
+              "two bf16 attention_bwd launches on the same inputs differ")
+    check(covered == set(ca.INSTANCES),
+          f"bf16 parity reaches instances {sorted(covered)}, not all of "
+          f"{sorted(ca.INSTANCES)}")
+    return errs
 
 
 def parity(ca):
@@ -589,12 +681,17 @@ def check_launches(ca, probe, cfg, iters, what, prepopulated=True):
                     * max(cfg.prepop_steps // cfg.num_envs, 1))
     expect_fwd = per_forward * (greedy_calls + evicts + 3 * updates)
     expect_bwd = per_forward * updates
-    check(launches["attention_fwd"] == expect_fwd,
-          f"{what}: attention_fwd launched {launches['attention_fwd']} "
-          f"times, expected {expect_fwd}")
-    check(launches["attention_bwd"] == expect_bwd,
-          f"{what}: attention_bwd launched {launches['attention_bwd']} "
-          f"times, expected {expect_bwd}")
+    # A bf16 run launches the bf16 instances, and no float32 one.
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    fwd, bwd = (ca.count_name(k, dtype) for k in ca.KINDS)
+    check(launches[fwd] == expect_fwd,
+          f"{what}: {fwd} launched {launches[fwd]} times, expected "
+          f"{expect_fwd}")
+    check(launches[bwd] == expect_bwd,
+          f"{what}: {bwd} launched {launches[bwd]} times, expected "
+          f"{expect_bwd}")
+    check(sum(launches.values()) == expect_fwd + expect_bwd,
+          f"{what}: launches of the other dtype's instances: {launches}")
     return launches, eval_steps
 
 
@@ -816,18 +913,22 @@ def discrete_phase(seed, ca):
 
 
 # ------------------------------------------------------------------ the bag
+def dtype_name(dtype):
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
 @contextlib.contextmanager
 def launch_ledger(ca):
     """Yields a dict that counts every call of the kernels' wrappers by
-    (kernel, B, Lq, Lk, head width, causal).  The wrappers themselves go on
-    counting their launches."""
+    (kernel, B, Lq, Lk, head width, causal, dtype).  The wrappers
+    themselves go on counting their launches."""
     ledger = {}
 
     def noting(name, fn):
         def wrapper(q, k, *rest):
             b, lq, lk, _, d = ca.check_shapes(q, k, rest[0], rest[-2],
                                               rest[-1])
-            key = (name, b, lq, lk, d, bool(rest[-1]))
+            key = (name, b, lq, lk, d, bool(rest[-1]), dtype_name(q.dtype))
             ledger[key] = ledger.get(key, 0) + 1
             return fn(q, k, *rest)
         return wrapper
@@ -852,14 +953,16 @@ def reckoned_launches(cfg, act_steps, updates, evict_steps=None):
         evict_steps = act_steps
     length, d = cfg.context_len, cfg.inner_embed // cfg.num_heads
     envs, bag = cfg.num_envs, cfg.bag_size
+    dtype = "bf16" if cfg.bf16 else "f32"
     out = {}
     if cfg.kind != "transformer":
         return out
 
     def add(kind, b, n):
-        shapes = [((kind, b, length, length, d, True), cfg.num_layers * n)]
+        shapes = [((kind, b, length, length, d, True, dtype),
+                   cfg.num_layers * n)]
         if bag and not cfg.bag_mask:
-            shapes.append(((kind, b, length, bag, d, False), n))
+            shapes.append(((kind, b, length, bag, d, False, dtype), n))
         for key, count in shapes:
             if count:
                 out[key] = out.get(key, 0) + count
@@ -874,26 +977,38 @@ def reckoned_launches(cfg, act_steps, updates, evict_steps=None):
     return out
 
 
-def check_ledger(ca, ledger, expected, what):
-    def show(d):
-        return {"{} B={} Lq={} Lk={} D={} causal={}".format(*k): n
-                for k, n in sorted(d.items())}
+def show_ledger(d):
+    return {"{} B={} Lq={} Lk={} D={} causal={} {}".format(*k): n
+            for k, n in sorted(d.items())}
 
-    check(ledger == expected,
-          f"{what}: launches by shape {show(ledger)}, reckoned "
-          f"{show(expected)}")
-    held = {(b, lq, lk, e // h, causal)
-            for b, lq, lk, h, causal, e in PARITY_CASES}
+
+def check_held(ledger, what):
+    """Every launch of ``ledger`` at a (shape, dtype) that the parity
+    phases hold against the plain versions: PARITY_CASES in float32,
+    BF16_PARITY_CASES in bf16."""
+    held = {(b, lq, lk, e // h, causal, dtype)
+            for dtype, cases in (("f32", PARITY_CASES),
+                                 ("bf16", BF16_PARITY_CASES))
+            for b, lq, lk, h, causal, e in cases}
     unheld = {k: n for k, n in ledger.items() if k[1:] not in held}
     check(not unheld, f"{what}: launched at shapes that the parity phase "
                       f"does not hold against the plain versions: "
-                      f"{show(unheld)}")
-    for kind in ("attention_fwd", "attention_bwd"):
-        total = sum(n for k, n in expected.items() if k[0] == kind)
-        check(ca.launch_counts[kind] == total,
-              f"{what}: {kind} counted {ca.launch_counts[kind]} launches, "
+                      f"{show_ledger(unheld)}")
+
+
+def check_ledger(ca, ledger, expected, what):
+    check(ledger == expected,
+          f"{what}: launches by shape {show_ledger(ledger)}, reckoned "
+          f"{show_ledger(expected)}")
+    check_held(ledger, what)
+    for name in ca.launch_counts:
+        total = sum(n for k, n in expected.items()
+                    if ca.count_name(k[0], torch.bfloat16 if k[-1] == "bf16"
+                                     else torch.float32) == name)
+        check(ca.launch_counts[name] == total,
+              f"{what}: {name} counted {ca.launch_counts[name]} launches, "
               f"reckoned {total}")
-    return show(ledger)
+    return show_ledger(ledger)
 
 
 def seed_blocks(state):
@@ -920,22 +1035,48 @@ def q_card_vs_cpu(agent, state, what):
             return tuple(block(y, i) for y in x)
         return x.chunk(seeds)[i].cpu()
 
+    cfg = agent.config
+    matmul = torch.backends.cuda.matmul
+    reduced = matmul.allow_bf16_reduced_precision_reduction
     q_cpu = []
     with torch.no_grad():
-        q_gpu = agent._q_context(state.network, *inputs)
+        # bf16 GEMMs on the card sum in float32 for this check (cuBLAS may
+        # otherwise reduce split sums in bf16); the error with them is
+        # reported beside it.
+        matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            q_gpu = agent._q_context(state.network, *inputs)
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = reduced
         for i, w in enumerate(weights):
             cpu_net = agent.build_network()
             cpu_net.load_state_dict(w)
             q_cpu.append(agent._q_context(cpu_net, *block(inputs, i)))
+        q_reduced = (agent._q_context(state.network, *inputs)
+                     if cfg.bf16 else None)
     q_cpu = torch.cat(q_cpu)
-    cfg = agent.config
     check(tuple(q_gpu.shape) == (seeds * cfg.num_envs, cfg.context_len,
                                  agent.env.num_actions),
           f"{what}: Q shape {tuple(q_gpu.shape)}")
     check(bool(torch.isfinite(q_gpu).all()), f"{what}: non-finite Q")
-    q_err = (q_gpu.cpu() - q_cpu).abs().max().item()
-    check(q_err <= Q_ATOL, f"{what}: card Q differs from CPU Q by {q_err}")
-    return q_err
+    check(q_gpu.dtype == q_cpu.dtype == (torch.bfloat16 if cfg.bf16
+                                         else torch.float32),
+          f"{what}: Q is {q_gpu.dtype} on the card, {q_cpu.dtype} on the "
+          f"CPU")
+    q_err = (q_gpu.cpu().float() - q_cpu.float()).abs().max().item()
+    if not cfg.bf16:
+        check(q_err <= Q_ATOL, f"{what}: card Q differs from CPU Q by "
+                               f"{q_err}")
+        return q_err
+    ulp = bf16_ulp(q_cpu.float().abs().max()).item()
+    check(q_err <= BF16_Q_ULPS * ulp,
+          f"{what}: bf16 card Q differs from CPU Q by {q_err} "
+          f"({q_err / ulp} ulps at max |Q|)")
+    out = {"max_abs_err": q_err, "ulps_at_max_abs_q": q_err / ulp,
+           "max_abs_err_reduced_precision_reduction":
+               (q_reduced.cpu().float() - q_cpu.float()).abs().max().item()}
+    log(f"{what}: bf16 Q card vs CPU: {json.dumps(out)}")
+    return out
 
 
 def gradients_repeat(agent, state, what):
@@ -1573,31 +1714,40 @@ SWEEP_KERNEL_RATIO = 2.0
 TURNS = (1, SWEEP_SEEDS, SWEEP_SEEDS, 1)
 
 
-def update_kernels_in_turns(ca, runs):
+def update_kernels_in_turns(ca, runs, turns=TURNS):
     """Device kernels, device time and attention launches of one update of
-    each of ``runs`` ({seed count: (agent, state)}), profiled in turns (1,
-    S, S, 1); the means of each count's two turns."""
+    each of ``runs`` ({key: (agent, state)}), profiled in ``turns`` (keys
+    of ``runs``); the means of each key's turns."""
     for agent, state in runs.values():
         agent.learn(state)  # warm
     seen = {n: [] for n in runs}
-    for n in TURNS:
+    for n in turns:
         agent, state = runs[n]
         ca.reset_launch_counts()
         _, by_name = device_events(lambda: agent.learn(state))
         seen[n].append((sum(k for k, _ in by_name.values()),
                         sum(us for _, us in by_name.values()),
-                        dict(ca.launch_counts)))
+                        {k: v for k, v in ca.launch_counts.items() if v}))
     out = {}
-    for n, turns in seen.items():
+    for n, seen_n in seen.items():
         out[n] = {
-            "device_kernels": [t[0] for t in turns],
-            "device_us": [t[1] for t in turns],
-            "attention_launches": turns[0][2],
-            "mean_device_kernels": sum(t[0] for t in turns) / len(turns),
-            "mean_device_us": sum(t[1] for t in turns) / len(turns),
+            "device_kernels": [t[0] for t in seen_n],
+            "device_us": [t[1] for t in seen_n],
+            "attention_launches": seen_n[0][2],
+            "mean_device_kernels": sum(t[0] for t in seen_n) / len(seen_n),
+            "mean_device_us": sum(t[1] for t in seen_n) / len(seen_n),
         }
-        check(all(t[2] == turns[0][2] for t in turns),
-              f"S={n}: attention launches differ between turns")
+        check(all(t[2] == seen_n[0][2] for t in seen_n),
+              f"{n}: attention launches differ between turns")
+    log(f"update kernels in turns: {json.dumps(out)}")
+    return out
+
+
+def sweep_kernels_in_turns(ca, runs):
+    """``update_kernels_in_turns`` at 1 and SWEEP_SEEDS seeds ({seed count:
+    (agent, state)}): at most SWEEP_KERNEL_RATIO times the kernels of one
+    seed's update, and its attention launches."""
+    out = update_kernels_in_turns(ca, runs)
     one, many = out[1], out[SWEEP_SEEDS]
     ratio = many["mean_device_kernels"] / one["mean_device_kernels"]
     check(ratio <= SWEEP_KERNEL_RATIO,
@@ -1607,27 +1757,34 @@ def update_kernels_in_turns(ca, runs):
           f"attention launches per update: {many['attention_launches']} at "
           f"{SWEEP_SEEDS} seeds, {one['attention_launches']} at one")
     out["kernel_ratio"] = ratio
-    log(f"update kernels in turns: {json.dumps(out)}")
     return out
 
 
-def rates_in_turns(runs, what):
+def rates_in_turns(runs, what, turns=TURNS):
     """Aggregate env-steps/s of one train iteration (64 env steps per seed,
-    64 updates) of each of ``runs`` ({seed count: (state, train_iter)}),
-    timed in turns (1, S, S, 1), over every seed's env steps."""
-    turns = {n: [] for n in runs}
-    for n in TURNS:
+    64 updates) of each of ``runs`` ({key: (state, train_iter)}), timed in
+    ``turns`` (keys of ``runs``), over every seed's env steps."""
+    seen = {n: [] for n in runs}
+    for n in turns:
         state, train_iter = runs[n]
+        seeds = state.seed_shape[0] if state.seed_shape else 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         train_iter(state)
         torch.cuda.synchronize()
-        turns[n].append(n * 64 / (time.perf_counter() - t0))
+        seen[n].append(seeds * 64 / (time.perf_counter() - t0))
     out = {n: {"env_steps_per_s_turns": t,
-               "env_steps_per_s": sum(t) / len(t)} for n, t in turns.items()}
+               "env_steps_per_s": sum(t) / len(t)} for n, t in seen.items()}
+    log(f"{what} rates in turns: {json.dumps(out)}")
+    return out
+
+
+def aggregate_rates(runs, what):
+    """``rates_in_turns`` at 1 and SWEEP_SEEDS seeds, with the ratio of the
+    aggregate rates."""
+    out = rates_in_turns(runs, what)
     out["aggregate_ratio"] = (out[SWEEP_SEEDS]["env_steps_per_s"]
                               / out[1]["env_steps_per_s"])
-    log(f"{what} rates in turns: {json.dumps(out)}")
     return out
 
 
@@ -1726,10 +1883,10 @@ def sweep_phase(seed, ca, flagless):
         model="DTQN", inner_embed=64, bag_size=0)
     result = {"flagless": run}
     runs = {1: (one_agent, one_state), SWEEP_SEEDS: (agent, state)}
-    result["update_kernels_in_turns"] = update_kernels_in_turns(ca, runs)
+    result["update_kernels_in_turns"] = sweep_kernels_in_turns(ca, runs)
     result["update_ms_in_turns"] = update_ms_in_turns(
         {str(n): r for n, r in runs.items()})
-    result["flagless_rates_in_turns"] = rates_in_turns(
+    result["flagless_rates_in_turns"] = aggregate_rates(
         {1: (one_state, one_iter), SWEEP_SEEDS: (state, train_iter)},
         "flagless")
     result["profile"] = {
@@ -1743,7 +1900,7 @@ def sweep_phase(seed, ca, flagless):
     bag_many, _, many_bag, many_bag_iter = drive(seed, ca, GV_ENV, 300, 1,
                                                  seeds=seeds)
     result["bag_x1"], result[f"bag_x{SWEEP_SEEDS}"] = bag_one, bag_many
-    result["bag_rates_in_turns"] = rates_in_turns(
+    result["bag_rates_in_turns"] = aggregate_rates(
         {1: (one_bag, one_bag_iter), SWEEP_SEEDS: (many_bag, many_bag_iter)},
         "bag")
     del one_bag, many_bag, one_bag_iter, many_bag_iter
@@ -1777,31 +1934,36 @@ def graph_ms(fn, calls=100, replays=20):
     return start.elapsed_time(end) / (calls * replays)
 
 
-def bound_ms(kind, b, lq, lk, heads, d, causal):
+def bound_ms(kind, b, lq, lk, heads, d, causal, dtype=torch.float32):
     """Least time on an H100 SXM: each input read once and each output
-    written once over HBM, or the multiply-adds of the unmasked (query,
-    key) pairs over the float32 rate, whichever is larger."""
+    written once over HBM (4 or 2 bytes an element), or the multiply-adds
+    of the unmasked (query, key) pairs over the rate for the inputs' type
+    (float32 67 TFLOP/s; bf16 989 TFLOP/s, the tensor cores'), whichever
+    is larger."""
     e = heads * d
+    size = torch.finfo(dtype).bits // 8
     pairs = lq * (lq + 1) // 2 if causal else lq * lk
     if kind == "attention_fwd":  # reads q, k, v; writes out
-        nbytes, products = 4 * b * e * (2 * lq + 2 * lk), 2
+        nbytes, products = size * b * e * (2 * lq + 2 * lk), 2
     else:  # reads q, k, v, dout; writes dq, dk, dv
-        nbytes, products = 4 * b * e * (3 * lq + 4 * lk), 5
+        nbytes, products = size * b * e * (3 * lq + 4 * lk), 5
     flops = products * 2 * b * heads * d * pairs
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    rate = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True, calls=100):
+def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True, calls=100,
+            dtype=torch.float32):
     """Device ms of each kernel, its plain version and SDPA at one shape,
-    ``calls`` calls per CUDA graph."""
+    in ``dtype``, ``calls`` calls per CUDA graph."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     e = heads * d
-    q, dout = rand(gen, b, lq, e), rand(gen, b, lq, e)
-    k, v = rand(gen, b, lk, e), rand(gen, b, lk, e)
+    q, dout = (rand(gen, b, lq, e).to(dtype) for _ in range(2))
+    k, v = (rand(gen, b, lk, e).to(dtype) for _ in range(2))
 
     def heads_view(x):
         return x.view(b, x.shape[1], heads, d).transpose(1, 2)
@@ -1838,10 +2000,10 @@ def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True, calls=100):
     }
     out = {}
     for name, t in (("attention_fwd", fwd), ("attention_bwd", bwd)):
-        bound, by = bound_ms(name, b, lq, lk, heads, d, causal)
+        bound, by = bound_ms(name, b, lq, lk, heads, d, causal, dtype)
         out[name] = dict(t, bound_ms=bound, bound_by=by)
     shape = (f"B={b} Lq={lq} Lk={lk} H={heads} D={d} "
-             f"{'causal' if causal else 'non-causal'} f32")
+             f"{'causal' if causal else 'non-causal'} {dtype_name(dtype)}")
     log(f"timings {shape}: {json.dumps(out)}")
     return shape, out
 
@@ -1926,6 +2088,189 @@ def streamed_timings(ca):
     return out
 
 
+# -------------------------------------------------------------------- bf16
+# The bf16 instances' timing shapes at Lq = 50, H = 8: <8, 2> at the
+# flagless update, act and evaluation batches, <8, 1> over Car Flag's bag
+# of 10, <16, 2> at the in_embed-128 paths' update, act, evaluation and
+# evict batches and over the bag of 25.
+BF16_TIMING_SHAPES = [
+    dict(b=32), dict(b=64), dict(b=10),
+    dict(b=32, lk=10, causal=False), dict(b=64, lk=10, causal=False),
+    dict(b=32, d=16), dict(b=64, d=16), dict(b=10, d=16),
+    dict(b=1664, d=16, calls=20),
+    dict(b=32, lk=25, d=16, causal=False),
+    dict(b=64, lk=25, d=16, causal=False),
+    dict(b=1664, lk=25, d=16, causal=False, calls=20),
+]
+DTYPE_TURNS = ("f32", "bf16", "bf16", "f32")
+
+
+def dtypes_of_one_update(agent, state, types):
+    """The output dtypes of the modules of ``types`` over one update."""
+    seen = {}
+
+    def note(module, inputs, output):
+        out = output[0] if isinstance(output, tuple) else output
+        seen.setdefault(type(module).__name__, set()).add(str(out.dtype))
+
+    hooks = [m.register_forward_hook(note) for m in state.network.modules()
+             if isinstance(m, types)]
+    try:
+        agent.learn(state)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: sorted(v) for k, v in seen.items()}
+
+
+def bf16_runner_config(seed, **kw):
+    return runner_config(seed, **dict(dict(bf16=True), **kw))
+
+
+def trace_kernels(path):
+    """{kernel name: launches} of the CUDA kernels in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def bf16_runner_phase(seed, ca):
+    """``run_experiment --bf16 --profile-dir``: the trace names the bf16
+    attention kernels and holds one chunk; the run cut by a time limit and
+    resumed ends bit-equal to it; ``run_sweep --bf16`` at 2 seeds."""
+    from dtqn_tpu_torch.train.runner import run_experiment
+    from dtqn_tpu_torch.train.sweep import run_sweep
+
+    iters = bf16_runner_config(seed).num_steps // 64
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
+            Probe().attached() as probe, launch_ledger(ca) as ledger:
+        cfg = bf16_runner_config(seed, profile_dir=os.path.join(tmp, "prof"))
+        ca.reset_launch_counts()
+        final = run_experiment(cfg)
+        launches, eval_steps = check_launches(ca, probe, cfg, iters,
+                                              "bf16 runner")
+        check_held(ledger, "bf16 runner")
+        check_csvs(cfg, [128, 256])
+        check(all(math.isfinite(v) for v in final.values()),
+              f"bf16 runner: final log not finite: {final}")
+        traces = os.listdir(cfg.profile_dir)
+        check(len(traces) == 1, f"--profile-dir wrote {traces}")
+        kernels = trace_kernels(os.path.join(cfg.profile_dir, traces[0]))
+        traced = {kind: sum(n for name, n in kernels.items()
+                            if f"{kind}_kernel" in name
+                            and "bfloat16" in name) for kind in ca.KINDS}
+        # One chunk: 2 iterations, each an act forward and 64 updates.  The
+        # profiler may drop a record (384-386 of an iteration's 386 forward
+        # launches in phase 18's profiles): all but 1% of one chunk's
+        # launches, and none of another chunk's.
+        updates = cfg.resolved_iters_per_chunk * 64
+        chunk = {"attention_fwd": cfg.layers * (
+                     cfg.resolved_iters_per_chunk + 3 * updates),
+                 "attention_bwd": cfg.layers * updates}
+        check(all(0.99 * chunk[k] <= traced[k] <= chunk[k] for k in chunk),
+              f"the trace holds attention kernels {traced}, one chunk "
+              f"launches {chunk}")
+        whole_weights = saved_policy(cfg, "cpu").state_dict()
+    result = {"launches": launches, "evaluation_steps": eval_steps,
+              "chunk_s": probe.seconds["chunk"], "final_log": final,
+              "trace_attention_kernels": traced,
+              "trace_kernel_launches": sum(kernels.values())}
+    log(f"bf16 runner: {json.dumps(result)}")
+    result["resume"] = resume_phase(seed, ca, whole_weights,
+                                    bf16_runner_config, "bf16 resume")
+
+    seeds = [seed, seed + 1]
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
+            launch_ledger(ca) as ledger:
+        ca.reset_launch_counts()
+        cfg = bf16_runner_config(seed, num_steps=128, eval_frequency=64,
+                                 prepop_steps=64 * 210)
+        final = run_sweep(cfg, seeds)
+        check_held(ledger, "bf16 sweep")
+        check(all(math.isfinite(v) for s in seeds for v in final[s].values()),
+              f"bf16 sweep: final log not finite: {final}")
+        launches = dict(ca.launch_counts)
+        check(launches["attention_fwd"] == launches["attention_bwd"] == 0
+              and launches["attention_bwd_bf16"] > 0,
+              f"bf16 sweep launches {launches}")
+    result["sweep"] = {"seeds": seeds, "launches": launches,
+                       "final_log": {str(s): final[s] for s in seeds}}
+    log(f"bf16 sweep: {json.dumps(result['sweep'])}")
+    return result
+
+
+def bf16_phase(seed, ca, flagless, f32_operations):
+    """The bf16 compute dtype: the bf16 instances against their plain
+    versions; the flagless configuration in bf16 (two iterations, card Q
+    against CPU Q in bf16 ulps) against the main path's float32
+    ``flagless`` (agent, state, train_iter) in turns (operations and
+    attention launches per update, device and host ms per update,
+    env-steps/s, busy share); the bag of 25, DRQN on Memory-5 and
+    ImageMaze in bf16, their device ms beside the float32 runs'
+    ``f32_operations``; the runner with --profile-dir, cut and resumed;
+    a 2-seed sweep; the bf16 instances' times."""
+    from dtqn_tpu_torch.models.embeddings import Conv3x3
+    from dtqn_tpu_torch.models.init import Dense
+    from dtqn_tpu_torch.models.recurrent import LSTM
+
+    t0 = time.perf_counter()
+    result = {"parity": bf16_parity(ca)}
+    one_agent, one_state, one_iter = flagless
+    run, agent, state, train_iter = drive(
+        seed, ca, "DiscreteCarFlag-v0", 210, 2, model="DTQN",
+        inner_embed=64, bag_size=0, bf16=True)
+    result["flagless"] = run
+    runs = {"f32": (one_agent, one_state), "bf16": (agent, state)}
+    result["update_kernels_in_turns"] = update_kernels_in_turns(
+        ca, runs, DTYPE_TURNS)
+    result["update_ms_in_turns"] = update_ms_in_turns(runs)
+    result["rates_in_turns"] = rates_in_turns(
+        {"f32": (one_state, one_iter), "bf16": (state, train_iter)},
+        "f32 and bf16", DTYPE_TURNS)
+    result["profile"] = {
+        n: profile_iteration(st, it, what=f"one {n} flagless iteration")
+        for n, (st, it) in (("f32", (one_state, one_iter)),
+                            ("bf16", (state, train_iter)))}
+    del agent, state, train_iter, runs
+
+    bag, agent, state, _ = drive(seed, ca, GV_ENV, 300, 1, bf16=True)
+    bag["operations"] = operations(agent, state, "bf16 bag")
+    bag["f32_operations"] = f32_operations["bag"]
+    result["bag"] = bag
+    del agent, state
+    for key, model, env_name, prepop in (
+            ("drqn", "DRQN", "Memory-5-v0", 60),
+            ("image", "DTQN", IMAGE_ENV, 110)):
+        run, agent, state, _ = drive(seed, ca, env_name, prepop, 1,
+                                     model=model, inner_embed=128,
+                                     bag_size=0, bf16=True)
+        run["dtypes"] = dtypes_of_one_update(agent, state,
+                                             (LSTM, Conv3x3, Dense))
+        check(run["dtypes"]["Dense"] == ["torch.bfloat16"],
+              f"bf16 {model}: Dense outputs {run['dtypes']}")
+        if model == "DRQN":
+            check(run["dtypes"]["LSTM"] == ["torch.float32"],
+                  f"bf16 DRQN: the LSTM runs in {run['dtypes']['LSTM']}")
+        else:
+            check(run["dtypes"]["Conv3x3"] == ["torch.bfloat16"],
+                  f"bf16 ImageMaze: the CNN runs in "
+                  f"{run['dtypes']['Conv3x3']}")
+        run["operations"] = operations(agent, state, f"bf16 {model}")
+        run["f32_operations"] = f32_operations[key]
+        result[key] = run
+        del agent, state
+    result["runner"] = bf16_runner_phase(seed, ca)
+    result["timings"] = dict(timings(ca, dtype=torch.bfloat16, **shape)
+                             for shape in BF16_TIMING_SHAPES)
+    result["seconds"] = time.perf_counter() - t0
+    log(f"bf16 phase: {result['seconds']:.1f} s")
+    return result
+
+
 def run(seed):
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
@@ -1947,10 +2292,15 @@ def run(seed):
     usage = ca.ptxas_usage()
     for u in usage:
         log(f"ptxas: {json.dumps(u)}")
-    check(len(usage) == 2 * len(ca.INSTANCES),
+    check(len(usage) == 2 * len(ca.INSTANCES) * len(ca.DTYPES),
           f"ptxas reported {len(usage)} kernels")
+
+    def instance(kernel):  # "attention_fwd_kernel<bfloat16,8,2>" -> (8, 2)
+        _, d, kpl = kernel[kernel.index("<") + 1:-1].split(",")
+        return int(d), int(kpl)
+
     spilled = [u["kernel"] for u in usage
-               if u["kernel"][u["kernel"].index("<"):] in DRIVEN_INSTANCES
+               if instance(u["kernel"]) in DRIVEN_INSTANCES
                and u.get("spill_stores", 0) + u.get("spill_loads", 0)]
     check(not spilled, f"instances on driven paths spill: {spilled}")
     errs = parity(ca)
@@ -1979,11 +2329,18 @@ def run(seed):
     t_streamed = streamed_timings(ca)
     t_sweep = dict(timings(ca, **shape) for shape in SWEEP_TIMING_SHAPES)
 
+    prof = profile_iteration(state, train_iter)
+    bf16 = bf16_phase(seed, ca, (agent, state, train_iter), {
+        "bag": bag["operations"],
+        "drqn": baselines["DRQN Memory-5-v0"]["operations"],
+        "image": image["operations"]})
+
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
         t = t_main[name]
         kernels.append({
             "name": name,
+            "dtype": "float32",
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": REPLACES[name],
@@ -2013,7 +2370,27 @@ def run(seed):
                 if shape.startswith(name)},
             "sweep_shapes": {shape: t[name] for shape, t in t_sweep.items()},
         })
-    prof = profile_iteration(state, train_iter)
+    shape_bf16, t_bf16 = next(iter(bf16["timings"].items()))  # B=32 D=8
+    for name in ("attention_fwd", "attention_bwd"):
+        t = t_bf16[name]
+        kernels.append({
+            "name": f"{name}_bf16",
+            "dtype": "bfloat16",
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": REPLACES[name],
+            "launches": bf16["flagless"]["launches"][f"{name}_bf16"],
+            "launches_bag_path": bf16["bag"]["launches"][f"{name}_bf16"],
+            "launches_image_path": bf16["image"]["launches"][f"{name}_bf16"],
+            "max_abs_err": bf16["parity"][name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "shape": shape_bf16,
+            "shapes": {shape: t[name] for shape, t in bf16["timings"].items()},
+        })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main_path": main, "runner": runner, "resume": resume,
                       "discrete": discrete, "evaluation": evaluation,
@@ -2024,7 +2401,7 @@ def run(seed):
                       "timings_b64": t_act, "timings_b32_d16": t_wide,
                       "timings_d16": t_d16, "timings_bag": t_bag,
                       "timings_streamed": t_streamed,
-                      "profile": prof,
+                      "profile": prof, "bf16": bf16,
                       "ptxas": usage}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -99,6 +99,10 @@ class AgentConfig:
     # Train on stored act-time bags instead of random pre-window subsets
     # (replay/buffer.py sample_with_stored_bag).
     bag_store: bool = False
+    # bfloat16 compute dtype (the JAX package's set_compute_dtype): the
+    # networks' activations and products in bf16, parameters, Adam moments,
+    # gradients and the Bellman tail in float32.
+    bf16: bool = False
 
     @property
     def kind(self) -> str:
@@ -263,6 +267,7 @@ class Agent:
             bag_size=cfg.bag_size,
             bag_mask=cfg.bag_mask,
             generator=generator,
+            compute_dtype=torch.bfloat16 if cfg.bf16 else None,
         )
 
     def init_state(self, seed: int) -> AgentState:

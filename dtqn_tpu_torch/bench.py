@@ -1,8 +1,8 @@
 """Port benchmark: DTQN env-steps/s at the reference's 1:1 update ratio, on
 one GPU.
 
-    python -m dtqn_tpu_torch.bench [--bag N] [--seeds N] [--device cpu]
-                                   [--iters N]
+    python -m dtqn_tpu_torch.bench [--bag N] [--seeds N] [--bf16]
+                                   [--device cpu] [--iters N]
 
 Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "device": ...}
@@ -17,6 +17,9 @@ and the persistent-memory bag of N slots; the metric's name then says so.
 ``--seeds N`` trains seeds 0..N-1 at once (``Agent.init_sweep_state``,
 the JAX script's ``jax.vmap`` over stacked states): the value counts the
 env steps of every seed and the metric's name ends in ``_x{N}seeds``.
+``--bf16`` is the JAX script's bf16 mode (bfloat16 compute, float32
+parameters): the metric's name gains ``_bf16``, so it never reads as the
+float32 line.
 It prepopulates 625 iterations, runs one warm-up chunk of ``--iters``
 iterations (default 50), and reports the best of 4 timed chunks.  Only
 ``--device cpu`` runs on the CPU; ``--iters`` shortens the chunks so a test
@@ -64,12 +67,10 @@ def main(argv=None) -> dict:
     p.add_argument("--bag", type=int, default=0,
                    help="bag slots; above 0 the configuration is "
                         "gv_memory.7x7.yaml at in_embed 128")
-    # The JAX bench.py's bf16 mode, named so that it fails loudly.
-    p.add_argument("--bf16", action="store_true")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute, float32 parameters (the JAX "
+                        "bench.py's bf16 mode)")
     args = p.parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError(
-            "--bf16 is not ported yet; see ROADMAP.md queue 1 item 13")
     if args.iters < 1 or args.seeds < 1:
         raise ValueError("--iters and --seeds must be at least 1")
 
@@ -86,6 +87,8 @@ def main(argv=None) -> dict:
         in_embed = 128  # README.md:116-117 (128 for gridverse)
     else:
         env_name, metric, in_embed = "DiscreteCarFlag-v0", METRIC, 64
+    if args.bf16:
+        metric += "_bf16"
     seeds = args.seeds
     if seeds > 1:
         metric += f"_x{seeds}seeds"
@@ -101,6 +104,7 @@ def main(argv=None) -> dict:
         buffer_size=500_000,
         target_update_frequency=10_000,
         bag_size=args.bag,
+        bf16=args.bf16,
     )
     agent = Agent(cfg, make_env(env_name), device=args.device)
     on_card = agent.device.type == "cuda"

@@ -73,8 +73,8 @@ class ExperimentConfig:
     unroll: int = 4
     outer_unroll: int = 1
     dp_devices: int = 1  # data-parallel devices (not ported yet)
-    profile_dir: str = ""  # profiler trace output (not ported yet)
-    bf16: bool = False  # bfloat16 compute (not ported yet)
+    profile_dir: str = ""  # torch.profiler trace of one chunk
+    bf16: bool = False  # bfloat16 compute, float32 parameters
     # Exploration floor (reference: 0.1, run.py:420).  Raising it is the
     # non-parity HeavenHell loiter-breaking mitigation (VERDICT r4 item 3).
     eps_min: float = 0.1
@@ -102,6 +102,7 @@ class ExperimentConfig:
             bag_size=self.bag_size,
             bag_mask=self.bag_mask,
             bag_store=self.bag_store,
+            bf16=self.bf16,
         )
 
     @property
@@ -215,9 +216,12 @@ def get_args(argv=None) -> ExperimentConfig:
     p.add_argument("--dp-devices", type=int, default=d.dp_devices,
                    help="More than 1 is not ported yet.")
     p.add_argument("--profile-dir", type=str, default=d.profile_dir,
-                   help="Not ported yet.")
+                   help="Write a torch.profiler trace (Chrome JSON) of one "
+                        "train chunk under this directory.")
     p.add_argument("--bf16", action="store_true",
-                   help="Not ported yet.")
+                   help="Compute in bfloat16 (activations, matmuls, the "
+                        "attention kernels); parameters, optimizer state "
+                        "and the loss stay float32.")
     p.add_argument("--eps-min", type=float, default=d.eps_min,
                    help="Epsilon anneal floor (reference: 0.1). Raising it "
                         "is the HeavenHell loiter-breaking mitigation.")

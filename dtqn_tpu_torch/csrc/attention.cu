@@ -2,8 +2,12 @@
 //
 // Replaces dtqn_tpu/ops/pallas_attention.py: `_fwd_kernel` (launched by
 // `_fwd`) and `_bwd_kernel` (launched by `_bwd`).  Same layout and the same
-// arithmetic: q is [B, Lq, H*D], k and v are [B, Lk, H*D], all float32 and
-// contiguous; head h owns columns [h*D, (h+1)*D).  Per head:
+// arithmetic: q is [B, Lq, H*D], k and v are [B, Lk, H*D], contiguous, all
+// float32 or all bfloat16; head h owns columns [h*D, (h+1)*D).  As the
+// Pallas kernels do, every instance loads its element type into float32
+// registers, computes in float32 and stores its outputs (o; dq, dk, dv)
+// rounded to its element type (bfloat16: to nearest even, as XLA's
+// astype).  Per head:
 //   S = Q K^T * scale, masked to -1e30 where causal and col > row (top-left
 //   aligned, so the caller requires Lq == Lk when causal), P = softmax(S)
 //   with the row max subtracted, O = P V.
@@ -39,7 +43,10 @@
 //     holding one key in registers, which the forward re-loaded for every
 //     8-row tile): the block copies its head's rows into shared
 //     memory once with 16-byte cp.async copies (each head row is 64 bytes at
-//     a stride of H * D floats), in rows padded to D + 4 floats so that the
+//     a stride of H * D floats; in bfloat16 each 16-byte load of 8 values
+//     goes through registers and is stored converted, so the shared rows
+//     are float32 in both types and the bf16 form needs no bank analysis
+//     of its own), in rows padded to D + 4 floats so that the
 //     8 lanes of a quarter-warp reading neighbouring keys' 16-byte pieces
 //     fall on 8 different groups of 4 banks.  Forward: one block per
 //     (batch, head, tile of up to 64 query rows), so at Lq <= 64 one block
@@ -69,8 +76,12 @@
 // is small (the B = 1664 forward at D = 16 is 1.09 GFLOP, 0.016 ms at the
 // 67 TFLOP/s float32 rate, a third of its byte bound; at B = 32 latency
 // bounds it); a TMA box needs a tensor map encoded on the host for every
-// call, on a path the host already bounds.  bf16 instances, where tensor
-// cores might pay, are not built.
+// call, on a path the host already bounds.  The bfloat16 instances are the
+// float32 ones with other loads and stores: a register-keyed head row of 8
+// bf16 values is one 16-byte load; the staged form converts while staging
+// (below), so its shared memory, its padding and every shared read are
+// the float32 form's.  bf16 mma at head width 8-16, where tensor cores
+// might pay, is not written.
 //
 // Plain C interface (built with nvcc into a shared library and loaded with
 // ctypes).  The caller works out the launch configuration (instance, warps,
@@ -78,6 +89,7 @@
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() as an int; the caller raises when it is not 0.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -87,6 +99,10 @@
 // ops/cuda_attention.py INSTANCES lists the same pairs.
 #define DTQN_INSTANCES(X) \
   X(8, 1) X(8, 2) X(16, 2) X(8, 0) X(16, 0) X(32, 0) X(64, 0)
+
+// The element types, by the code the entry points take; every instance is
+// built in each.  ops/cuda_attention.py DTYPES lists them in code order.
+#define DTQN_DTYPES(X) X(0, float) X(1, __nv_bfloat16)
 
 namespace {
 
@@ -130,6 +146,59 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src, int d,
 #pragma unroll
     for (int c = 0; c < DP; ++c) r[c] = c < d ? __ldg(src + c) : 0.f;
   }
+}
+
+// Eight bfloat16 values (one 16-byte word) widened into r[0..8): a bf16 is
+// the upper half of the float32 with the same bits.
+__device__ __forceinline__ void widen8(const uint4 w, float* r) {
+  const unsigned x[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    r[2 * i] = __uint_as_float(x[i] << 16);
+    r[2 * i + 1] = __uint_as_float(x[i] & 0xffff0000u);
+  }
+}
+
+// The bfloat16 row, widened: with `vec`, DP / 8 16-byte loads.
+template <int DP>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ src,
+                                         int d, bool vec, float (&r)[DP]) {
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < DP; c += 8) {
+      widen8(__ldg(reinterpret_cast<const uint4*>(src + c)), r + c);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < DP; ++c) {
+      r[c] = c < d ? __bfloat162float(__ldg(src + c)) : 0.f;
+    }
+  }
+}
+
+// A float32 result as the element type: bfloat16 rounded to nearest even.
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Four consecutive results to dst (8- or 16-byte aligned): one store.
+__device__ __forceinline__ void store4(float* dst, float4 x) {
+  *reinterpret_cast<float4*>(dst) = x;
+}
+__device__ __forceinline__ unsigned bf16_bits(float f) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(f));
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x) {
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(bf16_bits(x.x) | bf16_bits(x.y) << 16,
+                 bf16_bits(x.z) | bf16_bits(x.w) << 16);
 }
 
 template <int DP>
@@ -210,6 +279,36 @@ __device__ __forceinline__ void stage_rows(float* dst,
   }
 }
 
+// The bfloat16 rows, widened while staging into the same float32 rows:
+// with `vec` each 16-byte load of 8 values goes through registers and is
+// stored as two float4, neighbouring threads on neighbouring pieces.
+template <int DP>
+__device__ __forceinline__ void stage_rows(
+    float* dst, const __nv_bfloat16* __restrict__ src, int n, int d, int e,
+    bool vec) {
+  constexpr int kRow = kStagedRow<DP>;
+  if (vec) {
+    constexpr int kPieces = DP / 8;
+    for (int x = threadIdx.x; x < n * kPieces; x += blockDim.x) {
+      const int r = x / kPieces;
+      const int c = (x - r * kPieces) * 8;
+      float w[8];
+      widen8(__ldg(reinterpret_cast<const uint4*>(src + (size_t)r * e + c)),
+             w);
+      float* to = dst + r * kRow + c;
+      *reinterpret_cast<float4*>(to) = make_float4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<float4*>(to + 4) = make_float4(w[4], w[5], w[6], w[7]);
+    }
+  } else {
+    for (int x = threadIdx.x; x < n * DP; x += blockDim.x) {
+      const int r = x / DP;
+      const int c = x - r * DP;
+      dst[r * kRow + c] =
+          c < d ? __bfloat162float(__ldg(src + (size_t)r * e + c)) : 0.f;
+    }
+  }
+}
+
 // Waits for this thread's copies, then for the whole block's.
 __device__ __forceinline__ void staged_barrier() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
@@ -231,9 +330,9 @@ __device__ __forceinline__ void shared_row(const float* src, float (&r)[DP]) {
 }
 
 // Sums acc over the warp and writes the row's d columns, divided by `norm`.
-template <int DP>
+template <int DP, typename T>
 __device__ __forceinline__ void write_row(float (&acc)[DP], int lane,
-                                          float* __restrict__ dst, int d,
+                                          T* __restrict__ dst, int d,
                                           float norm) {
   constexpr int kCols = DP >= 32 ? DP / 32 : 1;
   constexpr int kSpan = DP >= 32 ? 1 : 32 / DP;
@@ -241,18 +340,17 @@ __device__ __forceinline__ void write_row(float (&acc)[DP], int lane,
   if ((lane & (kSpan - 1)) == 0) {
 #pragma unroll
     for (int x = 0; x < kCols; ++x) {
-      if (col0 + x < d) dst[col0 + x] = acc[x] / norm;
+      if (col0 + x < d) dst[col0 + x] = narrow<T>(acc[x] / norm);
     }
   }
 }
 
 // Forward of the register and streamed forms.
-template <int DP, int KPL>
-__device__ __forceinline__ void fwd_lanes(const float* __restrict__ q,
-                                          const float* __restrict__ k,
-                                          const float* __restrict__ v,
-                                          float* __restrict__ o,
-                                          const Dims& s) {
+template <typename T, int DP, int KPL>
+__device__ __forceinline__ void fwd_lanes(const T* __restrict__ q,
+                                          const T* __restrict__ k,
+                                          const T* __restrict__ v,
+                                          T* __restrict__ o, const Dims& s) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -262,8 +360,8 @@ __device__ __forceinline__ void fwd_lanes(const float* __restrict__ q,
   const int row0 = blockIdx.y * s.rows_per_block;
   const int row_end = min(s.lq, row0 + s.rows_per_block);
   const size_t q_base = (size_t)b * s.lq * e + (size_t)h * s.d;
-  const float* kh = k + (size_t)b * s.lk * e + (size_t)h * s.d;
-  const float* vh = v + (size_t)b * s.lk * e + (size_t)h * s.d;
+  const T* kh = k + (size_t)b * s.lk * e + (size_t)h * s.d;
+  const T* vh = v + (size_t)b * s.lk * e + (size_t)h * s.d;
   const bool vec = s.vec != 0;
 
   constexpr int kSlots = KPL > 0 ? KPL : 1;
@@ -343,12 +441,12 @@ __device__ __forceinline__ void fwd_lanes(const float* __restrict__ q,
 
 // Forward of the staged form.  Shared memory: the tile's query rows, then
 // the head's K and V rows, [rows_per_block + 2 * Lk][DP + 4].
-template <int DP, int KPL>
-__device__ __forceinline__ void fwd_staged(const float* __restrict__ q,
-                                           const float* __restrict__ k,
-                                           const float* __restrict__ v,
-                                           float* __restrict__ o,
-                                           const Dims& s, float* smem) {
+template <typename T, int DP, int KPL>
+__device__ __forceinline__ void fwd_staged(const T* __restrict__ q,
+                                           const T* __restrict__ k,
+                                           const T* __restrict__ v,
+                                           T* __restrict__ o, const Dims& s,
+                                           float* smem) {
   constexpr int kRow = kStagedRow<DP>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -418,27 +516,26 @@ __device__ __forceinline__ void fwd_staged(const float* __restrict__ q,
 // The staged forward launches 256 threads but keeps CUDA's default bound of
 // 1024: at a bound of 256, ptxas fits a fifth block an SM into 48 registers
 // and spills 8 bytes; at 1024 it takes 58 and spills none.
-template <int DP, int KPL>
+template <typename T, int DP, int KPL>
 __global__ void __launch_bounds__((kStaged<DP, KPL> ? 1024 : 128))
-attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     Dims s) {
+attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o, Dims s) {
   extern __shared__ float4 shared4[];
   if constexpr (kStaged<DP, KPL>) {
-    fwd_staged<DP, KPL>(q, k, v, o, s, reinterpret_cast<float*>(shared4));
+    fwd_staged<T, DP, KPL>(q, k, v, o, s, reinterpret_cast<float*>(shared4));
   } else {
-    fwd_lanes<DP, KPL>(q, k, v, o, s);
+    fwd_lanes<T, DP, KPL>(q, k, v, o, s);
   }
 }
 
 // Backward with each lane's keys (K, V, dK, dV) in registers.  Shared
 // memory: the warps' dK and dV partials, [2][warps][Lk][DP].
-template <int DP, int KPL>
+template <typename T, int DP, int KPL>
 __device__ __forceinline__ void bwd_registers(
-    const float* __restrict__ qh, const float* __restrict__ kh,
-    const float* __restrict__ vh, const float* __restrict__ doh,
-    float* __restrict__ dqh, float* __restrict__ dkh, float* __restrict__ dvh,
-    const Dims& s, int e, float* smem) {
+    const T* __restrict__ qh, const T* __restrict__ kh,
+    const T* __restrict__ vh, const T* __restrict__ doh, T* __restrict__ dqh,
+    T* __restrict__ dkh, T* __restrict__ dvh, const Dims& s, int e,
+    float* smem) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -532,19 +629,19 @@ __device__ __forceinline__ void bwd_registers(
       sk += part_k[at];
       sv += part_v[at];
     }
-    dkh[(size_t)j * e + c] = sk;
-    dvh[(size_t)j * e + c] = sv;
+    dkh[(size_t)j * e + c] = narrow<T>(sk);
+    dvh[(size_t)j * e + c] = narrow<T>(sv);
   }
 }
 
 // Backward for any Lk.  Shared memory: each row's max, sum and
 // rowsum(dP * P), [3][Lq].
-template <int DP>
+template <typename T, int DP>
 __device__ __forceinline__ void bwd_streamed(
-    const float* __restrict__ qh, const float* __restrict__ kh,
-    const float* __restrict__ vh, const float* __restrict__ doh,
-    float* __restrict__ dqh, float* __restrict__ dkh, float* __restrict__ dvh,
-    const Dims& s, int e, float* smem) {
+    const T* __restrict__ qh, const T* __restrict__ kh,
+    const T* __restrict__ vh, const T* __restrict__ doh, T* __restrict__ dqh,
+    T* __restrict__ dkh, T* __restrict__ dvh, const Dims& s, int e,
+    float* smem) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -626,8 +723,8 @@ __device__ __forceinline__ void bwd_streamed(
 #pragma unroll
     for (int c = 0; c < DP; ++c) {
       if (c < s.d) {
-        dkh[(size_t)j * e + c] = dka[c];
-        dvh[(size_t)j * e + c] = dva[c];
+        dkh[(size_t)j * e + c] = narrow<T>(dka[c]);
+        dvh[(size_t)j * e + c] = narrow<T>(dva[c]);
       }
     }
   }
@@ -635,12 +732,12 @@ __device__ __forceinline__ void bwd_streamed(
 
 // Backward of the staged form.  Shared memory: Q and dO rows [2][Lq][DP + 4],
 // K and V rows [2][Lk][DP + 4], then the P and dS tiles [2][Lq][Lk].
-template <int DP, int KPL>
+template <typename T, int DP, int KPL>
 __device__ __forceinline__ void bwd_staged(
-    const float* __restrict__ qh, const float* __restrict__ kh,
-    const float* __restrict__ vh, const float* __restrict__ doh,
-    float* __restrict__ dqh, float* __restrict__ dkh, float* __restrict__ dvh,
-    const Dims& s, int e, float* smem) {
+    const T* __restrict__ qh, const T* __restrict__ kh,
+    const T* __restrict__ vh, const T* __restrict__ doh, T* __restrict__ dqh,
+    T* __restrict__ dkh, T* __restrict__ dvh, const Dims& s, int e,
+    float* smem) {
   constexpr int kRow = kStagedRow<DP>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -741,25 +838,25 @@ __device__ __forceinline__ void bwd_staged(
       acc.z = fmaf(a, y.z, acc.z);
       acc.w = fmaf(a, y.w, acc.w);
     }
-    float* dst = (is_v ? dvh : dkh) + (size_t)j * e + c;
+    T* dst = (is_v ? dvh : dkh) + (size_t)j * e + c;
     if (vec) {
-      *reinterpret_cast<float4*>(dst) = acc;
+      store4(dst, acc);
     } else {
       const float out[4] = {acc.x, acc.y, acc.z, acc.w};
 #pragma unroll
       for (int x4 = 0; x4 < 4; ++x4) {
-        if (c + x4 < s.d) dst[x4] = out[x4];
+        if (c + x4 < s.d) dst[x4] = narrow<T>(out[x4]);
       }
     }
   }
 }
 
-template <int DP, int KPL>
+template <typename T, int DP, int KPL>
 __global__ void __launch_bounds__(256)
-attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout, float* __restrict__ dq,
-                     float* __restrict__ dk, float* __restrict__ dv, Dims s) {
+attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     T* __restrict__ dq, T* __restrict__ dk,
+                     T* __restrict__ dv, Dims s) {
   extern __shared__ float4 shared4[];
   float* smem = reinterpret_cast<float*>(shared4);
   const int b = blockIdx.x / s.heads;
@@ -768,33 +865,36 @@ attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t q_off = (size_t)b * s.lq * e + (size_t)h * s.d;
   const size_t kv_off = (size_t)b * s.lk * e + (size_t)h * s.d;
   if constexpr (kStaged<DP, KPL>) {
-    bwd_staged<DP, KPL>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
+    bwd_staged<T, DP, KPL>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
                         dq + q_off, dk + kv_off, dv + kv_off, s, e, smem);
   } else if constexpr (KPL > 0) {
-    bwd_registers<DP, KPL>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
+    bwd_registers<T, DP, KPL>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
                            dq + q_off, dk + kv_off, dv + kv_off, s, e, smem);
   } else {
-    bwd_streamed<DP>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
+    bwd_streamed<T, DP>(q + q_off, k + kv_off, v + kv_off, dout + q_off,
                      dq + q_off, dk + kv_off, dv + kv_off, s, e, smem);
   }
 }
 
-using FwdKernel = void (*)(const float*, const float*, const float*, float*,
-                           Dims);
-using BwdKernel = void (*)(const float*, const float*, const float*,
-                           const float*, float*, float*, float*, Dims);
+template <typename T>
+using FwdKernel = void (*)(const T*, const T*, const T*, T*, Dims);
+template <typename T>
+using BwdKernel = void (*)(const T*, const T*, const T*, const T*, T*, T*,
+                           T*, Dims);
 
-FwdKernel fwd_instance(int dp, int kpl) {
+template <typename T>
+FwdKernel<T> fwd_instance(int dp, int kpl) {
 #define DTQN_PICK(D, K) \
-  if (dp == D && kpl == K) return attention_fwd_kernel<D, K>;
+  if (dp == D && kpl == K) return attention_fwd_kernel<T, D, K>;
   DTQN_INSTANCES(DTQN_PICK)
 #undef DTQN_PICK
   return nullptr;
 }
 
-BwdKernel bwd_instance(int dp, int kpl) {
+template <typename T>
+BwdKernel<T> bwd_instance(int dp, int kpl) {
 #define DTQN_PICK(D, K) \
-  if (dp == D && kpl == K) return attention_bwd_kernel<D, K>;
+  if (dp == D && kpl == K) return attention_bwd_kernel<T, D, K>;
   DTQN_INSTANCES(DTQN_PICK)
 #undef DTQN_PICK
   return nullptr;
@@ -822,15 +922,12 @@ Dims make_dims(int lq, int lk, int heads, int head_dim, int causal,
   return s;
 }
 
-}  // namespace
-
-extern "C" {
-
-int dtqn_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                       int batch, int lq, int lk, int heads, int head_dim,
-                       int causal, float scale, int dp, int kpl, int warps,
-                       int rows_per_block, int smem_bytes, void* stream) {
-  const FwdKernel kernel = fwd_instance(dp, kpl);
+template <typename T>
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               int batch, int lq, int lk, int heads, int head_dim, int causal,
+               float scale, int dp, int kpl, int warps, int rows_per_block,
+               int smem_bytes, void* stream) {
+  const FwdKernel<T> kernel = fwd_instance<T>(dp, kpl);
   if (kernel == nullptr || rows_per_block < 1) {
     return (int)cudaErrorInvalidValue;
   }
@@ -841,16 +938,17 @@ int dtqn_attention_fwd(const void* q, const void* k, const void* v, void* o,
       (uintptr_t)q | (uintptr_t)k | (uintptr_t)v);
   const dim3 grid(batch * heads, (lq + rows_per_block - 1) / rows_per_block);
   kernel<<<grid, warps * 32, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, s);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, s);
   return (int)cudaGetLastError();
 }
 
-int dtqn_attention_bwd(const void* q, const void* k, const void* v,
-                       const void* dout, void* dq, void* dk, void* dv,
-                       int batch, int lq, int lk, int heads, int head_dim,
-                       int causal, float scale, int dp, int kpl, int warps,
-                       int rows_per_block, int smem_bytes, void* stream) {
-  const BwdKernel kernel = bwd_instance(dp, kpl);
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               void* dq, void* dk, void* dv, int batch, int lq, int lk,
+               int heads, int head_dim, int causal, float scale, int dp,
+               int kpl, int warps, int rows_per_block, int smem_bytes,
+               void* stream) {
+  const BwdKernel<T> kernel = bwd_instance<T>(dp, kpl);
   if (kernel == nullptr || rows_per_block != lq) {
     return (int)cudaErrorInvalidValue;
   }
@@ -861,9 +959,47 @@ int dtqn_attention_bwd(const void* q, const void* k, const void* v,
       (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout |
           (uintptr_t)dk | (uintptr_t)dv);
   kernel<<<batch * heads, warps * 32, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (float*)dq, (float*)dk, (float*)dv, s);
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (T*)dq, (T*)dk,
+      (T*)dv, s);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// `dtype` is the element type's code in DTQN_DTYPES.
+int dtqn_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                       int dtype, int batch, int lq, int lk, int heads,
+                       int head_dim, int causal, float scale, int dp, int kpl,
+                       int warps, int rows_per_block, int smem_bytes,
+                       void* stream) {
+#define DTQN_TYPED(CODE, T)                                                 \
+  if (dtype == CODE) {                                                      \
+    return launch_fwd<T>(q, k, v, o, batch, lq, lk, heads, head_dim, causal, \
+                         scale, dp, kpl, warps, rows_per_block, smem_bytes,  \
+                         stream);                                           \
+  }
+  DTQN_DTYPES(DTQN_TYPED)
+#undef DTQN_TYPED
+  return (int)cudaErrorInvalidValue;
+}
+
+int dtqn_attention_bwd(const void* q, const void* k, const void* v,
+                       const void* dout, void* dq, void* dk, void* dv,
+                       int dtype, int batch, int lq, int lk, int heads,
+                       int head_dim, int causal, float scale, int dp, int kpl,
+                       int warps, int rows_per_block, int smem_bytes,
+                       void* stream) {
+#define DTQN_TYPED(CODE, T)                                                   \
+  if (dtype == CODE) {                                                        \
+    return launch_bwd<T>(q, k, v, dout, dq, dk, dv, batch, lq, lk, heads,      \
+                         head_dim, causal, scale, dp, kpl, warps,             \
+                         rows_per_block, smem_bytes, stream);                 \
+  }
+  DTQN_DTYPES(DTQN_TYPED)
+#undef DTQN_TYPED
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* dtqn_cuda_error_string(int code) {

@@ -50,10 +50,14 @@ def build_network(
     bag_size: int = 0,
     bag_mask: bool = False,
     generator: Optional[torch.Generator] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> nn.Module:
     """Builds the network on the CPU; the caller moves it to its device.
     The transformer's options (heads, layers, gate, ...) reach DTQN only,
-    as in the JAX package."""
+    as in the JAX package.  ``compute_dtype`` (None: float32, or
+    ``torch.bfloat16``) is the JAX package's ``set_compute_dtype``: the
+    parameters stay float32 and the layers flax builds with
+    ``dtype=compute_dtype()`` compute in it."""
     if model_str not in MODEL_MAP:
         raise KeyError(
             f"Unknown model {model_str!r}; choices: {sorted(MODEL_MAP)}"
@@ -66,6 +70,7 @@ def build_network(
         embed_per_obs_dim=embed_per_obs_dim,
         inner_embed=inner_embed,
         generator=generator,
+        compute_dtype=compute_dtype,
     )
     if model_str == "DQN":
         return DQN(**common)

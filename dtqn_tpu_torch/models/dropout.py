@@ -1,7 +1,9 @@
 """Train-mode dropout with explicit draws (flax's ``nn.Dropout``).
 
 flax keeps an element with probability ``keep = 1 - rate`` (``bernoulli``,
-i.e. a uniform draw below ``keep``) and returns ``where(kept, x / keep, 0)``.
+i.e. a uniform draw below ``keep``) and returns ``where(kept, x / keep, 0)``
+in ``x``'s dtype: ``keep`` is a weakly typed Python float, so jnp rounds
+it to that dtype first (to 0.8984375 for 0.9 in bfloat16).
 ``DropoutDraws`` is the randomness of one stochastic forward: each dropout
 site of the network calls it once, in forward order (the input, then per
 layer the attention probabilities and the FFN output, then the bag
@@ -45,7 +47,9 @@ class DropoutDraws:
         else:
             keep = torch.rand(x.shape, generator=self.generator,
                               device=x.device) < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+        # keep_prob as jnp sees it beside x: rounded to x's dtype.
+        scale = torch.tensor(keep_prob, dtype=x.dtype).item()
+        return torch.where(keep, x / scale, torch.zeros_like(x))
 
 
 def apply_dropout(x: torch.Tensor, rate: float,

@@ -11,6 +11,12 @@ With ``bag_size > 0`` (DTQN-bag) the working memory cross-attends over the
 embedded persistent-memory bag (query = context, keys and values = bag) and
 the result is concatenated to it in front of a head whose first layer takes
 ``2 * inner_embed`` inputs (dtqn.py:134-153,201-214).
+
+Under a bfloat16 ``compute_dtype`` the embeddings, the projections, the
+attention, the FFNs and the head compute in bf16 and Q is bf16; the
+position add (float32 positions) makes the residual stream float32, and
+the bag's concat promotes its bf16 half to float32, as jnp's promotion
+does in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ class DTQN(nn.Module):
         bag_mask: bool = False,
         obs_mask_value: float = 0.0,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         """``bag_mask`` (an ablation) hides mask-padded bag slots from the
         cross-attention instead of attending over them as the reference
@@ -77,27 +84,30 @@ class DTQN(nn.Module):
             vocab_size=vocab_size,
             embed_per_obs_dim=embed_per_obs_dim,
             generator=generator,
+            compute_dtype=compute_dtype,
         )
         self.action_embed = (
-            ActionEmbedding(num_actions, action_dim, generator)
+            ActionEmbedding(num_actions, action_dim, generator, compute_dtype)
             if action_dim > 0
             else None
         )
         self.position = PositionEncoding(pos, context_len, inner_embed)
         self.layers = nn.ModuleList(
             TransformerLayer(inner_embed, num_heads, dropout, gate, identity,
-                             generator)
+                             generator, compute_dtype)
             for _ in range(num_layers)
         )
         self.bag_attention = (
             MultiHeadAttention(inner_embed, num_heads, dropout, generator,
-                               cross=True)
+                               cross=True, compute_dtype=compute_dtype)
             if bag_size > 0
             else None
         )
         head_in = 2 * inner_embed if bag_size > 0 else inner_embed
-        self.head_hidden = make_dense(head_in, inner_embed, generator)
-        self.head_out = make_dense(inner_embed, num_actions, generator)
+        self.head_hidden = make_dense(head_in, inner_embed, generator,
+                                      compute_dtype=compute_dtype)
+        self.head_out = make_dense(inner_embed, num_actions, generator,
+                                   compute_dtype=compute_dtype)
 
     def forward(
         self,

@@ -4,6 +4,10 @@ The discrete-obs token Embedding -> flatten -> Linear
 (representations.py:26-52), the continuous-obs Linear
 (representations.py:64-75), the image CNN (representations.py:77-130) and
 the action Embedding (representations.py:146-155).
+
+With a compute dtype (bfloat16) each layer computes as flax's does with
+``dtype=compute_dtype()``: an embedding looks up its table rounded to that
+dtype, a convolution and a Linear cast their input, weight and bias to it.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dtqn_tpu_torch.envs.core import ObsKind
-from dtqn_tpu_torch.models.init import make_dense, normal_
+from dtqn_tpu_torch.models.init import in_compute_dtype, make_dense, normal_
 
 
 class _Lookup(torch.autograd.Function):
@@ -31,6 +35,10 @@ class _Lookup(torch.autograd.Function):
     Under ``torch.func.vmap`` (one table per seed) the ``vmap`` rule stacks
     the tables into one of S*V rows, offsets each seed's tokens by its
     block, and makes one lookup.
+
+    The product runs in the gradient's dtype: in bfloat16 it sums each
+    row's products in float32 and rounds once, where the JAX package's
+    scatter-add of the bf16 table's gradient rounds after each add.
     """
 
     @staticmethod
@@ -72,17 +80,20 @@ class DiscreteObsEmbedding(nn.Module):
 
     def __init__(self, vocab_size: int, obs_dim: int, embed_per_obs_dim: int,
                  features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.embedding = nn.Embedding(vocab_size, embed_per_obs_dim)
         normal_(self.embedding.weight, generator)
         self.dense_0 = make_dense(obs_dim * embed_per_obs_dim, features,
-                                  generator)
+                                  generator, compute_dtype=compute_dtype)
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         # obs: [..., obs_dim] int32 tokens (mask token == vocab_size - 1),
         # looked up as they are: no widening copy per call.
-        tok = lookup(self.embedding.weight, obs)
+        tok = lookup(in_compute_dtype(self.embedding.weight,
+                                      self.compute_dtype), obs)
         return self.dense_0(tok.flatten(-2))
 
 
@@ -90,9 +101,11 @@ class ContinuousObsEmbedding(nn.Module):
     """Linear projection for Box observations."""
 
     def __init__(self, obs_dim: int, features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.dense_0 = make_dense(obs_dim, features, generator)
+        self.dense_0 = make_dense(obs_dim, features, generator,
+                                  compute_dtype=compute_dtype)
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         return self.dense_0(obs.to(torch.float32))
@@ -109,27 +122,37 @@ class Conv3x3(nn.Module):
     follow PyTorch's float32 matmul precision (TF32 off unless the caller
     turns it on), where a cuDNN convolution would take TF32 by default.
     (``F.unfold`` would launch one im2col kernel per image on the card.)
-    The weight is torch's OIHW, N(0, 0.02); the bias zero.
+    The weight is torch's OIHW, N(0, 0.02); the bias zero.  With a compute
+    dtype the image, weight and bias are cast to it (flax's ``nn.Conv``
+    with ``dtype``): the patches and the GEMM are in that dtype, and the
+    bias is added to the rounded product, as flax adds it.
     """
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.stride = stride
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, 3, 3))
         normal_(self.weight, generator)
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
         # [N, OH, OW, C, 3, 3]: each output pixel's patch in (C, kh, kw)
         # order, as the OIHW weight flattens.
-        patches = F.pad(x, (0, 0, 1, 1, 1, 1)).unfold(
+        patches = F.pad(in_compute_dtype(x, cd), (0, 0, 1, 1, 1, 1)).unfold(
             1, 3, self.stride).unfold(2, 3, self.stride)
         n, oh, ow = patches.shape[:3]
-        out = F.linear(patches.reshape(n * oh * ow, -1),
-                       self.weight.reshape(self.weight.shape[0], -1),
-                       self.bias)
+        weight = self.weight.reshape(self.weight.shape[0], -1)
+        if cd is None:
+            out = F.linear(patches.reshape(n * oh * ow, -1), weight,
+                           self.bias)
+        else:  # flax rounds the convolution, then adds the bias
+            out = F.linear(patches.reshape(n * oh * ow, -1),
+                           weight.to(cd)) + self.bias.to(cd)
         return out.reshape(n, oh, ow, -1)
 
 
@@ -144,15 +167,18 @@ class ImageObsEmbedding(nn.Module):
     reads the features it was trained on."""
 
     def __init__(self, obs_shape: Tuple[int, int, int], features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         c, h, w = obs_shape
         self.obs_shape = (c, h, w)
         self.features = features
         for i, (out_ch, stride) in enumerate(zip(CNN_CHANNELS, CNN_STRIDES)):
-            setattr(self, f"conv_{i}", Conv3x3(c, out_ch, stride, generator))
+            setattr(self, f"conv_{i}",
+                    Conv3x3(c, out_ch, stride, generator, compute_dtype))
             c, h, w = out_ch, (h - 1) // stride + 1, (w - 1) // stride + 1
-        self.dense_0 = make_dense(c * h * w, features, generator)
+        self.dense_0 = make_dense(c * h * w, features, generator,
+                                  compute_dtype=compute_dtype)
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         prefix = obs.shape[:-3]
@@ -170,13 +196,16 @@ class ActionEmbedding(nn.Module):
     bit (ADRQN trains it on every step)."""
 
     def __init__(self, num_actions: int, action_dim: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.embedding = nn.Embedding(num_actions, action_dim)
         normal_(self.embedding.weight, generator)
 
     def forward(self, actions: torch.Tensor) -> torch.Tensor:
-        return lookup(self.embedding.weight, actions)
+        return lookup(in_compute_dtype(self.embedding.weight,
+                                       self.compute_dtype), actions)
 
 
 def make_obs_embedding(
@@ -187,13 +216,16 @@ def make_obs_embedding(
     vocab_size: int = 0,
     embed_per_obs_dim: int = 8,
     generator: Optional[torch.Generator] = None,
+    compute_dtype: Optional[torch.dtype] = None,
 ) -> nn.Module:
     """The obs embedder for the env's observation kind (dtqn.py:71-94)."""
     if obs_kind == ObsKind.IMAGE:
-        return ImageObsEmbedding(tuple(obs_shape), features, generator)
+        return ImageObsEmbedding(tuple(obs_shape), features, generator,
+                                 compute_dtype)
     if obs_kind == ObsKind.DISCRETE:
         return DiscreteObsEmbedding(
             vocab_size, int(obs_shape[0]), embed_per_obs_dim, features,
-            generator,
+            generator, compute_dtype,
         )
-    return ContinuousObsEmbedding(int(obs_shape[0]), features, generator)
+    return ContinuousObsEmbedding(int(obs_shape[0]), features, generator,
+                                  compute_dtype)

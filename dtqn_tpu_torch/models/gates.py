@@ -34,6 +34,10 @@ class GRUGate(nn.Module):
                     make_dense(features, features, generator, bias=False))
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        # flax's nn.Dense without a dtype promotes its input with its float32
+        # kernel: under a bfloat16 compute dtype the gate still computes in
+        # float32 (y, the attention or FFN output, arrives in bfloat16).
+        y = y.to(torch.float32)
         z = torch.sigmoid(self.w_z(y) + self.u_z(x))
         r = torch.sigmoid(self.w_r(y) + self.u_r(x))
         h = torch.tanh(self.w_g(y) + self.u_g(r * x))

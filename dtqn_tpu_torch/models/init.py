@@ -3,10 +3,16 @@
 Every Linear/Embedding weight is N(0, 0.02), every bias zero, LayerNorm
 (1, 0) (the reference's utils/torch_utils.py:4-15); the LSTM cells keep
 flax's own families (LeCun-normal input kernels, orthogonal recurrent
-kernels, zero biases).  Parameters are float32 only; the JAX package's
-bf16 compute dtype is not ported.  Draws come from an explicit CPU
-``torch.Generator``, so a seed gives the same weights whatever device the
-module later moves to.
+kernels, zero biases).  Parameters are float32 only.  Draws come from an
+explicit CPU ``torch.Generator``, so a seed gives the same weights whatever
+device the module later moves to.
+
+The compute dtype (the JAX package's ``set_compute_dtype``) is not a global
+here: ``build_network(..., compute_dtype=torch.bfloat16)`` hands it to the
+layers that flax builds with ``dtype=compute_dtype()`` (``make_dense``'s
+``Dense``, the embedding tables, the CNN's convolutions), and every other
+operation takes its dtype from torch's type promotion, which for these
+operations is jnp's (float32 + bfloat16 -> float32).
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 WEIGHT_INIT_STD = 0.02
@@ -32,14 +39,45 @@ def normal_(tensor: torch.Tensor, generator: Optional[torch.Generator]):
     return tensor
 
 
+class Dense(nn.Linear):
+    """flax's ``nn.Dense(dtype=compute_dtype, param_dtype=float32)``: with
+    a compute dtype it casts its input, weight and bias to it, so the
+    product and the output are in that dtype; without one it is
+    ``nn.Linear``.  The parameters stay float32.  As in flax, the product
+    is rounded to the compute dtype before the bias is added (a fused
+    ``addmm`` would round once, and differ from flax in the last bit)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        if cd is None:
+            return super().forward(x)
+        y = F.linear(x.to(cd), self.weight.to(cd))
+        return y if self.bias is None else y + self.bias.to(cd)
+
+
+def in_compute_dtype(x: torch.Tensor,
+                     compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """``x`` cast to the compute dtype, or as it is without one."""
+    return x if compute_dtype is None else x.to(compute_dtype)
+
+
 def make_dense(
     in_features: int,
     out_features: int,
     generator: Optional[torch.Generator] = None,
     bias: bool = True,
-) -> nn.Linear:
-    """Linear layer with the reference's N(0, 0.02) / zeros init."""
-    layer = nn.Linear(in_features, out_features, bias=bias)
+    compute_dtype: Optional[torch.dtype] = None,
+) -> Dense:
+    """Linear layer with the reference's N(0, 0.02) / zeros init, computing
+    in ``compute_dtype`` (float32 when None)."""
+    layer = Dense(in_features, out_features, bias=bias,
+                  compute_dtype=compute_dtype)
     normal_(layer.weight, generator)
     if bias:
         nn.init.zeros_(layer.bias)

@@ -19,6 +19,11 @@ order, as the named tuple ``LSTMCarry``.  The LSTM holds exactly flax's
 in one product, and the hidden kernels ``hi|hf|hg|ho`` with their biases as
 one ``hidden_proj`` [4E, E], one product per step.  Every step is stock
 torch ops (no cuDNN RNN, whose backward need not repeat bit for bit).
+
+Under a bfloat16 ``compute_dtype`` the embeddings, the Q head and DARQN's
+soft attention compute in bf16, as flax's ``make_dense`` layers do; the
+LSTM, which flax builds without a dtype, promotes its bf16 input with its
+float32 parameters and computes in float32, its carry included.
 """
 
 from __future__ import annotations
@@ -57,10 +62,13 @@ class QHead(nn.Module):
     ``hidden``."""
 
     def __init__(self, inner_embed: int, num_actions: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.hidden = make_dense(inner_embed, inner_embed, generator)
-        self.out = make_dense(inner_embed, num_actions, generator)
+        self.hidden = make_dense(inner_embed, inner_embed, generator,
+                                 compute_dtype=compute_dtype)
+        self.out = make_dense(inner_embed, num_actions, generator,
+                              compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(torch.relu(self.hidden(x)))
@@ -104,7 +112,8 @@ class LSTM(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 carry: LSTMCarry) -> Tuple[torch.Tensor, LSTMCarry]:
-        x_proj = self.cell.input_proj(x)  # the whole window in one product
+        # The whole window in one product, in float32 (flax promotes).
+        x_proj = self.cell.input_proj(x.to(torch.float32))
         ys = []
         for t in range(x.shape[1]):
             carry = self.cell.step(x_proj[:, t], carry)
@@ -123,14 +132,16 @@ class DQN(nn.Module):
         embed_per_obs_dim: int = 8,
         inner_embed: int = 128,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.obs_embedding = make_obs_embedding(
             features=inner_embed, obs_kind=obs_kind, obs_shape=obs_shape,
             vocab_size=vocab_size, embed_per_obs_dim=embed_per_obs_dim,
-            generator=generator,
+            generator=generator, compute_dtype=compute_dtype,
         )
-        self.q_head = QHead(inner_embed, num_actions, generator)
+        self.q_head = QHead(inner_embed, num_actions, generator,
+                            compute_dtype)
 
     def forward(self, obss: torch.Tensor, actions=None) -> torch.Tensor:
         """obss: [B, L, *obs_shape] -> Q [B, L, A]; ``actions`` unused."""
@@ -153,20 +164,24 @@ class _RecurrentBase(nn.Module):
         inner_embed: int = 128,
         action_dim: int = 0,
         generator: Optional[torch.Generator] = None,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.inner_embed = inner_embed
+        self.compute_dtype = compute_dtype
         self.obs_embedding = make_obs_embedding(
             features=inner_embed - action_dim, obs_kind=obs_kind,
             obs_shape=obs_shape, vocab_size=vocab_size,
             embed_per_obs_dim=embed_per_obs_dim, generator=generator,
+            compute_dtype=compute_dtype,
         )
         self.action_embed = (
-            ActionEmbedding(num_actions, action_dim, generator)
+            ActionEmbedding(num_actions, action_dim, generator, compute_dtype)
             if action_dim > 0
             else None
         )
-        self.q_head = QHead(inner_embed, num_actions, generator)
+        self.q_head = QHead(inner_embed, num_actions, generator,
+                            compute_dtype)
 
     def _tokens(self, obss, actions) -> torch.Tensor:
         tokens = self.obs_embedding(obss)
@@ -221,11 +236,16 @@ class SoftAttention(nn.Module):
     """g(v, h) = softmax(linear2(tanh(linear(v) + W h))) (darqn.py:9-24)."""
 
     def __init__(self, features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.W = make_dense(features, features, generator, bias=False)
-        self.linear = make_dense(features, features, generator)
-        self.linear2 = make_dense(features, features, generator)
+        cd = compute_dtype
+        self.W = make_dense(features, features, generator, bias=False,
+                            compute_dtype=cd)
+        self.linear = make_dense(features, features, generator,
+                                 compute_dtype=cd)
+        self.linear2 = make_dense(features, features, generator,
+                                  compute_dtype=cd)
 
     def forward(self, linear_x: torch.Tensor,
                 h: torch.Tensor) -> torch.Tensor:
@@ -238,9 +258,10 @@ class DARQNCore(nn.Module):
     """The attend-then-LSTM step (darqn.py:72-83)."""
 
     def __init__(self, features: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.attention = SoftAttention(features, generator)
+        self.attention = SoftAttention(features, generator, compute_dtype)
         self.cell = LSTMCell(features, features, generator)
 
     def forward(self, tokens: torch.Tensor,
@@ -251,7 +272,8 @@ class DARQNCore(nn.Module):
         ys = []
         for t in range(tokens.shape[1]):
             attn = self.attention(linear_x[:, t], carry.h)
-            carry = self.cell.step(self.cell.input_proj(attn), carry)
+            carry = self.cell.step(
+                self.cell.input_proj(attn.to(torch.float32)), carry)
             ys.append(carry.h)
         return torch.stack(ys, dim=1), carry
 
@@ -260,7 +282,8 @@ class DARQN(_RecurrentBase):
     def __init__(self, *, generator: Optional[torch.Generator] = None,
                  **kw):
         super().__init__(generator=generator, **kw)
-        self.core = DARQNCore(self.inner_embed, generator)
+        self.core = DARQNCore(self.inner_embed, generator,
+                              self.compute_dtype)
 
     def forward(
         self,

@@ -9,6 +9,13 @@ The attention core dispatches by device through
 ``dtqn_tpu_torch.ops.attention``; a train-mode forward with dropout takes
 the attention probabilities in stock ops instead, drops them out, and never
 reaches the kernels, as in the JAX package.
+
+With a compute dtype (bfloat16) the projections, the attention and the FFN
+run in it; the residual stream stays float32 (the position add promotes),
+so the gates and the two LayerNorms compute in float32, as flax's do.
+torch's LayerNorm would return bfloat16 for a bfloat16 input where flax's
+returns float32: ``TransformerLayer`` refuses a residual stream that is
+not float32 rather than cast it.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, features: int, num_heads: int, dropout: float = 0.0,
                  generator: Optional[torch.Generator] = None,
-                 cross: bool = False):
+                 cross: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if features % num_heads:
             raise ValueError("features must divide num_heads")
@@ -52,13 +60,19 @@ class MultiHeadAttention(nn.Module):
         self.dropout = dropout
         self.maps: Optional[List[torch.Tensor]] = None
         self.cross = cross
+        cd = compute_dtype
         if cross:
-            self.query = make_dense(features, features, generator)
-            self.key = make_dense(features, features, generator)
-            self.value = make_dense(features, features, generator)
+            self.query = make_dense(features, features, generator,
+                                    compute_dtype=cd)
+            self.key = make_dense(features, features, generator,
+                                  compute_dtype=cd)
+            self.value = make_dense(features, features, generator,
+                                    compute_dtype=cd)
         else:
-            self.qkv = make_dense(features, 3 * features, generator)
-        self.out = make_dense(features, features, generator)
+            self.qkv = make_dense(features, 3 * features, generator,
+                                  compute_dtype=cd)
+        self.out = make_dense(features, features, generator,
+                              compute_dtype=cd)
 
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None, *,
                 causal: bool = False,
@@ -101,11 +115,14 @@ class FeedForward(nn.Module):
 
     def __init__(self, features: int, widening: int = 4,
                  dropout: float = 0.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
-        self.dense_0 = make_dense(features, widening * features, generator)
-        self.dense_1 = make_dense(widening * features, features, generator)
+        self.dense_0 = make_dense(features, widening * features, generator,
+                                  compute_dtype=compute_dtype)
+        self.dense_1 = make_dense(widening * features, features, generator,
+                                  compute_dtype=compute_dtype)
 
     def forward(self, x: torch.Tensor,
                 draws: Optional[DropoutDraws] = None) -> torch.Tensor:
@@ -116,13 +133,16 @@ class FeedForward(nn.Module):
 class TransformerLayer(nn.Module):
     def __init__(self, features: int, num_heads: int, dropout: float = 0.0,
                  gate: str = "res", identity: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.identity = identity
         self.attention = MultiHeadAttention(
-            features, num_heads, dropout, generator
+            features, num_heads, dropout, generator,
+            compute_dtype=compute_dtype,
         )
-        self.ffn = FeedForward(features, dropout=dropout, generator=generator)
+        self.ffn = FeedForward(features, dropout=dropout, generator=generator,
+                               compute_dtype=compute_dtype)
         self.attn_gate = make_gate(gate, features, generator)
         self.mlp_gate = make_gate(gate, features, generator)
         self.layernorm1 = nn.LayerNorm(features, eps=LAYERNORM_EPS)
@@ -130,6 +150,11 @@ class TransformerLayer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 draws: Optional[DropoutDraws] = None) -> torch.Tensor:
+        if x.dtype != torch.float32:
+            # Every LayerNorm input is this stream plus a gate's output,
+            # float32 by promotion; flax's LayerNorm computes it in float32.
+            raise TypeError(f"the residual stream must be float32, got "
+                            f"{x.dtype}")
         if self.identity:
             att = self.attention(self.layernorm1(x), causal=True, draws=draws)
             x = self.attn_gate(x, torch.relu(att))

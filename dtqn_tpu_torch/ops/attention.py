@@ -15,7 +15,12 @@ device.
 ``plain_attention_packed`` is the plain reference of the JAX package's XLA
 path (``_xla_attention``): scores masked with ``finfo.min`` under a
 bottom-right-aligned causal mask and the key mask, differentiated by
-autograd.
+autograd.  Its scores, mask and softmax are in the inputs' dtype, as
+``_xla_attention``'s are: under a bfloat16 compute dtype every step is
+rounded to bf16 (the kernels, and their plain versions, compute in float32
+inside, as the Pallas kernels do).  The JAX package's default ``--attention
+xla`` computes even its unmasked attention that way; the port follows the
+Pallas semantics there on both devices.
 """
 
 from __future__ import annotations
@@ -58,7 +63,18 @@ def attention_probs(
         scores = torch.where(
             kv_mask[:, None, None, :], scores, torch.finfo(scores.dtype).min
         )
-    return torch.softmax(scores, dim=-1)
+    return _softmax(scores)
+
+
+def _softmax(scores: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis.  In float32 ``torch.softmax``
+    agrees with it within rounding; in a narrower dtype jnp rounds after
+    each of its steps (shift by the max, exp, sum, divide), where
+    ``torch.softmax`` rounds once, so its steps are taken one by one."""
+    if scores.dtype == torch.float32:
+        return torch.softmax(scores, dim=-1)
+    e = torch.exp(scores - scores.amax(dim=-1, keepdim=True).detach())
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def apply_probs(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

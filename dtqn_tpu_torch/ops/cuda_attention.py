@@ -29,9 +29,18 @@ the C entry point launches that instance.  No tensor cores (TF32 keeps
 about three digits, and at D = 8 a wgmma tile is mostly padding) and no
 TMA (a tensor map would be encoded on the host for every call).
 
+Every instance is built for float32 and for bfloat16 (``DTYPES``).  As the
+Pallas kernels do, a bfloat16 instance loads bf16, computes in float32 and
+stores its outputs rounded to bf16; its shared memory holds the same
+float32 rows and tiles as the float32 instance's (the staged form widens
+the rows while staging them), so ``launch_config`` does not depend on the
+element type.
+
 Dispatch is by device: a CPU tensor takes the plain PyTorch version, which
-repeats the kernels' math (``plain_attention_fwd`` / ``plain_attention_bwd``);
-a CUDA tensor launches the kernel or raises.  There is no fallback.
+repeats the kernels' math (``plain_attention_fwd`` / ``plain_attention_bwd``:
+float32 inside, each output rounded once to the inputs' dtype); a CUDA
+tensor launches the instance of its dtype or raises.  There is no fallback
+and no cast: a bfloat16 call never reaches a float32 instance.
 """
 
 from __future__ import annotations
@@ -56,6 +65,9 @@ MAX_SMEM_BYTES = 232_448  # what one block may use on sm_90 (227 KB)
 # (head width, keys per lane) pairs built in csrc/attention.cu
 # (DTQN_INSTANCES); keys per lane 0 is the streamed form, which takes any Lk.
 INSTANCES = ((8, 1), (8, 2), (16, 2), (8, 0), (16, 0), (32, 0), (64, 0))
+# The element types every instance is built in, by the code the C entry
+# points take (DTQN_DTYPES).
+DTYPES = (torch.float32, torch.bfloat16)
 # A lane holds its keys' K and V rows (and, backward, their dK and dV sums)
 # in registers when keys per lane times the head width is at most this;
 # past it, an instance stages the head's rows in shared memory.
@@ -73,8 +85,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Launches of each kernel since the last reset (plain versions never count).
-launch_counts = {"attention_fwd": 0, "attention_bwd": 0}
+KINDS = ("attention_fwd", "attention_bwd")
+# Launches of each kernel since the last reset, the bfloat16 instances
+# under their own names (plain versions never count).
+launch_counts = {"attention_fwd": 0, "attention_bwd": 0,
+                 "attention_fwd_bf16": 0, "attention_bwd_bf16": 0}
 
 _lib = None
 
@@ -82,6 +97,11 @@ _lib = None
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def count_name(kind: str, dtype: torch.dtype) -> str:
+    """The ``launch_counts`` entry of ``kind`` launched in ``dtype``."""
+    return kind if dtype == torch.float32 else f"{kind}_bf16"
 
 
 # --------------------------------------------------------------- plain math
@@ -115,19 +135,23 @@ def _probs(qh, kh, causal, scale):
 
 
 def plain_attention_fwd(q, k, v, num_heads: int, causal: bool):
-    """The math of ``_fwd_kernel`` in plain PyTorch: [B, Lq, E] out."""
+    """The math of ``_fwd_kernel`` in plain PyTorch: [B, Lq, E] out, in
+    float32 on the inputs widened to it, rounded once to their dtype."""
     d = q.shape[-1] // num_heads
-    p, _ = _probs(_heads(q, num_heads), _heads(k, num_heads), causal,
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    p, _ = _probs(_heads(q32, num_heads), _heads(k32, num_heads), causal,
                   _scale(d))
-    return _packed(torch.matmul(p, _heads(v, num_heads)))
+    return _packed(torch.matmul(p, _heads(v32, num_heads))).to(q.dtype)
 
 
 def plain_attention_bwd(q, k, v, dout, num_heads: int, causal: bool):
-    """The math of ``_bwd_kernel`` in plain PyTorch: (dq, dk, dv)."""
+    """The math of ``_bwd_kernel`` in plain PyTorch: (dq, dk, dv), in
+    float32 on the inputs widened to it, each rounded once to their
+    dtype."""
     d = q.shape[-1] // num_heads
     scale = _scale(d)
-    qh, kh, vh = (_heads(x, num_heads) for x in (q, k, v))
-    doh = _heads(dout, num_heads)
+    qh, kh, vh = (_heads(x.float(), num_heads) for x in (q, k, v))
+    doh = _heads(dout.float(), num_heads)
     p, mask = _probs(qh, kh, causal, scale)
     dv = torch.matmul(p.transpose(-1, -2), doh)
     dp = torch.matmul(doh, vh.transpose(-1, -2))
@@ -135,7 +159,7 @@ def plain_attention_bwd(q, k, v, dout, num_heads: int, causal: bool):
     ds = torch.where(mask, ds, torch.zeros_like(ds)) * scale
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
-    return _packed(dq), _packed(dk), _packed(dv)
+    return tuple(_packed(x).to(q.dtype) for x in (dq, dk, dv))
 
 
 # ------------------------------------------------------------------- checks
@@ -160,12 +184,15 @@ def check_shapes(q, k, v, num_heads: int, causal: bool) -> Tuple[int, ...]:
 
 
 def _check_cuda(tensors, b, lq, lk):
-    device = tensors[0].device
+    device, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != device:
             raise ValueError("all attention tensors must share one device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"attention kernels take float32, got {t.dtype}")
+        if t.dtype not in DTYPES or t.dtype != dtype:
+            raise TypeError(
+                f"attention kernels take float32 or bfloat16 tensors of one "
+                f"dtype, got {[x.dtype for x in tensors]}"
+            )
         if not t.is_contiguous():
             raise ValueError("attention kernels take contiguous tensors")
     if min(b, lq, lk) < 1:
@@ -221,7 +248,7 @@ def launch_config(kind: str, lq: int, lk: int, d: int,
     time it against the picked one)."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} is not in [1, {MAX_HEAD_DIM}]")
-    if kind not in launch_counts:
+    if kind not in KINDS:
         raise ValueError(f"unknown kernel {kind!r}")
     dp = max(8, 1 << (d - 1).bit_length())
     kpl = 0 if streamed else min(
@@ -271,10 +298,10 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dtqn_attention_fwd.argtypes = (
-        [ptr] * 4 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
+        [ptr] * 4 + [i32] * 7 + [f32] + [i32] * 5 + [ptr])
     lib.dtqn_attention_fwd.restype = i32
     lib.dtqn_attention_bwd.argtypes = (
-        [ptr] * 7 + [i32] * 6 + [f32] + [i32] * 5 + [ptr])
+        [ptr] * 7 + [i32] * 7 + [f32] + [i32] * 5 + [ptr])
     lib.dtqn_attention_bwd.restype = i32
     lib.dtqn_cuda_error_string.argtypes = [i32]
     lib.dtqn_cuda_error_string.restype = ctypes.c_char_p
@@ -282,20 +309,27 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     return lib
 
 
+# The element types as they appear in a mangled instance name.
+_MANGLED_DTYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+
+
 def ptxas_usage(log: Optional[str] = None) -> List[dict]:
     """Registers and spill bytes of each kernel instance, from ``-Xptxas
-    -v`` output: ``log``, or what ``build`` kept beside the library."""
+    -v`` output: ``log``, or what ``build`` kept beside the library.  An
+    instance is named ``attention_fwd_kernel<dtype,D,KPL>``."""
     if log is None:
         if _lib is None:
             raise RuntimeError("build() the kernels first")
         log = Path(_lib._name).with_suffix(".log").read_text()
-    kernel = re.compile(r"(attention_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E")
+    kernel = re.compile(r"(attention_(?:fwd|bwd)_kernel)I(f|13__nv_bfloat16)"
+                        r"Li(\d+)ELi(\d+)E")
     usage, current = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
         if m:
             k = kernel.search(m.group(1))
-            current = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else None
+            current = (f"{k.group(1)}<{_MANGLED_DTYPES[k.group(2)]},"
+                       f"{k.group(3)},{k.group(4)}>" if k else None)
             continue
         if current is None:
             continue
@@ -339,7 +373,8 @@ def launch_fwd(q, k, v, num_heads: int, causal: bool,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.dtqn_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, lq, lk, h, d, int(causal), _scale(d), *cfg, stream,
+        DTYPES.index(q.dtype), b, lq, lk, h, d, int(causal), _scale(d), *cfg,
+        stream,
     )
     _raise_on_error(lib, code, "attention_fwd")
     return out
@@ -357,7 +392,8 @@ def launch_bwd(q, k, v, dout, num_heads: int, causal: bool,
     code = lib.dtqn_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, lq, lk, h, d, int(causal), _scale(d), *cfg, stream,
+        DTYPES.index(q.dtype), b, lq, lk, h, d, int(causal), _scale(d), *cfg,
+        stream,
     )
     _raise_on_error(lib, code, "attention_bwd")
     return dq, dk, dv
@@ -370,7 +406,7 @@ def attention_fwd(q, k, v, num_heads: int, causal: bool) -> torch.Tensor:
         return plain_attention_fwd(q, k, v, num_heads, causal)
     out = launch_fwd(q, k, v, num_heads, causal,
                      launch_config("attention_fwd", lq, lk, d))
-    launch_counts["attention_fwd"] += 1
+    launch_counts[count_name("attention_fwd", q.dtype)] += 1
     return out
 
 
@@ -383,7 +419,7 @@ def attention_bwd(q, k, v, dout, num_heads: int, causal: bool):
         return plain_attention_bwd(q, k, v, dout, num_heads, causal)
     grads = launch_bwd(q, k, v, dout, num_heads, causal,
                        launch_config("attention_bwd", lq, lk, d))
-    launch_counts["attention_bwd"] += 1
+    launch_counts[count_name("attention_bwd", q.dtype)] += 1
     return grads
 
 

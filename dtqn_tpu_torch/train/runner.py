@@ -35,6 +35,7 @@ from dtqn_tpu_torch.train.loop import (
 from dtqn_tpu_torch.utils import checkpoint as ckpt
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 from dtqn_tpu_torch.utils.logging import get_logger, timestamp
+from dtqn_tpu_torch.utils.profiling import trace_chunks
 from dtqn_tpu_torch.utils.rng import seed_everything
 
 
@@ -43,9 +44,7 @@ def require_ported(config: ExperimentConfig) -> None:
     parts not ported yet, naming the ROADMAP item: no flag is silently
     ignored.  (The agent, the network and ``make_env`` refuse theirs.)"""
     not_ported = [
-        (config.bf16, "--bf16", 13),
         (config.dp_devices > 1, "--dp-devices above 1", 14),
-        (bool(config.profile_dir), "--profile-dir", 14),
     ]
     for is_set, what, item in not_ported:
         if is_set:
@@ -252,8 +251,19 @@ def run_experiment(config: ExperimentConfig) -> dict:
 
     last_policy_save = int(state.env_steps)
     final_log = {}
+    profiled = False
     while int(state.env_steps) < config.num_steps:
-        state = train_chunk(state)
+        # With --profile-dir, trace the first chunk after the first (the
+        # kernels are built and the caches warm by then), as the JAX
+        # package traces its first post-compile chunk.  That chunk then
+        # gets the evaluation and CSV row of any other, as in the JAX
+        # sweep (the JAX runner skips them, leaving a gap in the curve).
+        profile_now = (config.profile_dir and not profiled
+                       and int(state.env_steps) > 0)
+        with trace_chunks(config.profile_dir if profile_now else None,
+                          device):
+            state = train_chunk(state)
+        profiled = profiled or bool(profile_now)
         step = int(state.env_steps)
         hours = (time.time() - start_time) / 3600
 

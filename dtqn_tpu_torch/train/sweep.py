@@ -41,6 +41,7 @@ from dtqn_tpu_torch.train.runner import build_envs, require_ported
 from dtqn_tpu_torch.utils import checkpoint as ckpt
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 from dtqn_tpu_torch.utils.logging import CSVLogger, timestamp
+from dtqn_tpu_torch.utils.profiling import trace_chunks
 from dtqn_tpu_torch.utils.rng import seed_everything
 
 
@@ -112,9 +113,16 @@ def run_sweep(config: ExperimentConfig, seeds: Sequence[int]) -> dict:
     time_budget = config.time_limit * 3600 if config.time_limit else None
     last_policy_save = int(state.env_steps[0])
     final: dict = {s: {} for s in seeds}
+    profiled = False
 
     while int(state.env_steps[0]) < config.num_steps:
-        state = chunk(state)
+        # --profile-dir: one chunk after the first, as in the runner.
+        profile_now = (config.profile_dir and not profiled
+                       and int(state.env_steps[0]) > 0)
+        with trace_chunks(config.profile_dir if profile_now else None,
+                          device):
+            state = chunk(state)
+        profiled = profiled or bool(profile_now)
         step = int(state.env_steps[0])
         hours = (time.time() - start_time) / 3600
 

@@ -118,8 +118,9 @@ def test_dispatch_cpu_runs_plain_and_counts_nothing():
     out = dot_product_attention(qt, kt, vt, num_heads=2, causal=True)
     ref = cuda_attention.plain_attention_fwd(qt, kt, vt, 2, True)
     assert torch.equal(out, ref)
-    assert cuda_attention.launch_counts == {"attention_fwd": 0,
-                                            "attention_bwd": 0}
+    assert cuda_attention.launch_counts == {
+        "attention_fwd": 0, "attention_bwd": 0,
+        "attention_fwd_bf16": 0, "attention_bwd_bf16": 0}
     # A key mask takes the masked softmax in stock ops: all keys shown, it
     # agrees with the unmasked call, and it counts nothing either.
     shown = dot_product_attention(qt, kt, vt, num_heads=2,
@@ -128,8 +129,9 @@ def test_dispatch_cpu_runs_plain_and_counts_nothing():
         shown.numpy(),
         dot_product_attention(qt, kt, vt, num_heads=2).numpy(),
         atol=FWD_ATOL)
-    assert cuda_attention.launch_counts == {"attention_fwd": 0,
-                                            "attention_bwd": 0}
+    assert cuda_attention.launch_counts == {
+        "attention_fwd": 0, "attention_bwd": 0,
+        "attention_fwd_bf16": 0, "attention_bwd_bf16": 0}
 
 
 @pytest.mark.parametrize("lq,lk,heads,d", [(50, 25, 8, 16), (6, 3, 2, 8)])
@@ -175,8 +177,11 @@ def test_kernel_limits_are_checked():
     with pytest.raises(ValueError, match="head_dim"):
         cuda_attention.launch_config("attention_fwd", 4, 4, 65)
     t = torch.zeros(1, 256, 64)
-    with pytest.raises(TypeError, match="float32"):
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
         cuda_attention._check_cuda((t.double(),), 1, 4, 4)
+    # One dtype for every tensor: no instance takes a mix.
+    with pytest.raises(TypeError, match="one dtype"):
+        cuda_attention._check_cuda((t, t.bfloat16()), 1, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_attention._check_cuda((t.transpose(1, 2),), 1, 4, 4)
 
@@ -213,6 +218,13 @@ def test_instances_match_the_kernel_source():
     pairs = re.findall(r"X\((\d+), (\d+)\)", macro.group(1))
     assert tuple((int(d), int(k)) for d, k in pairs) == \
         cuda_attention.INSTANCES
+    # Every instance is built in each element type, by the code the entry
+    # points take: DTYPES[code].
+    macro = re.search(r"#define DTQN_DTYPES\(X\)(.*?)\n", src)
+    codes = re.findall(r"X\((\d+), (\w+)\)", macro.group(1))
+    c_types = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16}
+    assert tuple(c_types[t] for _, t in codes) == cuda_attention.DTYPES
+    assert [int(c) for c, _ in codes] == list(range(len(codes)))
 
 
 @pytest.mark.parametrize("lq,lk,d,fwd,bwd", [
@@ -305,16 +317,23 @@ def test_shape_past_the_limits_raises_before_any_launch(monkeypatch):
 
 
 def test_ptxas_usage_reads_registers_and_spills():
-    name = "_ZN12_GLOBAL__N_120attention_bwd_kernelILi8ELi2EEEvPKfS2_"
-    log = "\n".join([
-        "ptxas info    : 0 bytes gmem",
-        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
-        f"ptxas info    : Function properties for {name}",
-        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
-        "ptxas info    : Used 96 registers, used 1 barriers, 400 bytes "
-        "cmem[0]",
-    ])
-    assert cuda_attention.ptxas_usage(log) == [{
-        "kernel": "attention_bwd_kernel<8,2>", "spill_stores": 8,
-        "spill_loads": 4, "registers": 96,
-    }]
+    """Each instance by element type, head width and keys per lane."""
+    lines = ["ptxas info    : 0 bytes gmem"]
+    for mangled, spills, regs in (
+            ("If", (8, 4), 96), ("I13__nv_bfloat16", (0, 0), 80)):
+        name = (f"_ZN12_GLOBAL__N_120attention_bwd_kernel{mangled}Li8ELi2EEEv"
+                "PKT_S3_")
+        lines += [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    0 bytes stack frame, {spills[0]} bytes spill stores, "
+            f"{spills[1]} bytes spill loads",
+            f"ptxas info    : Used {regs} registers, used 1 barriers, 400 "
+            "bytes cmem[0]",
+        ]
+    assert cuda_attention.ptxas_usage("\n".join(lines)) == [
+        {"kernel": "attention_bwd_kernel<bfloat16,8,2>", "spill_stores": 0,
+         "spill_loads": 0, "registers": 80},
+        {"kernel": "attention_bwd_kernel<float32,8,2>", "spill_stores": 8,
+         "spill_loads": 4, "registers": 96},
+    ]

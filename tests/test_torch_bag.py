@@ -332,8 +332,7 @@ def test_dtqn_bag_forward_and_grads_match_jax(bag_mask, impl, action_dim,
         np.testing.assert_allclose(p.grad.numpy(), ref[name].numpy(),
                                    atol=GRAD_ATOL, err_msg=name)
     assert tnet.bag_attention.query.weight.grad.abs().max() > 0
-    assert cuda_attention.launch_counts == {"attention_fwd": 0,
-                                            "attention_bwd": 0}
+    assert not any(cuda_attention.launch_counts.values())
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])

@@ -50,6 +50,7 @@ def test_port_imports_no_jax():
         "dtqn_tpu_torch/models/dropout.py",
         "dtqn_tpu_torch/envs/image_maze.py", "dtqn_tpu_torch/envs/multi.py",
         "dtqn_tpu_torch/models/stacked.py", "dtqn_tpu_torch/train/sweep.py",
+        "dtqn_tpu_torch/utils/profiling.py",
     }
     assert len(paths) > 30
     offenders = {

@@ -25,6 +25,7 @@ from dtqn_tpu_torch.agents import Agent, AgentConfig
 from dtqn_tpu_torch.config import ExperimentConfig, get_args
 from dtqn_tpu_torch.envs import make_env
 from dtqn_tpu_torch.envs.car_flag import CarFlagState
+from dtqn_tpu_torch.train import runner
 from dtqn_tpu_torch.train.loop import (
     make_prepopulate_fn,
     make_train_chunk_fn,
@@ -83,8 +84,11 @@ def test_config_and_cli_match_jax(argv, tmp_path):
     assert cfg.policy_path().startswith(os.getcwd())
     assert cfg.resolved_updates_per_iter == jcfg.resolved_updates_per_iter
     assert cfg.resolved_iters_per_chunk == jcfg.resolved_iters_per_chunk
-    assert (dataclasses.asdict(cfg.agent_config())
-            == dataclasses.asdict(jcfg.agent_config()))
+    # The port's agent config also carries the compute dtype, which the JAX
+    # package keeps as a global (set_compute_dtype); the rest is equal.
+    agent_cfg = dataclasses.asdict(cfg.agent_config())
+    assert agent_cfg.pop("bf16") == cfg.bf16 == jcfg.bf16
+    assert agent_cfg == dataclasses.asdict(jcfg.agent_config())
 
 
 def test_config_device_flag_and_defaults():
@@ -485,9 +489,12 @@ def test_host_running_average_and_build_envs():
         build_envs(runner_config(envs=["Memory-5-v0", "DiscreteCarFlag-v0"]))
 
 
+# The runner's flags that were refused: ``--dp-devices`` still is (item
+# 14); ``--bf16`` and ``--profile-dir``, ported since, run under the ids
+# their refusals had (``item`` None).
 NOT_PORTED = [
-    (dict(dp_devices=2), "item 14"), (dict(bf16=True), "item 13"),
-    (dict(profile_dir="prof"), "item 14"),
+    (dict(dp_devices=2), "item 14"), (dict(bf16=True), None),
+    (dict(profile_dir="prof"), None),
 ]
 
 
@@ -496,9 +503,62 @@ NOT_PORTED = [
                               for kw, _ in NOT_PORTED])
 def test_not_ported_flags_raise(kw, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        run_experiment(runner_config(**kw))
-    assert not os.listdir(tmp_path)  # refused before anything is written
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            run_experiment(runner_config(**kw))
+        assert not os.listdir(tmp_path)  # refused before anything is written
+        return
+    # Two chunks of one iteration of 4 envs: with --profile-dir the second
+    # is traced (the first warms up, as in the JAX runner).
+    cfg = runner_config(num_steps=8, num_envs=4, layers=1, batch=2,
+                        eval_frequency=4, eval_episodes=1, prepop_steps=100,
+                        updates_per_iter=1, max_episode_steps=10, **kw)
+    calls = []
+    real = runner.trace_chunks
+    monkeypatch.setattr(runner, "trace_chunks", lambda d, dev: calls.append(
+        d) or real(d, dev))
+    out = run_experiment(cfg)
+    assert out["losses/Grad_Norm"] > 0.0 and all(
+        np.isfinite(v) for v in out.values())
+    check_csvs(cfg, rows=2)
+    if cfg.bf16:
+        net = ckpt.load_policy(cfg.policy_path(), Agent(
+            cfg.agent_config(), make_env(cfg.envs[0]),
+            device="cpu").build_network())
+        assert net.head_out.compute_dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in net.parameters())
+    traces = os.listdir("prof") if cfg.profile_dir else []
+    assert calls == ([None, "prof"] if cfg.profile_dir else [None, None])
+    assert len(traces) == int(bool(cfg.profile_dir))
+    if traces:
+        with open(os.path.join("prof", traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+        # One chunk: its env steps and updates (host operations on the CPU).
+        names = {e.get("name", "") for e in events}
+        assert any("aten::" in n for n in names)
+
+
+def test_profiling_helpers(tmp_path):
+    """``trace_chunks`` writes one Chrome trace holding what ran inside it,
+    ``annotate``'s span included, and nothing without a directory;
+    ``device_memory_summary`` reports each card (none here)."""
+    from dtqn_tpu_torch.utils.profiling import (
+        annotate,
+        device_memory_summary,
+        trace_chunks,
+    )
+
+    with trace_chunks(None, "cpu"):
+        torch.ones(3).sum()
+    out = tmp_path / "prof"
+    with trace_chunks(str(out), "cpu"):
+        with annotate("dtqn_span"):
+            torch.ones(3).sum()
+    (trace,) = os.listdir(out)
+    with open(out / trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "dtqn_span" in names and "aten::sum" in names
+    assert device_memory_summary() == {}
 
 
 # DTQN's variants, the image maze and several domains: each trains and
@@ -613,12 +673,9 @@ def test_bench_prints_one_json_line(monkeypatch, capsys):
 
 @pytest.mark.parametrize("flags", [["--seeds", "2"], ["--bf16"]])
 def test_bench_extras_are_not_ported(flags, monkeypatch, capsys):
-    """The JAX script's extra modes: ``--seeds`` is ported (the stacked
-    sweep, at 8 envs here), ``--bf16`` still fails loudly."""
-    if flags == ["--bf16"]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-            bench.main(["--device", "cpu", *flags])
-        return
+    """The JAX script's extra modes, both ported since: ``--seeds`` (the
+    stacked sweep) and ``--bf16``, each at 8 envs here, under the ids their
+    refusals had."""
     monkeypatch.setattr(bench, "NUM_ENVS", 8)
     monkeypatch.setattr(bench, "PREPOP_STEPS", 8_000)
     # One intra-op thread: the spare cores serve the other test processes.
@@ -629,6 +686,7 @@ def test_bench_extras_are_not_ported(flags, monkeypatch, capsys):
     finally:
         torch.set_num_threads(threads)
     assert json.loads(capsys.readouterr().out.strip()) == line
+    suffix = "_x2seeds" if "--seeds" in flags else "_bf16"
     assert line["metric"] == (
-        "carflag_dtqn_torch_env_steps_per_s_1to1_updates_x2seeds")
+        "carflag_dtqn_torch_env_steps_per_s_1to1_updates" + suffix)
     assert line["device"] == "cpu" and line["value"] > 0

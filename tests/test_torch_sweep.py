@@ -159,10 +159,30 @@ def test_nonfinite_gradients_fail_loudly_per_seed(tmp_path, monkeypatch):
     (dict(dp_devices=2), "item 14"), (dict(profile_dir="prof"), "item 14"),
     (dict(bf16=True), "item 13")])
 def test_sweep_refuses_flags_not_ported(kw, item, tmp_path, monkeypatch):
+    """Each flag with its ROADMAP item: ``--dp-devices`` (14.3) is still
+    refused; ``--profile-dir`` (14.2) and ``--bf16`` (13), ported since,
+    run a 2-seed sweep under these ids: the second of its two chunks
+    traced, or the seeds in bf16."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        run_sweep(small_cfg(**kw), [1, 2])
-    assert not os.listdir(tmp_path)  # refused before anything is written
+    if "dp_devices" in kw:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            run_sweep(small_cfg(**kw), [1, 2])
+        assert not os.listdir(tmp_path)  # refused before anything is written
+        return
+    cfg = small_cfg(num_steps=32, **kw)
+    states, init = [], Agent.init_sweep_state
+    monkeypatch.setattr(Agent, "init_sweep_state",
+                        lambda self, seeds: states.append(
+                            init(self, seeds)) or states[-1])
+    out = run_sweep(cfg, [1, 2])
+    assert all(np.isfinite(out[s]["losses/TD_Error"]) for s in (1, 2))
+    assert out[1]["losses/Mean_Q_Value"] != out[2]["losses/Mean_Q_Value"]
+    assert len(os.listdir("prof") if cfg.profile_dir else []) == int(
+        bool(cfg.profile_dir))
+    (state,) = states
+    assert state.params.dtype == state.opt_state.nu.dtype == torch.float32
+    assert state.network.module.head_out.compute_dtype == (
+        torch.bfloat16 if cfg.bf16 else None)
 
 
 def test_cli_dispatch(monkeypatch):
