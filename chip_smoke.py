@@ -101,7 +101,12 @@ Phases (any failure exits non-zero and prints no result):
      ADRQN's;
  19. bf16 (the JAX package's --bf16): each bf16 instance against its plain
      version in bf16 (BF16_PARITY_CASES: within 1 bf16 ulp plus the
-     float32 tolerance; two backward launches bit-equal); the flagless
+     float32 tolerance; two backward launches bit-equal): the tensor-core
+     form that every bf16 call at head width 8 or 16 with Lk (and,
+     backward, Lq) up to 64 takes, the keys-on-lanes instance that such a
+     shape took before it (launched by configuration), and the others;
+     the tensor-core form on a cancellation input, where P rounded once to
+     bf16 fails (BF16_CANCELLATION_CASES); the flagless
      configuration in bf16 (two iterations, every launch a bf16 one at a
      shape held in bf16, card Q against CPU Q within BF16_Q_ULPS bf16 ulps
      with cuBLAS's reduced-precision bf16 reduction off, the error with it
@@ -112,13 +117,17 @@ Phases (any failure exits non-zero and prints no result):
      act step and the evict forward beside phases 9, 11 and 12's; the
      LSTM's outputs float32, the CNN's bf16); the runner in bf16 with
      --profile-dir (the trace holds one chunk's bf16 attention kernels),
-     cut and resumed bit-equal; ``run_sweep`` in bf16 at 2 seeds; the bf16
-     instances timed at the driven shapes (SDPA in bf16 the library call).
+     cut and resumed bit-equal; ``run_sweep`` in bf16 at 2 seeds; Car Flag
+     with bag 10 and the flagless configuration at 2 stacked seeds in bf16
+     (launches reckoned by shape and form: every bf16 launch of a driven
+     path takes the tensor-core form); the bf16 kernels timed at every
+     driven bf16 shape, each in turns with the keys-on-lanes instance that
+     it replaced (SDPA in bf16 the library call).
 
 Before the last line it prints the script's total seconds, the card line
 and one ``{"kernels": [...]}`` JSON line (each kernel with its dtype: the
-float32 instances, then the bf16 ones under ``*_bf16``); the last line is
-``{"ok": true, "device": {...}}``.
+float32 instances, then the bf16 ones under ``*_bf16`` with their form);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -159,9 +168,10 @@ HALLWAY, HEAVENHELL = ("POMDP-hallway-episodic-v0",
 # The baselines' runs: (model, env, in_embed).
 BASELINES = [("DRQN", "Memory-5-v0", 128), ("DQN", "Memory-5-v0", 128),
              ("ADRQN", HALLWAY, 64), ("DARQN", "DiscreteCarFlag-v0", 64)]
-# The instances that driven paths launch, in either element type: head
-# width 8 (Car Flag, the POMDPs, the Car Flag bag) and 16 (in_embed 128).
-DRIVEN_INSTANCES = ((8, 1), (8, 2), (16, 2))
+# The instances that driven paths launch: head width 8 (Car Flag, the
+# POMDPs, the Car Flag bag) and 16 (in_embed 128), keys on lanes in
+# float32 and the tensor-core form (keys per lane -1, MMA_FORM) in bf16.
+DRIVEN_INSTANCES = ((8, 1), (8, 2), (16, 2), (8, -1), (16, -1))
 REPLACES = {
     "attention_fwd": "dtqn_tpu/ops/pallas_attention.py:62",
     "attention_bwd": "dtqn_tpu/ops/pallas_attention.py:77",
@@ -264,8 +274,9 @@ PARITY_CASES = [
 # The bf16 instances' shapes (B, Lq, Lk, heads, causal, E): every shape a
 # bf16 drive launches (phase 19: the flagless path's update, act and
 # evaluation, and at 2 seeds folded; the bag of 25's update, act and evict
-# forward; ImageMaze's update and act), the Car Flag bag of 10's (<8, 1>),
-# and one streamed shape per head width.
+# forward; the Car Flag bag of 10's, its evict forward's causal layers at
+# 64 * 11 included; ImageMaze's update and act), and one streamed shape
+# per head width.
 BF16_PARITY_CASES = [
     (32, 50, 50, 8, True, 64), (64, 50, 50, 8, True, 64),
     (10, 50, 50, 8, True, 64), (128, 50, 50, 8, True, 64),
@@ -275,52 +286,145 @@ BF16_PARITY_CASES = [
     (32, 50, 25, 8, False, 128),
     (64, 50, 25, 8, False, 128), (1664, 50, 25, 8, False, 128),
     (32, 50, 10, 8, False, 64), (64, 50, 10, 8, False, 64),
-    (704, 50, 10, 8, False, 64),
+    (704, 50, 10, 8, False, 64), (704, 50, 50, 8, True, 64),
     (4, 50, 65, 8, False, 64), (2, 100, 100, 8, True, 128),
     (2, 100, 100, 2, True, 64), (2, 50, 50, 1, True, 64),
 ]
 
 
-def bf16_parity(ca):
-    """Each bf16 instance against its plain version in bf16 on the same
-    card inputs: within 1 bf16 ulp of the plain value plus the float32
-    tolerance, compared in float32; two backward launches bit-equal."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    errs = {"attention_fwd": 0.0, "attention_bwd": 0.0}
-    covered = set()
-    for b, lq, lk, h, causal, e in BF16_PARITY_CASES:
-        covered.update((c.head_dim_pad, c.keys_per_lane) for c in (
-            ca.launch_config(kind, lq, lk, e // h) for kind in errs))
-        q, dout = (rand(gen, b, lq, e).bfloat16() for _ in range(2))
-        k, v = (rand(gen, b, lk, e).bfloat16() for _ in range(2))
+def bf16_held(ca, args, cfgs):
+    """The bf16 forward and backward of ``args`` (q, k, v, dout, heads,
+    causal) launched by ``cfgs`` (kind -> launch configuration, or None for
+    the counted wrappers, which pick their own) against the plain versions:
+    each kind's largest error and its excess over 1 bf16 ulp plus the
+    float32 tolerance; two backward launches must be bit-equal."""
+    q, k, v, dout, h, causal = args
+    if cfgs is None:
         out = ca.attention_fwd(q, k, v, h, causal)
-        ref = ca.plain_attention_fwd(q, k, v, h, causal)
         grads = ca.attention_bwd(q, k, v, dout, h, causal)
         again = ca.attention_bwd(q, k, v, dout, h, causal)
-        ref_grads = ca.plain_attention_bwd(q, k, v, dout, h, causal)
-        torch.cuda.synchronize()
-        check(out.dtype == ref.dtype == torch.bfloat16
-              and all(g.dtype == torch.bfloat16 for g in grads),
-              "a bf16 call returned another dtype")
-        for kind, got, want, atol in (
-                ("attention_fwd", (out,), (ref,), FWD_ATOL),
-                ("attention_bwd", grads, ref_grads, GRAD_ATOL)):
-            err, excess = 0.0, -1.0
-            for a, r in zip(got, want):
-                diff = (a.float() - r.float()).abs()
-                err = max(err, diff.max().item())
-                excess = max(excess, (diff - bf16_ulp(r) - atol).max().item())
-            log(f"bf16 parity B={b} Lq={lq} Lk={lk} H={h} D={e // h} "
-                f"causal={causal} {kind}: max err {err:.3e}")
-            check(excess <= 0, f"bf16 {kind} at B={b} Lq={lq} Lk={lk} "
-                               f"D={e // h}: past 1 ulp + {atol} by {excess}")
-            errs[kind] = max(errs[kind], err)
-        check(all(torch.equal(a, r) for a, r in zip(grads, again)),
-              "two bf16 attention_bwd launches on the same inputs differ")
-    check(covered == set(ca.INSTANCES),
+    else:
+        out = ca.launch_fwd(q, k, v, h, causal, cfgs["attention_fwd"])
+        grads = ca.launch_bwd(q, k, v, dout, h, causal, cfgs["attention_bwd"])
+        again = ca.launch_bwd(q, k, v, dout, h, causal, cfgs["attention_bwd"])
+    ref = ca.plain_attention_fwd(q, k, v, h, causal)
+    ref_grads = ca.plain_attention_bwd(q, k, v, dout, h, causal)
+    torch.cuda.synchronize()
+    check(out.dtype == ref.dtype == torch.bfloat16
+          and all(g.dtype == torch.bfloat16 for g in grads),
+          "a bf16 call returned another dtype")
+    check(all(torch.equal(a, r) for a, r in zip(grads, again)),
+          "two bf16 attention_bwd launches on the same inputs differ")
+    result = {}
+    for kind, got, want, atol in (
+            ("attention_fwd", (out,), (ref,), FWD_ATOL),
+            ("attention_bwd", grads, ref_grads, GRAD_ATOL)):
+        err, excess = 0.0, -1.0
+        for a, r in zip(got, want):
+            diff = (a.float() - r.float()).abs()
+            err = max(err, diff.max().item())
+            excess = max(excess, (diff - bf16_ulp(r) - atol).max().item())
+        result[kind] = (err, excess)
+    return result
+
+
+def cancelling(ca, q, k, v, heads, causal, row):
+    """``v`` shifted, per batch row and head, by the float32 output of
+    query ``row``, and rounded to bf16: that query's output is ~0 while
+    sum_j p_j |v_j| is not, where rounding P once to bf16 shows."""
+    o = ca.plain_attention_fwd(q.float(), k.float(), v.float(), heads,
+                               causal)
+    return (v.float() - o[:, row:row + 1]).bfloat16()
+
+
+def one_rounding_fwd(q, k, v, heads, causal):
+    """The forward with P rounded once to bf16 before P V (float32
+    otherwise): what the split P of the tensor-core form avoids."""
+    b, lq, e = q.shape
+    lk, d = k.shape[1], e // heads
+
+    def split(x):
+        return x.float().view(b, x.shape[1], heads, d).transpose(1, 2)
+
+    s = split(q) @ split(k).transpose(-1, -2) * d ** -0.5
+    keep = torch.ones(lq, lk, dtype=torch.bool, device=q.device)
+    if causal:
+        keep = torch.tril(keep)
+    p = torch.softmax(s.masked_fill(~keep, -1e30), dim=-1)
+    o = p.bfloat16().float() @ split(v)
+    return o.transpose(1, 2).reshape(b, lq, e).bfloat16()
+
+
+# The cancellation input's shapes (B, Lq, Lk, heads, causal, E): the
+# flagless and the in_embed-128 update, query 49 cancelled in every head.
+BF16_CANCELLATION_CASES = [(32, 50, 50, 8, True, 64),
+                           (32, 50, 50, 8, True, 128)]
+
+
+def bf16_parity(ca):
+    """The bf16 instances against their plain versions in bf16 on the same
+    card inputs: within 1 bf16 ulp of the plain value plus the float32
+    tolerance, compared in float32; two backward launches bit-equal.  At
+    every BF16_PARITY_CASES shape the instance that the wrappers pick, and
+    where that is the tensor-core form, also the keys-on-lanes instance
+    that the shape took before it (launched by configuration, counting
+    nothing); between them they reach every bf16 instance.  Then the
+    cancellation input, where the forward with P rounded once fails."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf16 = torch.bfloat16
+    errs = {"attention_fwd": 0.0, "attention_bwd": 0.0}
+    lanes_errs = dict(errs)
+    covered = set()
+    for b, lq, lk, h, causal, e in BF16_PARITY_CASES:
+        q, dout = (rand(gen, b, lq, e).bfloat16() for _ in range(2))
+        k, v = (rand(gen, b, lk, e).bfloat16() for _ in range(2))
+        args = (q, k, v, dout, h, causal)
+        picked = {kind: ca.launch_config(kind, lq, lk, e // h, bf16)
+                  for kind in errs}
+        runs = [(None, picked, errs)]
+        if any(c.keys_per_lane == ca.MMA_FORM for c in picked.values()):
+            lanes = {kind: ca.launch_config(kind, lq, lk, e // h, bf16,
+                                            lanes=True) for kind in errs}
+            runs.append((lanes, lanes, lanes_errs))
+        for cfgs, used, into in runs:
+            covered.update((c.head_dim_pad, c.keys_per_lane)
+                           for c in used.values())
+            for kind, (err, excess) in bf16_held(ca, args, cfgs).items():
+                form = ca.form_name(used[kind])
+                log(f"bf16 parity B={b} Lq={lq} Lk={lk} H={h} D={e // h} "
+                    f"causal={causal} {kind} {form}: max err {err:.3e}")
+                check(excess <= 0, f"bf16 {kind} {form} at B={b} Lq={lq} "
+                                   f"Lk={lk} D={e // h}: past 1 ulp + "
+                                   f"tolerance by {excess}")
+                into[kind] = max(into[kind], err)
+    check(covered == set(ca.instances(bf16)),
           f"bf16 parity reaches instances {sorted(covered)}, not all of "
-          f"{sorted(ca.INSTANCES)}")
-    return errs
+          f"{sorted(ca.instances(bf16))}")
+    cancellation = {}
+    for b, lq, lk, h, causal, e in BF16_CANCELLATION_CASES:
+        q, dout = (rand(gen, b, lq, e).bfloat16() for _ in range(2))
+        k, v = (rand(gen, b, lk, e).bfloat16() for _ in range(2))
+        v = cancelling(ca, q, k, v, h, causal, lq - 1)
+        ref = ca.plain_attention_fwd(q, k, v, h, causal)
+        once = one_rounding_fwd(q, k, v, h, causal)
+        row = ref[:, lq - 1]
+        once_excess = ((once[:, lq - 1].float() - row.float()).abs()
+                       - bf16_ulp(row) - FWD_ATOL).max().item()
+        check(once_excess > 0, f"the cancellation input at D={e // h} "
+                               f"does not show P rounded once")
+        held = bf16_held(ca, (q, k, v, dout, h, causal), None)
+        shape = f"B={b} Lq={lq} Lk={lk} H={h} D={e // h} causal={causal}"
+        cancellation[shape] = {
+            "one_rounding_excess": once_excess,
+            "row_abs_max": row.float().abs().max().item(),
+            **{kind: {"max_abs_err": err, "excess": excess}
+               for kind, (err, excess) in held.items()}}
+        log(f"bf16 cancellation {shape}: {json.dumps(cancellation[shape])}")
+        for kind, (err, excess) in held.items():
+            check(excess <= 0, f"bf16 {kind} on the cancellation input at "
+                               f"{shape}: past 1 ulp + tolerance by {excess}")
+    return {"picked": errs, "lanes": lanes_errs,
+            "cancellation": cancellation}
 
 
 def parity(ca):
@@ -489,7 +593,8 @@ def profile_iteration(state, train_iter, updates=64, top=12,
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
     attention = {}
     for kind in ("attention_fwd", "attention_bwd"):
-        hits = [nu for name, nu in by_name.items() if f"{kind}_kernel" in name]
+        hits = [nu for name, nu in by_name.items()
+                if f"{kind}_kernel" in name or f"{kind}_mma" in name]
         attention[kind] = {"count": sum(n for n, _ in hits),
                            "device_us": sum(us for _, us in hits)}
     result = {
@@ -920,15 +1025,19 @@ def dtype_name(dtype):
 @contextlib.contextmanager
 def launch_ledger(ca):
     """Yields a dict that counts every call of the kernels' wrappers by
-    (kernel, B, Lq, Lk, head width, causal, dtype).  The wrappers
-    themselves go on counting their launches."""
+    (kernel, B, Lq, Lk, head width, causal, dtype, form): the form "mma"
+    where the wrapper launches the tensor-core form, else "lanes".  The
+    wrappers themselves go on counting their launches."""
     ledger = {}
 
     def noting(name, fn):
         def wrapper(q, k, *rest):
             b, lq, lk, _, d = ca.check_shapes(q, k, rest[0], rest[-2],
                                               rest[-1])
-            key = (name, b, lq, lk, d, bool(rest[-1]), dtype_name(q.dtype))
+            form = ("mma" if ca.launch_config(name, lq, lk, d, q.dtype)
+                    .keys_per_lane == ca.MMA_FORM else "lanes")
+            key = (name, b, lq, lk, d, bool(rest[-1]), dtype_name(q.dtype),
+                   form)
             ledger[key] = ledger.get(key, 0) + 1
             return fn(q, k, *rest)
         return wrapper
@@ -948,21 +1057,24 @@ def reckoned_launches(cfg, act_steps, updates, evict_steps=None):
     layer and, unless the bag is masked, one over the bag; an update is
     three forwards and one backward at the batch size, unless dropout makes
     them train-mode forwards, which take the stock-op path and launch
-    nothing.  The recurrent and feedforward models launch none."""
+    nothing.  The recurrent and feedforward models launch none.  Every
+    bf16 launch takes the tensor-core form (head width 8 or 16, Lk and Lq
+    at most 50), every float32 one a keys-on-lanes instance."""
     if evict_steps is None:
         evict_steps = act_steps
     length, d = cfg.context_len, cfg.inner_embed // cfg.num_heads
     envs, bag = cfg.num_envs, cfg.bag_size
-    dtype = "bf16" if cfg.bf16 else "f32"
+    dtype, form = ("bf16", "mma") if cfg.bf16 else ("f32", "lanes")
     out = {}
     if cfg.kind != "transformer":
         return out
 
     def add(kind, b, n):
-        shapes = [((kind, b, length, length, d, True, dtype),
+        shapes = [((kind, b, length, length, d, True, dtype, form),
                    cfg.num_layers * n)]
         if bag and not cfg.bag_mask:
-            shapes.append(((kind, b, length, bag, d, False, dtype), n))
+            shapes.append(((kind, b, length, bag, d, False, dtype, form),
+                           n))
         for key, count in shapes:
             if count:
                 out[key] = out.get(key, 0) + count
@@ -978,7 +1090,7 @@ def reckoned_launches(cfg, act_steps, updates, evict_steps=None):
 
 
 def show_ledger(d):
-    return {"{} B={} Lq={} Lk={} D={} causal={} {}".format(*k): n
+    return {"{} B={} Lq={} Lk={} D={} causal={} {} {}".format(*k): n
             for k, n in sorted(d.items())}
 
 
@@ -990,10 +1102,18 @@ def check_held(ledger, what):
             for dtype, cases in (("f32", PARITY_CASES),
                                  ("bf16", BF16_PARITY_CASES))
             for b, lq, lk, h, causal, e in cases}
-    unheld = {k: n for k, n in ledger.items() if k[1:] not in held}
+    unheld = {k: n for k, n in ledger.items() if k[1:7] not in held}
     check(not unheld, f"{what}: launched at shapes that the parity phase "
                       f"does not hold against the plain versions: "
                       f"{show_ledger(unheld)}")
+
+
+def check_mma(ledger, what):
+    """Every bf16 launch of ``ledger`` took the tensor-core form."""
+    lanes = {k: n for k, n in ledger.items()
+             if k[6] == "bf16" and k[7] != "mma"}
+    check(ledger and not lanes, f"{what}: bf16 launches outside the "
+                                f"tensor-core form: {show_ledger(lanes)}")
 
 
 def check_ledger(ca, ledger, expected, what):
@@ -1003,7 +1123,7 @@ def check_ledger(ca, ledger, expected, what):
     check_held(ledger, what)
     for name in ca.launch_counts:
         total = sum(n for k, n in expected.items()
-                    if ca.count_name(k[0], torch.bfloat16 if k[-1] == "bf16"
+                    if ca.count_name(k[0], torch.bfloat16 if k[6] == "bf16"
                                      else torch.float32) == name)
         check(ca.launch_counts[name] == total,
               f"{what}: {name} counted {ca.launch_counts[name]} launches, "
@@ -1957,7 +2077,10 @@ def bound_ms(kind, b, lq, lk, heads, d, causal, dtype=torch.float32):
 def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True, calls=100,
             dtype=torch.float32):
     """Device ms of each kernel, its plain version and SDPA at one shape,
-    in ``dtype``, ``calls`` calls per CUDA graph."""
+    in ``dtype``, ``calls`` calls per CUDA graph.  Where the shape takes the
+    tensor-core form, it is timed in turns (picked, lanes, lanes, picked)
+    with the keys-on-lanes instance that the shape took before it
+    (``lanes_ms``, launched by configuration: counts nothing)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1980,9 +2103,26 @@ def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True, calls=100,
         out = sdpa(qg, kg, vg)
         torch.autograd.grad(out, (qg, kg, vg), do_h)
 
+    def picked_and_lanes(kind, launch, args):
+        """{"ms"} of the picked instance, and where that is the
+        tensor-core form, {"lanes_ms", "turns_ms"} too."""
+        picked = ca.launch_config(kind, lq, lk, d, dtype)
+        lanes = ca.launch_config(kind, lq, lk, d, dtype, lanes=True)
+        counted = getattr(ca, kind)
+        out = {"form": ca.form_name(picked)}
+        if picked == lanes:
+            out["ms"] = graph_ms(lambda: counted(*args), calls)
+            return out
+        turns = [graph_ms(lambda cfg=cfg: launch(*args, cfg), calls)
+                 for cfg in (picked, lanes, lanes, picked)]
+        out.update(ms=(turns[0] + turns[3]) / 2,
+                   lanes_form=ca.form_name(lanes),
+                   lanes_ms=(turns[1] + turns[2]) / 2, turns_ms=turns)
+        return out
+
     fwd = {
-        "ms": graph_ms(lambda: ca.attention_fwd(q, k, v, heads, causal),
-                       calls),
+        **picked_and_lanes("attention_fwd", ca.launch_fwd,
+                           (q, k, v, heads, causal)),
         "plain_ms": graph_ms(
             lambda: ca.plain_attention_fwd(q, k, v, heads, causal), calls),
         "library_ms": graph_ms(lambda: sdpa(q, k, v), calls),
@@ -1991,8 +2131,8 @@ def timings(ca, b, lq=50, lk=50, heads=8, d=8, causal=True, calls=100,
     # take the forward's time off.
     lib_both = graph_ms(sdpa_fwd_bwd, calls)
     bwd = {
-        "ms": graph_ms(
-            lambda: ca.attention_bwd(q, k, v, dout, heads, causal), calls),
+        **picked_and_lanes("attention_bwd", ca.launch_bwd,
+                           (q, k, v, dout, heads, causal)),
         "plain_ms": graph_ms(
             lambda: ca.plain_attention_bwd(q, k, v, dout, heads, causal),
             calls),
@@ -2089,13 +2229,18 @@ def streamed_timings(ca):
 
 
 # -------------------------------------------------------------------- bf16
-# The bf16 instances' timing shapes at Lq = 50, H = 8: <8, 2> at the
-# flagless update, act and evaluation batches, <8, 1> over Car Flag's bag
-# of 10, <16, 2> at the in_embed-128 paths' update, act, evaluation and
-# evict batches and over the bag of 25.
+# The bf16 timing shapes at Lq = 50, H = 8, every shape a bf16 drive
+# launches (each the tensor-core form, timed in turns with the
+# keys-on-lanes instance it replaced): head width 8 at the flagless update,
+# act and evaluation batches and the 2-seed sweep's folded act and
+# evaluation batches, over Car Flag's bag of 10 at the update, act and
+# evict batches and its evict forward's causal layers; head width 16 at
+# the in_embed-128 paths' update, act,
+# evaluation and evict batches and over the bag of 25.
 BF16_TIMING_SHAPES = [
-    dict(b=32), dict(b=64), dict(b=10),
+    dict(b=32), dict(b=64), dict(b=10), dict(b=128), dict(b=20),
     dict(b=32, lk=10, causal=False), dict(b=64, lk=10, causal=False),
+    dict(b=704, lk=10, causal=False), dict(b=704),
     dict(b=32, d=16), dict(b=64, d=16), dict(b=10, d=16),
     dict(b=1664, d=16, calls=20),
     dict(b=32, lk=25, d=16, causal=False),
@@ -2154,15 +2299,24 @@ def bf16_runner_phase(seed, ca):
         launches, eval_steps = check_launches(ca, probe, cfg, iters,
                                               "bf16 runner")
         check_held(ledger, "bf16 runner")
+        check_mma(ledger, "bf16 runner")
         check_csvs(cfg, [128, 256])
         check(all(math.isfinite(v) for v in final.values()),
               f"bf16 runner: final log not finite: {final}")
         traces = os.listdir(cfg.profile_dir)
         check(len(traces) == 1, f"--profile-dir wrote {traces}")
         kernels = trace_kernels(os.path.join(cfg.profile_dir, traces[0]))
+        # bf16 attention kernels of either form; the tensor-core form's
+        # names end their kernel part in _mma.
         traced = {kind: sum(n for name, n in kernels.items()
-                            if f"{kind}_kernel" in name
-                            and "bfloat16" in name) for kind in ca.KINDS}
+                            if kind in name and "bfloat16" in name)
+                  for kind in ca.KINDS}
+        traced_mma = {kind: sum(n for name, n in kernels.items()
+                                if f"{kind}_mma" in name)
+                      for kind in ca.KINDS}
+        check(traced_mma == traced, f"the trace holds bf16 attention "
+                                    f"kernels {traced}, {traced_mma} of "
+                                    f"them the tensor-core form")
         # One chunk: 2 iterations, each an act forward and 64 updates.  The
         # profiler may drop a record (384-386 of an iteration's 386 forward
         # launches in phase 18's profiles): all but 1% of one chunk's
@@ -2191,6 +2345,7 @@ def bf16_runner_phase(seed, ca):
                                  prepop_steps=64 * 210)
         final = run_sweep(cfg, seeds)
         check_held(ledger, "bf16 sweep")
+        check_mma(ledger, "bf16 sweep")
         check(all(math.isfinite(v) for s in seeds for v in final[s].values()),
               f"bf16 sweep: final log not finite: {final}")
         launches = dict(ca.launch_counts)
@@ -2211,8 +2366,10 @@ def bf16_phase(seed, ca, flagless, f32_operations):
     attention launches per update, device and host ms per update,
     env-steps/s, busy share); the bag of 25, DRQN on Memory-5 and
     ImageMaze in bf16, their device ms beside the float32 runs'
-    ``f32_operations``; the runner with --profile-dir, cut and resumed;
-    a 2-seed sweep; the bf16 instances' times."""
+    ``f32_operations``; Car Flag with bag 10 and the flagless
+    configuration at 2 stacked seeds, reckoned; the runner with
+    --profile-dir, cut and resumed; a 2-seed sweep; the bf16 kernels'
+    times, each in turns with the instance it replaced."""
     from dtqn_tpu_torch.models.embeddings import Conv3x3
     from dtqn_tpu_torch.models.init import Dense
     from dtqn_tpu_torch.models.recurrent import LSTM
@@ -2242,6 +2399,12 @@ def bf16_phase(seed, ca, flagless, f32_operations):
     bag["f32_operations"] = f32_operations["bag"]
     result["bag"] = bag
     del agent, state
+    result["carflag_bag10"], *_ = drive(seed, ca, "DiscreteCarFlag-v0", 200,
+                                        1, inner_embed=64, bag_size=10,
+                                        bf16=True)
+    result["sweep_drive"], *_ = drive(
+        seed, ca, "DiscreteCarFlag-v0", 210, 1, model="DTQN",
+        inner_embed=64, bag_size=0, bf16=True, seeds=[seed, seed + 1])
     for key, model, env_name, prepop in (
             ("drqn", "DRQN", "Memory-5-v0", 60),
             ("image", "DTQN", IMAGE_ENV, 110)):
@@ -2266,6 +2429,19 @@ def bf16_phase(seed, ca, flagless, f32_operations):
     result["runner"] = bf16_runner_phase(seed, ca)
     result["timings"] = dict(timings(ca, dtype=torch.bfloat16, **shape)
                              for shape in BF16_TIMING_SHAPES)
+    # The bag's evict forward at B=1664: the tensor-core form against SDPA
+    # in bf16 and against the keys-on-lanes <16, 2> it replaced, in turns.
+    result["evict_forward_b1664"] = {
+        shape: {"ms": t["attention_fwd"]["ms"],
+                "lanes_ms": t["attention_fwd"]["lanes_ms"],
+                "library_ms": t["attention_fwd"]["library_ms"],
+                "under_library": t["attention_fwd"]["ms"]
+                < t["attention_fwd"]["library_ms"],
+                "at_most_half_of_lanes": t["attention_fwd"]["ms"]
+                <= 0.5 * t["attention_fwd"]["lanes_ms"]}
+        for shape, t in result["timings"].items()
+        if shape.startswith("B=1664")}
+    log(f"bf16 evict forward: {json.dumps(result['evict_forward_b1664'])}")
     result["seconds"] = time.perf_counter() - t0
     log(f"bf16 phase: {result['seconds']:.1f} s")
     return result
@@ -2292,12 +2468,16 @@ def run(seed):
     usage = ca.ptxas_usage()
     for u in usage:
         log(f"ptxas: {json.dumps(u)}")
-    check(len(usage) == 2 * len(ca.INSTANCES) * len(ca.DTYPES),
+    check(len(usage) == 2 * sum(len(ca.instances(t)) for t in ca.DTYPES),
           f"ptxas reported {len(usage)} kernels")
 
-    def instance(kernel):  # "attention_fwd_kernel<bfloat16,8,2>" -> (8, 2)
-        _, d, kpl = kernel[kernel.index("<") + 1:-1].split(",")
-        return int(d), int(kpl)
+    def instance(kernel):
+        """"attention_fwd_kernel<bfloat16,8,2>" -> (8, 2);
+        "attention_fwd_mma<16>" -> (16, MMA_FORM)."""
+        args = kernel[kernel.index("<") + 1:-1].split(",")
+        if len(args) == 1:
+            return int(args[0]), ca.MMA_FORM
+        return int(args[1]), int(args[2])
 
     spilled = [u["kernel"] for u in usage
                if instance(u["kernel"]) in DRIVEN_INSTANCES
@@ -2376,14 +2556,22 @@ def run(seed):
         kernels.append({
             "name": f"{name}_bf16",
             "dtype": "bfloat16",
+            "form": t["form"],
             "route": "cuda",
             "source": KERNEL_SOURCE,
             "replaces": REPLACES[name],
             "launches": bf16["flagless"]["launches"][f"{name}_bf16"],
             "launches_bag_path": bf16["bag"]["launches"][f"{name}_bf16"],
+            "launches_carflag_bag10_path":
+                bf16["carflag_bag10"]["launches"][f"{name}_bf16"],
             "launches_image_path": bf16["image"]["launches"][f"{name}_bf16"],
-            "max_abs_err": bf16["parity"][name],
+            "launches_sweep_path":
+                bf16["sweep_drive"]["launches"][f"{name}_bf16"],
+            "max_abs_err": bf16["parity"]["picked"][name],
+            "max_abs_err_lanes": bf16["parity"]["lanes"][name],
             "ms": t["ms"],
+            "lanes_form": t["lanes_form"],
+            "lanes_ms": t["lanes_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],

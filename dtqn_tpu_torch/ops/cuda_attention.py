@@ -11,30 +11,38 @@ with a plain C interface at first use, under ``dtqn_tpu_torch/_build/``
 keyed by a hash of the source and the flags, and loaded with ctypes.
 
 What bounds them on an H100: at the main path's shapes (B = 32..64,
-L = 50, E = 64 or 128, float32) a call moves 1-2 MB, under a microsecond at
+L = 50, E = 64 or 128) a call moves 1-2 MB, under a microsecond at
 3.35 TB/s, and does a few MFLOP, so the time goes to the launch and to the
 latency of each warp's dependent chain; at the bag evict forward's
-B = 1664 the bytes bound it.  The design puts keys on lanes: a warp takes
-query rows of one (batch, head), each lane holds its keys' scores in
-registers and the softmax sums are warp shuffles.  ``launch_config`` picks
-the instance (head width padded to 8, 16, 32 or 64, and keys per lane):
-1 or 2 keys a lane with K and V in registers where that is at most
-``REGISTER_KEY_FLOATS`` floats (head width 8); 2 keys a lane at head width
-16 (Lk up to 64) with the head's rows staged once in shared memory by
-``cp.async`` (the
-backward also keeps P and dS as [Lq, Lk] tiles there, and spreads dK and
-dV over the whole block); or 0, the streamed form that takes any Lk.  It
-also picks the warps, the query rows per block and the shared memory, and
-the C entry point launches that instance.  No tensor cores (TF32 keeps
-about three digits, and at D = 8 a wgmma tile is mostly padding) and no
-TMA (a tensor map would be encoded on the host for every call).
+B = 1664 the bytes bound it, where the CUDA-core instances run at the
+issue rate of their FMAs and shuffles.  ``launch_config`` picks the
+instance by the element type and the shape:
 
-Every instance is built for float32 and for bfloat16 (``DTYPES``).  As the
-Pallas kernels do, a bfloat16 instance loads bf16, computes in float32 and
-stores its outputs rounded to bf16; its shared memory holds the same
-float32 rows and tiles as the float32 instance's (the staged form widens
-the rows while staging them), so ``launch_config`` does not depend on the
-element type.
+- bfloat16 at head width 8 or 16 with Lk <= 64 (and, backward, Lq <= 64),
+  every bf16 shape of a driven path, takes the tensor-core form
+  (``MMA_INSTANCES``, ``keys_per_lane`` ``MMA_FORM``): a warp per 16 query
+  rows, Q K^T and P V (backward also dO V^T, dS K, P^T dO, dS^T Q) as
+  ``mma.sync`` products of bf16 operands in float32, P and dS split into
+  hi and lo bf16 so that they keep ~16 bits, the head's rows staged as bf16
+  by ``cp.async``.
+- Every other call (all of float32; bf16 at other widths, past Lk = 64 or,
+  backward, past Lq = 64) takes the keys-on-lanes CUDA-core instances
+  (``INSTANCES``, head width padded to 8, 16, 32 or 64, and keys per lane):
+  a warp takes query rows of one (batch, head), each lane holds its keys'
+  scores in registers and the softmax sums are warp shuffles; 1 or 2 keys
+  a lane with K and V in registers where that is at most
+  ``REGISTER_KEY_FLOATS`` floats (head width 8); 2 keys a lane at head
+  width 16 (Lk up to 64) with the head's rows staged once in shared memory
+  by ``cp.async`` (the backward also keeps P and dS as [Lq, Lk] tiles
+  there, and spreads dK and dV over the whole block); or 0, the streamed
+  form that takes any Lk.  No tensor cores in float32 (TF32 keeps about
+  three digits).  Each is built for float32 and for bfloat16 (``DTYPES``);
+  a bfloat16 instance loads bf16, computes in float32 and stores its
+  outputs rounded to bf16.
+
+``launch_config`` also picks the warps, the query rows per block and the
+shared memory, and the C entry point launches that instance.  No TMA: a
+tensor map would be encoded on the host for every call.
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version, which
 repeats the kernels' math (``plain_attention_fwd`` / ``plain_attention_bwd``:
@@ -65,9 +73,17 @@ MAX_SMEM_BYTES = 232_448  # what one block may use on sm_90 (227 KB)
 # (head width, keys per lane) pairs built in csrc/attention.cu
 # (DTQN_INSTANCES); keys per lane 0 is the streamed form, which takes any Lk.
 INSTANCES = ((8, 1), (8, 2), (16, 2), (8, 0), (16, 0), (32, 0), (64, 0))
-# The element types every instance is built in, by the code the C entry
-# points take (DTQN_DTYPES).
+# The element types every instance of INSTANCES is built in, by the code
+# the C entry points take (DTQN_DTYPES).
 DTYPES = (torch.float32, torch.bfloat16)
+# The tensor-core form's head widths, bfloat16 only (DTQN_MMA_INSTANCES);
+# a launch configuration names it by keys_per_lane MMA_FORM.  It takes Lk
+# up to MMA_MAX_KEYS and, backward, Lq up to MMA_MAX_ROWS; a warp takes
+# MMA_WARP_ROWS query rows, a forward block up to MMA_MAX_ROWS.
+MMA_INSTANCES = (8, 16)
+MMA_FORM = -1
+MMA_MAX_KEYS = MMA_MAX_ROWS = 64
+MMA_WARP_ROWS = 16
 # A lane holds its keys' K and V rows (and, backward, their dK and dV sums)
 # in registers when keys per lane times the head width is at most this;
 # past it, an instance stages the head's rows in shared memory.
@@ -97,6 +113,21 @@ _lib = None
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def instances(dtype: torch.dtype) -> Tuple[Tuple[int, int], ...]:
+    """The (head width, keys per lane) instances built in ``dtype``."""
+    if dtype == torch.bfloat16:
+        return INSTANCES + tuple((d, MMA_FORM) for d in MMA_INSTANCES)
+    return INSTANCES
+
+
+def form_name(cfg) -> str:
+    """A launch configuration's instance as text: "mma <16>" or
+    "lanes <16, 2>"."""
+    if cfg.keys_per_lane == MMA_FORM:
+        return f"mma <{cfg.head_dim_pad}>"
+    return f"lanes <{cfg.head_dim_pad}, {cfg.keys_per_lane}>"
 
 
 def count_name(kind: str, dtype: torch.dtype) -> str:
@@ -201,8 +232,10 @@ def _check_cuda(tensors, b, lq, lk):
 
 class LaunchConfig(NamedTuple):
     """What the C entry point launches: the instance (``head_dim_pad``,
-    ``keys_per_lane``), ``warps`` per block, query rows per block (the grid
-    is B*H by ceil(Lq / rows_per_block)) and dynamic shared bytes."""
+    ``keys_per_lane``; ``keys_per_lane`` ``MMA_FORM`` is the tensor-core
+    form at head width ``head_dim_pad``), ``warps`` per block, query rows
+    per block (the grid is B*H by ceil(Lq / rows_per_block)) and dynamic
+    shared bytes."""
 
     head_dim_pad: int
     keys_per_lane: int
@@ -236,20 +269,56 @@ def _staged_config(kind, lq, lk, dp, kpl):
     return LaunchConfig(dp, kpl, STAGED_WARPS, lq, smem)
 
 
+def _mma_config(kind, lq, lk, d):
+    """The tensor-core form: bf16 head rows of d values padded to
+    ``d`` (8) or ``d + 8`` (16) bf16, an odd multiple of 16 bytes; the
+    forward's shared memory holds the tile's query rows and the head's K
+    and V rows, the backward's Q, dO, K and V rows and the P and dS tiles
+    as hi and lo bf16, [4][Lq][Lk + 8], each length padded to 16."""
+    pitch = d if d == 8 else d + 8
+    lk16 = -(-lk // 16) * 16
+    if kind == "attention_fwd":
+        rows = min(lq, MMA_MAX_ROWS)
+        rows16 = -(-rows // 16) * 16
+        return LaunchConfig(d, MMA_FORM, rows16 // MMA_WARP_ROWS, rows,
+                            2 * pitch * (rows16 + 2 * lk16))
+    lq16 = -(-lq // 16) * 16
+    smem = 2 * (2 * pitch * (lq16 + lk16) + 4 * lq16 * (lk16 + 8))
+    return LaunchConfig(d, MMA_FORM, max(lq16, lk16) // MMA_WARP_ROWS, lq,
+                        smem)
+
+
+def takes_mma(kind: str, lq: int, lk: int, d: int,
+              dtype: torch.dtype) -> bool:
+    """Whether the tensor-core form takes this call."""
+    return (dtype == torch.bfloat16 and d in MMA_INSTANCES
+            and lk <= MMA_MAX_KEYS
+            and (kind == "attention_fwd" or lq <= MMA_MAX_ROWS))
+
+
 @functools.lru_cache(maxsize=256)
 def launch_config(kind: str, lq: int, lk: int, d: int,
-                  streamed: bool = False) -> LaunchConfig:
+                  dtype: torch.dtype = torch.float32,
+                  streamed: bool = False, lanes: bool = False
+                  ) -> LaunchConfig:
     """The launch of ``kind`` ("attention_fwd" or "attention_bwd") at
-    Lq, Lk and head width d; raises ValueError past the kernels' limits.
-    The shape picks the instance of its width with the fewest keys a lane
-    that takes Lk, else the streamed form, which also takes the shapes
-    whose staged backward outgrows a block's shared memory (Lq past ~330
-    at Lk = 64).  ``streamed`` asks for the streamed form at any shape (to
-    time it against the picked one)."""
+    Lq, Lk and head width d in ``dtype``; raises ValueError past the
+    kernels' limits.  A bfloat16 call that ``takes_mma`` takes the
+    tensor-core form.  Any other call picks the keys-on-lanes instance of
+    its padded width with the fewest keys a lane that takes Lk, else the
+    streamed form, which also takes the shapes whose staged backward
+    outgrows a block's shared memory (Lq past ~330 at Lk = 64).  Asked for
+    by the timing code only, at any shape: ``lanes`` the keys-on-lanes
+    instance that the shape would pick without the tensor-core form, and
+    ``streamed`` the streamed form."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} is not in [1, {MAX_HEAD_DIM}]")
     if kind not in KINDS:
         raise ValueError(f"unknown kernel {kind!r}")
+    if dtype not in DTYPES:
+        raise TypeError(f"no attention instance takes {dtype}")
+    if not (streamed or lanes) and takes_mma(kind, lq, lk, d, dtype):
+        return _mma_config(kind, lq, lk, d)
     dp = max(8, 1 << (d - 1).bit_length())
     kpl = 0 if streamed else min(
         (k for w, k in INSTANCES if w == dp and 32 * k >= lk), default=0)
@@ -316,20 +385,23 @@ _MANGLED_DTYPES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
 def ptxas_usage(log: Optional[str] = None) -> List[dict]:
     """Registers and spill bytes of each kernel instance, from ``-Xptxas
     -v`` output: ``log``, or what ``build`` kept beside the library.  An
-    instance is named ``attention_fwd_kernel<dtype,D,KPL>``."""
+    instance is named ``attention_fwd_kernel<dtype,D,KPL>``, a tensor-core
+    one ``attention_fwd_mma<D>``."""
     if log is None:
         if _lib is None:
             raise RuntimeError("build() the kernels first")
         log = Path(_lib._name).with_suffix(".log").read_text()
     kernel = re.compile(r"(attention_(?:fwd|bwd)_kernel)I(f|13__nv_bfloat16)"
                         r"Li(\d+)ELi(\d+)E")
+    mma = re.compile(r"(attention_(?:fwd|bwd)_mma)ILi(\d+)EE")
     usage, current = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
         if m:
-            k = kernel.search(m.group(1))
+            k, t = kernel.search(m.group(1)), mma.search(m.group(1))
             current = (f"{k.group(1)}<{_MANGLED_DTYPES[k.group(2)]},"
-                       f"{k.group(3)},{k.group(4)}>" if k else None)
+                       f"{k.group(3)},{k.group(4)}>" if k else
+                       f"{t.group(1)}<{t.group(2)}>" if t else None)
             continue
         if current is None:
             continue
@@ -405,7 +477,7 @@ def attention_fwd(q, k, v, num_heads: int, causal: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return plain_attention_fwd(q, k, v, num_heads, causal)
     out = launch_fwd(q, k, v, num_heads, causal,
-                     launch_config("attention_fwd", lq, lk, d))
+                     launch_config("attention_fwd", lq, lk, d, q.dtype))
     launch_counts[count_name("attention_fwd", q.dtype)] += 1
     return out
 
@@ -418,7 +490,7 @@ def attention_bwd(q, k, v, dout, num_heads: int, causal: bool):
     if q.device.type == "cpu":
         return plain_attention_bwd(q, k, v, dout, num_heads, causal)
     grads = launch_bwd(q, k, v, dout, num_heads, causal,
-                       launch_config("attention_bwd", lq, lk, d))
+                       launch_config("attention_bwd", lq, lk, d, q.dtype))
     launch_counts[count_name("attention_bwd", q.dtype)] += 1
     return grads
 
