@@ -122,7 +122,23 @@ Phases (any failure exits non-zero and prints no result):
      (launches reckoned by shape and form: every bf16 launch of a driven
      path takes the tensor-core form); the bf16 kernels timed at every
      driven bf16 shape, each in turns with the keys-on-lanes instance that
-     it replaced (SDPA in bf16 the library call).
+     it replaced (SDPA in bf16 the library call);
+ 20. several devices: the state of phase 4's configuration saved as a
+     one-device checkpoint and trained in turns on 1, 2, 2 and 1 ranks
+     (two processes on the one card, gloo: NCCL refuses two ranks on one
+     device), each turn 4 iterations of 64 updates with the target update
+     every 100 applied steps (not 10 000, so that the turn crosses target
+     swaps), through ``make_distributed_train_chunk``; the 2-rank state
+     against the 1-rank one (parameters and targets within rtol 2e-4 /
+     atol 2e-5, diagnostics within rtol 1e-3 / atol 1e-4, counters,
+     flushed_total, generator, replay, contexts and env state equal; the
+     largest differences printed), repeated turns bit-equal; every
+     attention launch of each rank counted by shape (update at B=16, act
+     at B=32) and held; per turn the env-steps/s of an iteration, host and
+     device ms per update and, over 2 ranks, the collectives per update
+     and their host ms; then ``run_experiment`` with --dp-devices 2 whole,
+     cut and resumed (final parameters bit-equal), and the cut run's
+     checkpoint resumed by a one-device run.
 
 Before the last line it prints the script's total seconds, the card line
 and one ``{"kernels": [...]}`` JSON line (each kernel with its dtype: the
@@ -268,6 +284,9 @@ PARITY_CASES = [
     (160, 50, 50, 8, True, 128), (160, 50, 25, 8, False, 128),
     (320, 50, 50, 8, True, 128), (320, 50, 25, 8, False, 128),
     (8320, 50, 50, 8, True, 128), (8320, 50, 25, 8, False, 128),
+    # Phase 20's ranks: the flagless update's batch of 32 over 2 ranks
+    # (each rank's act forward, at 32 of the 64 envs, is listed above).
+    (16, 50, 50, 8, True, 64),
 ]
 
 
@@ -2447,6 +2466,327 @@ def bf16_phase(seed, ca, flagless, f32_operations):
     return result
 
 
+# ------------------------------------------- several devices (phase 20)
+DP_RANKS = 2
+# Per turn: DP_ITERS iterations of one update per env step (64; the first
+# a warm-up of the timing), then DP_UPDATES more updates timed alone and
+# DP_UPDATES profiled.
+DP_ITERS = 4
+DP_UPDATES = 16
+# The phase's target-update frequency, lowered from the configuration's
+# 10 000 so that each turn crosses applied target swaps: at least one in
+# the first DP_CHECKED iterations (128 updates).
+DP_TUF = 100
+# The JAX package's sharding test holds its runs to DP_PARAM_TOL /
+# DP_DIAG_TOL after 30 updates; here that holds through DP_CHECKED
+# iterations.  Past them rounding differences grow with the training
+# dynamics (a one-device run whose parameters are nudged by one ulp
+# drifts further, PERF.md), and every iteration is held to that yardstick.
+DP_CHECKED = 2
+DP_TURNS = (1, DP_RANKS, DP_RANKS, 1)
+DP_PARAM_TOL = dict(rtol=2e-4, atol=2e-5)
+DP_DIAG_TOL = dict(rtol=1e-3, atol=1e-4)
+DP_FLOAT_KEYS = ("params", "target_params", "opt_state.mu", "opt_state.nu",
+                 "diagnostics.averages.buf")
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dp_load(path, device):
+    """The flagless agent (target update every DP_TUF) on ``device`` and
+    the one-device state saved at ``path``."""
+    from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.envs import make_env
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = AgentConfig(
+        model="DTQN", num_envs=64, context_len=50, history=50,
+        inner_embed=64, num_heads=8, num_layers=2, batch_size=32,
+        buffer_size=500_000, target_update_frequency=DP_TUF,
+    )
+    agent = Agent(cfg, make_env("DiscreteCarFlag-v0"), device=device)
+    state, _ = ckpt.load_checkpoint(path, agent.init_state(0))
+    return agent, state
+
+
+def dp_tensors(state, keys=None):
+    """The tensors of a (global) state named ``keys`` (default: all, the
+    generator's state with them) on the host, by checkpoint name."""
+    from dtqn_tpu_torch.utils.checkpoint import _leaves
+
+    return {name: (leaf.get_state() if isinstance(leaf, torch.Generator)
+                   else leaf.detach().cpu().clone())
+            for name, leaf in _leaves(state) if keys is None or name in keys}
+
+
+def dp_turn(agent, state, train_iter, mesh, gathered):
+    """DP_ITERS train iterations, the learner state after each and the
+    ``gathered()`` global state after the last; then DP_UPDATES updates
+    timed on the host and DP_UPDATES profiled: the turn's numbers."""
+    from dtqn_tpu_torch.agents import Agent
+
+    device = agent.device
+    seconds, learner = [], []
+    for _ in range(DP_ITERS):
+        sync(device)
+        t0 = time.perf_counter()
+        train_iter(state)
+        sync(device)
+        seconds.append(time.perf_counter() - t0)
+        learner.append(dp_tensors(state, DP_FLOAT_KEYS))
+    out = {"learner": learner, "state": gathered()}
+    updater = Agent(agent.config, agent.env, device=device, mesh=mesh)
+    before = (dict(mesh.counts), dict(mesh.seconds)) if mesh else None
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(DP_UPDATES):
+        updater.learn(state)
+    sync(device)
+    update_s = (time.perf_counter() - t0) / DP_UPDATES
+    timed = sorted(seconds[1:])[len(seconds[1:]) // 2]
+    out.update({
+        "iteration_s": seconds,
+        "env_steps_per_s": agent.config.num_envs / timed,
+        "host_ms_per_update": 1e3 * update_s,
+    })
+    if mesh is not None:
+        out["collectives_per_update"] = {
+            k: (mesh.counts[k] - before[0][k]) / DP_UPDATES
+            for k in mesh.counts}
+        out["collective_host_ms_per_update"] = {
+            k: 1e3 * (mesh.seconds[k] - before[1][k]) / DP_UPDATES
+            for k in mesh.seconds}
+    if torch.device(device).type == "cuda":
+        _, by_name = device_events(
+            lambda: [updater.learn(state) for _ in range(DP_UPDATES)])
+        out["device_ms_per_update"] = sum(
+            us for _, us in by_name.values()) / 1e3 / DP_UPDATES
+    return out
+
+
+def dp_rank(mesh, path, turns):
+    """One rank of phase 20, started by ``spawn``: in each of ``turns``
+    turns, the saved one-device state loaded, sharded and trained through
+    ``make_distributed_train_chunk``, every attention launch counted by
+    shape and held by ``check_ledger``; the replicated state checked equal
+    across the ranks, and the global state gathered (rank 0 returns it)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from dtqn_tpu_torch.ops import cuda_attention as ca
+    from dtqn_tpu_torch.parallel import (
+        make_distributed_train_chunk,
+        process_info,
+        shard_state,
+    )
+    from dtqn_tpu_torch.parallel.mesh import check_replicated, unshard_state
+    from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+
+    out = {"process_info": process_info(), "device": str(mesh.device),
+           "turns": []}
+    for _ in range(turns):
+        agent, state = dp_load(path, mesh.device)
+        state = shard_state(agent, state, mesh)
+        cfg = agent.config
+        train_iter = make_distributed_train_chunk(
+            agent, EpsilonSchedule(1.0, 0.1, 200_000), cfg.num_envs, 1, mesh,
+            state)
+
+        def gathered():
+            check_replicated(state, mesh)
+            return dp_tensors(unshard_state(state, mesh))
+
+        ca.reset_launch_counts()
+        with launch_ledger(ca) as ledger:
+            turn = dp_turn(agent, state, train_iter, mesh, gathered)
+            launched = dict(ledger)
+        if mesh.rank:
+            del turn["learner"], turn["state"]  # rank 0's are the same
+        share = dataclasses.replace(cfg, num_envs=cfg.num_envs // mesh.size,
+                                    batch_size=cfg.batch_size // mesh.size)
+        reckoned = reckoned_launches(
+            share, DP_ITERS, DP_ITERS * cfg.num_envs + DP_UPDATES * (
+                2 if mesh.device.type == "cuda" else 1))
+        turn["launches"] = check_ledger(ca, launched, reckoned,
+                                        f"phase 20, rank {mesh.rank}")
+        out["turns"].append(turn)
+    return out
+
+
+def dp_one_device(path, nudge=False):
+    """A turn of one rank: the saved state trained on the card unsharded;
+    with ``nudge``, from parameters one ulp above the saved ones."""
+    from dtqn_tpu_torch.train.loop import make_train_chunk_fn
+    from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+
+    agent, state = dp_load(path, DEVICE)
+    if nudge:
+        with torch.no_grad():
+            state.params.copy_(torch.nextafter(
+                state.params, torch.full_like(state.params, math.inf)))
+    train_iter = make_train_chunk_fn(
+        agent, EpsilonSchedule(1.0, 0.1, 200_000), agent.config.num_envs, 1)
+    return dp_turn(agent, state, train_iter, None, lambda: dp_tensors(state))
+
+
+def dp_gaps(one, other):
+    """{float learner field: its largest difference after each
+    iteration}."""
+    return {key: [(a[key] - b[key]).abs().max().item()
+                  for a, b in zip(one["learner"], other["learner"])]
+            for key in DP_FLOAT_KEYS}
+
+
+def dp_compare(one, other, what, checked=DP_ITERS):
+    """``other``'s turn against ``one``'s: the float learner state within
+    the JAX package's sharding-test tolerances after each of the first
+    ``checked`` iterations, and every other tensor of the final state
+    (counters, flushed_total, generator, replay, contexts, env state)
+    equal.  Returns the largest differences after each iteration."""
+    for i, (a, b) in enumerate(zip(one["learner"][:checked],
+                                   other["learner"])):
+        for key in DP_FLOAT_KEYS:
+            tol = DP_DIAG_TOL if key.startswith("diag") else DP_PARAM_TOL
+            check(torch.allclose(b[key], a[key], **tol),
+                  f"{what}: {key} after iteration {i + 1} differs by "
+                  f"{(a[key] - b[key]).abs().max().item()} ({tol})")
+    check(one["state"].keys() == other["state"].keys(),
+          f"{what}: the states' fields differ")
+    unequal = [key for key, a in one["state"].items()
+               if key not in DP_FLOAT_KEYS
+               and not torch.equal(a, other["state"][key])]
+    check(not unequal, f"{what}: {unequal} differ")
+    return dp_gaps(one, other)
+
+
+def dp_runner_phase(seed):
+    """``run_experiment`` with --dp-devices 2: whole; cut by the time limit
+    and resumed (final parameters bit-equal to the whole run's: a sum over
+    2 ranks does not depend on its order); the cut run's checkpoint resumed
+    by a one-device run."""
+    import shutil
+
+    from dtqn_tpu_torch.train.runner import run_experiment
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+
+    def cfg(project, **kw):
+        # 250 prepopulation steps per env: every env ends an episode
+        # within 200.
+        return runner_config(seed, **dict(
+            dict(dp_devices=DP_RANKS, prepop_steps=64 * 250,
+                 project_name=project), **kw))
+
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
+        t0 = time.perf_counter()
+        whole = cfg("dp-whole")
+        final = run_experiment(whole)
+        seconds["whole"] = time.perf_counter() - t0
+        check_csvs(whole, [128, 256])
+        check(all(math.isfinite(v) for v in final.values()),
+              f"dp runner: final log not finite: {final}")
+        check(ckpt.load_mini_checkpoint(whole.policy_path())
+              == {"step": 256, "wandb_id": None}, "dp runner: sentinel")
+        check(not ckpt.has_checkpoint(whole.policy_path()),
+              "dp runner: an uninterrupted run wrote a full checkpoint")
+        whole_weights = saved_policy(whole, "cpu").state_dict()
+
+        t0 = time.perf_counter()
+        run_experiment(cfg("dp-cut", time_limit=1e-9))
+        seconds["cut"] = time.perf_counter() - t0
+        cut = cfg("dp-cut")
+        check(ckpt.has_checkpoint(cut.policy_path())
+              and ckpt.load_mini_checkpoint(cut.policy_path())["step"] == 128,
+              "dp runner: the time limit wrote no checkpoint at step 128")
+        shutil.copytree(os.path.join("policies", "dp-cut"),
+                        os.path.join("policies", "dp-handoff"))
+        t0 = time.perf_counter()
+        run_experiment(cut)
+        seconds["resumed"] = time.perf_counter() - t0
+        check_csvs(cut, [128, 256])
+        weights = saved_policy(cut, "cpu").state_dict()
+        differing = [k for k in weights
+                     if not torch.equal(weights[k], whole_weights[k])]
+        check(not differing, f"dp runner: the resumed run's final "
+                             f"parameters differ in {differing}")
+
+        handoff = cfg("dp-handoff", dp_devices=1)
+        t0 = time.perf_counter()
+        final = run_experiment(handoff)
+        seconds["one_device_resume"] = time.perf_counter() - t0
+        check(ckpt.load_mini_checkpoint(handoff.policy_path())["step"] == 256
+              and math.isfinite(final["losses/TD_Error"]),
+              "dp runner: a one-device run did not finish from the 2-rank "
+              "checkpoint")
+    return {"seconds": seconds, "resumed_bit_equal": True}
+
+
+def dp_phase(seed, card, flagless):
+    """Phase 20: phase 4's state saved as a one-device checkpoint, trained
+    in turns on 1, 2, 2 and 1 ranks (the 2-rank turns in two processes on
+    the one card, gloo), then once more on 1 rank from parameters nudged
+    by one ulp; the 2-rank turns against the first 1-rank turn; then the
+    runner over 2 ranks."""
+    from dtqn_tpu_torch.parallel.distributed import pick_backend, spawn
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+
+    _, state = flagless
+    t_start = time.perf_counter()
+    backend = pick_backend(DP_RANKS, DEVICE)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagless")
+        ckpt.save_checkpoint(path, state)
+        first = dp_one_device(path)
+        ranks = spawn(dp_rank, DP_RANKS, (path, 2), device=DEVICE)
+        last = dp_one_device(path)
+        nudged = dp_one_device(path, nudge=True)
+    check(all(r["process_info"]["backend"] == backend for r in ranks),
+          f"the ranks' backend is not {backend}: "
+          f"{[r['process_info'] for r in ranks]}")
+    two, again = ranks[0]["turns"]
+    gaps = {
+        "1_rank_repeat": dp_compare(first, last, "1-rank turns"),
+        "2_rank_repeat": dp_compare(two, again, "2-rank turns"),
+        "2_ranks_vs_1": dp_compare(first, two, "2 ranks against 1",
+                                   DP_CHECKED),
+        "1_ulp_nudge_vs_1": dp_gaps(first, nudged),
+    }
+    check(all(g == 0.0 for key in ("1_rank_repeat", "2_rank_repeat")
+              for gs in gaps[key].values() for g in gs),
+          f"a repeated turn differs: {gaps}")
+    check(all(a <= b for a, b in zip(gaps["2_ranks_vs_1"]["params"],
+                                     gaps["1_ulp_nudge_vs_1"]["params"])),
+          f"the 2-rank run drifts further from the 1-rank run than a one-ulp "
+          f"nudge of its parameters: {gaps}")
+    train_steps = int(first["state"]["train_steps"])
+    updates = DP_ITERS * state.obs.shape[0]  # one per env step
+    swaps = train_steps // DP_TUF - (train_steps - updates) // DP_TUF
+    check(swaps >= 2, f"the turns crossed {swaps} target swaps")
+
+    def numbers(turn):
+        return {k: v for k, v in turn.items() if k not in ("learner", "state")}
+
+    # Each turn's numbers, per rank: 1, 2, 2, 1 ranks.
+    timing = [[numbers(first)],
+              [numbers(r["turns"][0]) for r in ranks],
+              [numbers(r["turns"][1]) for r in ranks],
+              [numbers(last)]]
+    runner = dp_runner_phase(seed)
+    result = {
+        "card": card,
+        "backend": backend,
+        "process_info": [r["process_info"] for r in ranks],
+        "target_swaps": swaps,
+        "largest_differences_per_iteration": gaps,
+        "turns": timing,
+        "runner": runner,
+        "seconds": time.perf_counter() - t_start,
+    }
+    log(f"dp phase: {json.dumps(result)}")
+    return result
+
+
 def run(seed):
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
@@ -2514,6 +2854,7 @@ def run(seed):
         "bag": bag["operations"],
         "drqn": baselines["DRQN Memory-5-v0"]["operations"],
         "image": image["operations"]})
+    dp = dp_phase(seed, card, (agent, state))
 
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
@@ -2534,6 +2875,10 @@ def run(seed):
                 v: variants[v]["launches"][name] for v, _ in VARIANTS},
             "launches_four_rooms_path": multi["launches"][name],
             "launches_sweep_path": sweep["flagless"]["launches"][name],
+            "launches_per_rank_2_rank_path": [
+                sum(n for shape, n in rank["launches"].items()
+                    if shape.startswith(name + " "))
+                for rank in dp["turns"][1]],
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -2589,7 +2934,7 @@ def run(seed):
                       "timings_b64": t_act, "timings_b32_d16": t_wide,
                       "timings_d16": t_d16, "timings_bag": t_bag,
                       "timings_streamed": t_streamed,
-                      "profile": prof, "bf16": bf16,
+                      "profile": prof, "bf16": bf16, "several_devices": dp,
                       "ptxas": usage}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,6 +35,11 @@ envs, contexts, bags, carries and replay rows one batch, seed-major; one
 generator per seed, from which each seed draws what its own run draws, in
 the same order.  Every function below takes either state; each dispatched
 operation then serves all S seeds.
+
+An agent built with a ``mesh`` of several ranks (``parallel/mesh.py``) acts
+and learns on one rank's part of a sharded state: its envs' draws are the
+rank's slices of the global draws, it samples the global batch and trains
+on its share, and it all-reduces the gradient before the clip.
 """
 
 from __future__ import annotations
@@ -64,7 +69,7 @@ from dtqn_tpu_torch.models.dropout import DropoutDraws
 from dtqn_tpu_torch.models.stacked import StackedNetwork
 from dtqn_tpu_torch.utils.device import resolve_device
 from dtqn_tpu_torch.utils.metrics import TrainDiagnostics
-from dtqn_tpu_torch.utils.rng import folded_draw
+from dtqn_tpu_torch.utils.rng import ShardedGenerator, folded_draw
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam defaults
 
@@ -214,11 +219,12 @@ class Agent:
     """Builds the act / observe / learn functions for a config + env pair.
 
     Runs on ``cuda`` unless ``device`` says otherwise; raises when no GPU
-    is found and the caller did not ask for the CPU.
+    is found and the caller did not ask for the CPU.  With a ``mesh`` of
+    several ranks, it runs one rank's part (``parallel/mesh.py``).
     """
 
     def __init__(self, config: AgentConfig, env: Environment,
-                 device: Optional[str] = None):
+                 device: Optional[str] = None, mesh=None):
         if config.model not in MODEL_MAP:
             raise KeyError(
                 f"Unknown model {config.model!r}; choices: "
@@ -246,6 +252,15 @@ class Agent:
         self.device = resolve_device(device)
         self.use_bag = config.kind == "transformer" and config.bag_size > 0
         self.store_act_bags = self.use_bag and config.bag_store
+        # A mesh of one rank issues no collective: the one-device path.
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+
+    def rank_generator(self, generator):
+        """``generator`` as this rank's env-indexed draws take it: their
+        slices of the global draws over a mesh, else itself."""
+        if self.mesh is None:
+            return generator
+        return ShardedGenerator(generator, self.mesh)
 
     # ------------------------------------------------------------------ init
     def build_network(self, generator: Optional[torch.Generator] = None):
@@ -427,7 +442,7 @@ class Agent:
         """Epsilon-greedy (dqn.py:117-131): (actions, carry).  The carry
         steps whether the draw explores or not.  Stacked, ``epsilon`` is
         per seed."""
-        gen, device = state.generator, self.device
+        gen, device = self.rank_generator(state.generator), self.device
         greedy, carry = self.greedy_actions(
             state.network, state.context, state.bag, state.carry, state.obs
         )
@@ -526,12 +541,12 @@ class Agent:
                       reset_obs) -> AgentState:
         """Flush finished episodes and start fresh contexts, bags and
         carries (run.py:293-296 + context_reset dtqn.py:109-114)."""
-        replay.flush(state.buffer, done)
+        replay.flush(state.buffer, done, self.mesh)
         replay.store_first_obs(state.buffer, reset_obs, done,
                                self.env.obs_mask)
         state.context = replay.reset_context(
-            state.context, state.generator, reset_obs, done,
-            self.env.obs_mask, self.env.num_actions,
+            state.context, self.rank_generator(state.generator), reset_obs,
+            done, self.env.obs_mask, self.env.num_actions,
         )
         if self.use_bag:
             state.bag = replay.reset_bag(state.bag, done, self.env.obs_mask)
@@ -545,19 +560,21 @@ class Agent:
     # ------------------------------------------------------------- learning
     def sample_batch(self, buffer: replay.BufferState,
                      generator: torch.Generator) -> replay.Batch:
+        """The batch of one update: over a mesh, this rank's share of the
+        global batch."""
         cfg = self.config
         if self.store_act_bags:
             return replay.sample_with_stored_bag(
                 buffer, generator, cfg.batch_size, cfg.context_len,
-                self.env.obs_mask,
+                self.env.obs_mask, self.mesh,
             )
         if self.use_bag:
             return replay.sample_with_bag(
                 buffer, generator, cfg.batch_size, cfg.context_len,
-                cfg.bag_size, self.env.obs_mask,
+                cfg.bag_size, self.env.obs_mask, self.mesh,
             )
         return replay.sample(buffer, generator, cfg.batch_size,
-                             cfg.context_len)
+                             cfg.context_len, self.mesh)
 
     def learn(self, state: AgentState) -> AgentState:
         """One gated DDQN gradient step (dtqn.py:162-269, dqn.py:142-206)."""
@@ -570,16 +587,24 @@ class Agent:
         the JAX package), else drawn from the agent's generator or, for
         tests, the given ones.  A stacked state draws them here, for a
         forward over ``window`` = (S*B, L): each seed's masks from its own
-        generator, site by site in the order a forward's sites draw them."""
+        generator, site by site in the order a forward's sites draw them.
+        Over a mesh, each site's mask is drawn over the global batch and
+        this rank keeps its share."""
         if self.config.dropout <= 0.0 or self.config.kind != "transformer":
             return None
         if masks is not None:
             return DropoutDraws(masks=masks)
         gen = state.generator
+        keep = 1.0 - self.config.dropout
+        if self.mesh is not None:
+            shapes = state.network.dropout_shapes(self.config.batch_size,
+                                                  window[1])
+            return DropoutDraws(masks=[self.mesh.share(torch.rand(
+                shape, generator=gen, device=self.device) < keep)
+                for shape in shapes])
         if isinstance(gen, torch.Generator):
             return DropoutDraws(generator=gen)
         total, length = window
-        keep = 1.0 - self.config.dropout
         shapes = state.network.module.dropout_shapes(total // len(gen),
                                                      length)
         return DropoutDraws(masks=[
@@ -593,7 +618,8 @@ class Agent:
         dropout, ``masks`` may give each forward's masks in call order, as
         (policy next-Q, target next-Q, loss) lists.  Stacked, the batch is
         S seed-major blocks of B windows and each seed's loss, gradient,
-        clip, Adam step, gate and target swap are its own."""
+        clip, Adam step, gate and target swap are its own.  Over a mesh,
+        the batch is this rank's share of the global one."""
         cfg = self.config
         seeds = state.seed_shape
         ok = replay.can_sample(state.buffer, cfg.batch_size)
@@ -634,6 +660,11 @@ class Agent:
             # sum is the gradient of its own loss.
             td = torch.square(q_h - t_h).reshape(seeds + (-1,)).mean(-1)
             loss = td.sum()
+        elif self.mesh is not None:
+            # This rank's share of the global mean: summed over the ranks
+            # with the gradient, it is the one-device loss.
+            td = loss = torch.square(q_h - t_h).sum() / (
+                cfg.batch_size * q_h.shape[1])
         else:
             td = loss = torch.mean(torch.square(q_h - t_h))
         params = list(state.network.parameters())
@@ -643,6 +674,8 @@ class Agent:
                 seeds + (-1,))
             for g, p in zip(grads, params)
         ], dim=-1)
+        if self.mesh is not None:
+            self.mesh.all_reduce(flat_grads)
 
         with torch.no_grad():
             gnorm = torch.linalg.vector_norm(flat_grads,
@@ -664,7 +697,7 @@ class Agent:
                 state.target_params))
             state.diagnostics.update(
                 apply, td=td.detach(), gnorm=gnorm, q=q_h.detach(),
-                targets=t_h,
+                targets=t_h, mesh=self.mesh,
             )
             state.nonfinite_grads = state.nonfinite_grads + (
                 ok & ~finite

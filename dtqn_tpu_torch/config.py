@@ -72,7 +72,7 @@ class ExperimentConfig:
     attention: str = "xla"
     unroll: int = 4
     outer_unroll: int = 1
-    dp_devices: int = 1  # data-parallel devices (not ported yet)
+    dp_devices: int = 1  # data-parallel ranks, one process each (parallel/)
     profile_dir: str = ""  # torch.profiler trace of one chunk
     bf16: bool = False  # bfloat16 compute, float32 parameters
     # Exploration floor (reference: 0.1, run.py:420).  Raising it is the
@@ -214,7 +214,9 @@ def get_args(argv=None) -> ExperimentConfig:
                    help="Accepted and ignored (the iteration loop is "
                         "Python).")
     p.add_argument("--dp-devices", type=int, default=d.dp_devices,
-                   help="More than 1 is not ported yet.")
+                   help="Train one run sharded over this many ranks, one "
+                        "process each (started here, or by torchrun); a "
+                        "sweep over several seeds refuses it.")
     p.add_argument("--profile-dir", type=str, default=d.profile_dir,
                    help="Write a torch.profiler trace (Chrome JSON) of one "
                         "train chunk under this directory.")

@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from dtqn_tpu_torch.envs.core import Environment, ObsKind
+from dtqn_tpu_torch.utils.rng import sharded_draw
 
 
 @dataclasses.dataclass
@@ -114,7 +115,8 @@ class CarFlag(Environment):
         return self._observe(state), state
 
     def reset_env(self, generator, num_envs: int, device):
-        draws = torch.rand((2, num_envs), generator=generator, device=device)
+        draws = sharded_draw(generator, (2, num_envs), lambda g, s: torch.rand(
+            s, generator=g, device=device), env_axis=1)
         return self.reset_with(draws[0] < 0.5, draws[1] * 0.4 - 0.2)
 
     def step_env(self, generator, state: CarFlagState, action):

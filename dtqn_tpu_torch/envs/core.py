@@ -23,20 +23,20 @@ class ObsKind(enum.Enum):
     IMAGE = 2
 
 
-def _batch_map(fn, trees):
+def batch_map(fn, trees):
     """``fn`` over the tensors at one place of several trees (dataclasses,
     named tuples, dicts) of one structure; other leaves come from the
     first tree."""
     first = trees[0]
     if dataclasses.is_dataclass(first):
         return dataclasses.replace(first, **{
-            f.name: _batch_map(fn, [getattr(t, f.name) for t in trees])
+            f.name: batch_map(fn, [getattr(t, f.name) for t in trees])
             for f in dataclasses.fields(first)
         })
     if isinstance(first, dict):
-        return {k: _batch_map(fn, [t[k] for t in trees]) for k in first}
+        return {k: batch_map(fn, [t[k] for t in trees]) for k in first}
     if isinstance(first, tuple):
-        items = [_batch_map(fn, list(xs)) for xs in zip(*trees)]
+        items = [batch_map(fn, list(xs)) for xs in zip(*trees)]
         return type(first)(*items) if hasattr(first, "_fields") else tuple(items)
     return fn(trees) if isinstance(first, torch.Tensor) else first
 
@@ -50,17 +50,17 @@ def where_batch(cond: torch.Tensor, on_true, on_false):
         return torch.where(
             cond.reshape(cond.shape + (1,) * (t.dim() - cond.dim())), t, f)
 
-    return _batch_map(select, [on_true, on_false])
+    return batch_map(select, [on_true, on_false])
 
 
 def cat_batch(parts):
     """Batches of one structure, concatenated along the env axis."""
-    return _batch_map(torch.cat, parts)
+    return batch_map(torch.cat, parts)
 
 
 def stack_batch(parts):
     """Trees of one structure, stacked along a new leading seed axis."""
-    return _batch_map(torch.stack, parts)
+    return batch_map(torch.stack, parts)
 
 
 def per_seed(fn, generator, *batched):
@@ -69,12 +69,12 @@ def per_seed(fn, generator, *batched):
     per seed on that seed's block of each batched argument, with that
     seed's generator, and the outputs are concatenated: each seed's envs
     draw what a run of its own draws."""
-    if isinstance(generator, torch.Generator):
+    if not isinstance(generator, list):
         return fn(generator, *batched)
     s = len(generator)
     outs = []
     for i, g in enumerate(generator):
-        block = [_batch_map(lambda xs: xs[0].chunk(s)[i], [b])
+        block = [batch_map(lambda xs: xs[0].chunk(s)[i], [b])
                  for b in batched]
         outs.append(fn(g, *block))
     return cat_batch(outs)

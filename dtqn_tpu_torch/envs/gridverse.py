@@ -52,6 +52,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from dtqn_tpu_torch.envs.core import Environment, ObsKind
+from dtqn_tpu_torch.utils.rng import sharded_draw
 
 # Object types
 HIDDEN, FLOOR, WALL, EXIT, BEACON = 0, 1, 2, 3, 4
@@ -290,7 +291,8 @@ class GridverseMemory(Environment):
         e = num_envs
 
         def rand(*shape):
-            return torch.rand(shape, generator=generator, device=device)
+            return sharded_draw(generator, shape, lambda g, s: torch.rand(
+                s, generator=g, device=device))
 
         # Two distinct exit colors from {red..yellow}: the first two of a
         # uniform shuffle (the sort order of one draw per color); the three
@@ -315,8 +317,8 @@ class GridverseMemory(Environment):
             allowed = (gtype == FLOOR).reshape(e, -1)
         u = rand(*allowed.shape)
         spawn = torch.argmax(torch.where(allowed, u, -1.0), dim=-1)
-        direction = torch.randint(0, 4, (e,), generator=generator,
-                                  device=device, dtype=torch.int32)
+        direction = sharded_draw(generator, (e,), lambda g, s: torch.randint(
+            0, 4, s, generator=g, device=device, dtype=torch.int32))
         return self._spawn(gtype, gcolor, good, beacon_pos, spawn, direction)
 
     # ------------------------------------------------------------ observing

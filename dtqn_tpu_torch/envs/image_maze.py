@@ -23,6 +23,7 @@ import torch
 
 from dtqn_tpu_torch.envs.core import Environment, ObsKind
 from dtqn_tpu_torch.envs.pomdp import draw
+from dtqn_tpu_torch.utils.rng import sharded_draw
 
 DIRS = ((-1, 0), (0, 1), (1, 0), (0, -1))  # N E S W
 
@@ -108,8 +109,9 @@ class ImageMaze(Environment):
 
     def reset_env(self, generator, num_envs: int, device):
         n = self.size
-        keep = torch.rand((num_envs, n, n), generator=generator,
-                          device=device) < 0.5
+        keep = sharded_draw(generator, (num_envs, n, n),
+                            lambda g, s: torch.rand(s, generator=g,
+                                                    device=device)) < 0.5
         free = ~self._walls(keep).reshape(num_envs, -1)
         free_logits = torch.where(free, 0.0, -torch.inf)
         goal_cell = draw(generator, free_logits)

@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 
 from dtqn_tpu_torch.envs.core import Environment, ObsKind
+from dtqn_tpu_torch.utils.rng import sharded_draw
 
 
 @dataclasses.dataclass
@@ -65,8 +66,8 @@ class MemoryCards(Environment):
         """Uniformly chosen un-removed card per env: the largest of one
         uniform draw per card, removed cards left out (card 0 when all are
         removed)."""
-        u = torch.rand(removed.shape, generator=generator,
-                       device=removed.device)
+        u = sharded_draw(generator, removed.shape, lambda g, s: torch.rand(
+            s, generator=g, device=removed.device))
         return torch.argmax(torch.where(removed, -1.0, u), dim=-1).to(
             torch.int32
         )
@@ -92,8 +93,9 @@ class MemoryCards(Environment):
         ).repeat_interleave(2)
         # A uniform shuffle per env: the sort order of one draw per card.
         order = torch.argsort(
-            torch.rand((num_envs, self.num_cards), generator=generator,
-                       device=device),
+            sharded_draw(generator, (num_envs, self.num_cards),
+                         lambda g, s: torch.rand(s, generator=g,
+                                                 device=device)),
             dim=-1,
         )
         values = deck[order]

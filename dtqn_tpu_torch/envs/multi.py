@@ -20,6 +20,7 @@ from typing import Any, List, Sequence
 import torch
 
 from dtqn_tpu_torch.envs.core import Environment, where_batch
+from dtqn_tpu_torch.utils.rng import sharded_draw
 
 
 @dataclasses.dataclass
@@ -80,9 +81,10 @@ class MultiDomainEnv(Environment):
         return self._obs_mask
 
     def reset_env(self, generator, num_envs: int, device):
-        domain = torch.randint(0, len(self.envs), (num_envs,),
-                               generator=generator, device=device,
-                               dtype=torch.int32)
+        domain = sharded_draw(
+            generator, (num_envs,), lambda g, s: torch.randint(
+                0, len(self.envs), s, generator=g, device=device,
+                dtype=torch.int32))
         obs, inner = _select(domain, [
             e.reset_env(generator, num_envs, device) for e in self.envs
         ])

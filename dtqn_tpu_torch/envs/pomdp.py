@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from dtqn_tpu_torch.envs.core import Environment, ObsKind
+from dtqn_tpu_torch.utils.rng import sharded_draw
 
 LOG_FLOOR = 1e-30  # log(p + LOG_FLOOR): a zero probability never wins
 
@@ -48,7 +49,8 @@ def categorical(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
 
 def draw(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
     """One categorical draw per row of ``logits`` (int64)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = sharded_draw(generator, logits.shape, lambda g, s: torch.rand(
+        s, generator=g, device=logits.device))
     return categorical(logits, u.clamp_min_(torch.finfo(torch.float32).tiny))
 
 

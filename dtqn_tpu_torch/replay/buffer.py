@@ -22,6 +22,11 @@
     s owns rows [s * R, (s + 1) * R) and envs [s * E, (s + 1) * E) (the
     seed-major folded layout), ``flushed_total`` is [S], and each seed
     samples its own rows from its own generator
+  - a ring sharded over the ranks of a mesh (``parallel/mesh.py``; the
+    ``mesh`` arguments) holds rank r's block of rows [r * R, (r + 1) * R)
+    of the global ring, and ``flushed_total`` counts every rank's episodes.
+    Sampling is global: every rank draws the same windows over all rows,
+    their owners fill them in, and each rank gets its share of the batch
 
 Unlike the JAX package, the write functions update the buffer's tensors in
 place (and also return the buffer).
@@ -226,16 +231,20 @@ def store_act_bag(buf: BufferState, bag_idx, bag_act) -> BufferState:
     return buf
 
 
-def flush(buf: BufferState, mask: torch.Tensor) -> BufferState:
+def flush(buf: BufferState, mask: torch.Tensor, mesh=None) -> BufferState:
     """Finish the masked envs' episodes: mark samplable, advance the ring
-    (replay_buffer.py:97-98)."""
+    (replay_buffer.py:97-98).  Over a mesh every rank adds all ranks'
+    episodes to ``flushed_total``, which ``can_sample`` reads."""
     rows = buf.current_rows
     buf.ep_valid[rows] = buf.ep_valid[rows] | mask
     buf.ep_count = buf.ep_count + mask.to(torch.int32)
     buf.write_pos = torch.where(mask, torch.zeros_like(buf.write_pos),
                                 buf.write_pos)
-    buf.flushed_total = buf.flushed_total + mask.reshape(
-        buf.flushed_total.shape + (-1,)).sum(-1).to(torch.int32)
+    flushed = mask.reshape(buf.flushed_total.shape + (-1,)).sum(-1).to(
+        torch.int32)
+    if mesh is not None:
+        mesh.all_reduce(flushed)
+    buf.flushed_total = buf.flushed_total + flushed
     return buf
 
 
@@ -256,14 +265,19 @@ def can_sample(buf: BufferState, batch_size: int) -> torch.Tensor:
     return buf.flushed_total > batch_size
 
 
-def _draw_windows(buf: BufferState, generator, batch_size, context_len):
+def _draw_windows(buf: BufferState, generator, batch_size, context_len,
+                  mesh=None):
     """Uniform valid rows (Gumbel-max over the validity logits, as
     ``jax.random.categorical``) and uniform window starts.  Stacked (a list
     of per-seed generators), each seed draws ``batch_size`` windows from
-    its own rows: [S * batch_size], seed-major."""
+    its own rows: [S * batch_size], seed-major.  Over a mesh, every rank
+    draws the same ``batch_size`` windows over the global ring's rows."""
     device = buf.ep_valid.device
     seeds = buf.flushed_total.shape  # () or (S,)
-    valid = buf.ep_valid.reshape(seeds + (-1,))
+    ep_len, ep_valid = buf.ep_len, buf.ep_valid
+    if mesh is not None:
+        ep_len, ep_valid = mesh.gather_blocks([ep_len, ep_valid])
+    valid = ep_valid.reshape(seeds + (-1,))
     logits = torch.where(
         valid,
         torch.zeros((), device=device),
@@ -277,12 +291,29 @@ def _draw_windows(buf: BufferState, generator, batch_size, context_len):
         first = torch.arange(0, buf.ep_valid.shape[0], valid.shape[-1],
                              device=device)
         rows = (rows + first[:, None]).reshape(-1)
-    max_start = torch.clamp_min(buf.ep_len[rows] - context_len, 0)
+    max_start = torch.clamp_min(ep_len[rows] - context_len, 0)
     u_start = folded_draw(generator, rows.shape[0], lambda g, n: torch.rand(
         (n,), generator=g, device=device))
     starts = torch.floor(u_start * (max_start + 1).to(torch.float32))
     starts = torch.minimum(starts.to(torch.int32), max_start)
     return rows, starts
+
+
+def _from_owners(buf: BufferState, mesh, rows, make_batch) -> Batch:
+    """``make_batch(rows)``.  Over a mesh, where ``rows`` index the global
+    ring: each rank makes the samples of the rows it holds, every rank
+    receives them all, and keeps its share of the batch."""
+    if mesh is None:
+        return make_batch(rows)
+    held = buf.ep_len.shape[0]
+    local = rows - mesh.rank * held
+    owned = (local >= 0) & (local < held)
+    batch = make_batch(torch.where(owned, local, torch.zeros_like(local)))
+    names = [f.name for f in dataclasses.fields(batch)
+             if getattr(batch, f.name) is not None]
+    full = mesh.gather_owned([getattr(batch, n) for n in names], owned)
+    return dataclasses.replace(batch, **{
+        n: mesh.share(x) for n, x in zip(names, full)})
 
 
 def _gather_windows(buf: BufferState, rows, starts, context_len):
@@ -315,11 +346,14 @@ def _window_batch(buf: BufferState, rows, starts, context_len,
 
 
 def sample(
-    buf: BufferState, generator, batch_size: int, context_len: int
+    buf: BufferState, generator, batch_size: int, context_len: int,
+    mesh=None,
 ) -> Batch:
     """Uniform (valid episode, window start) batch (replay_buffer.py:137-168)."""
-    rows, starts = _draw_windows(buf, generator, batch_size, context_len)
-    return _window_batch(buf, rows, starts, context_len)
+    rows, starts = _draw_windows(buf, generator, batch_size, context_len,
+                                 mesh)
+    return _from_owners(buf, mesh, rows, lambda r: _window_batch(
+        buf, r, starts, context_len))
 
 
 def _pad_bag(bag_obs, bag_act, valid, obs_mask: float):
@@ -360,6 +394,7 @@ def sample_with_bag(
     context_len: int,
     bag_size: int,
     obs_mask: float,
+    mesh=None,
 ) -> Batch:
     """Batch plus per-sample bags drawn from pre-window observations
     (replay_buffer.py:171-264).
@@ -370,12 +405,18 @@ def sample_with_bag(
     reference's ``random.sample`` (order inside a bag is irrelevant to the
     unmasked bag cross-attention).
     """
-    rows, starts = _draw_windows(buf, generator, batch_size, context_len)
+    rows, starts = _draw_windows(buf, generator, batch_size, context_len,
+                                 mesh)
     scores = folded_draw(generator, rows.shape[0], lambda g, n: torch.rand(
         (n, buf.max_episode_steps), generator=g, device=starts.device))
-    bag_obs, bag_act = random_bags(buf, rows, starts, scores, bag_size,
-                                   obs_mask)
-    return _window_batch(buf, rows, starts, context_len, bag_obs, bag_act)
+
+    def make_batch(held_rows):
+        bag_obs, bag_act = random_bags(buf, held_rows, starts, scores,
+                                       bag_size, obs_mask)
+        return _window_batch(buf, held_rows, starts, context_len, bag_obs,
+                             bag_act)
+
+    return _from_owners(buf, mesh, rows, make_batch)
 
 
 def stored_bags(buf: BufferState, rows, starts, context_len: int,
@@ -404,11 +445,19 @@ def sample_with_stored_bag(
     batch_size: int,
     context_len: int,
     obs_mask: float,
+    mesh=None,
 ) -> Batch:
     """Batch plus the act-time bag recorded for each sampled window
     (--bag-store; see ``store_act_bag``): the same support as
     ``sample_with_bag``, but with the eviction policy's actual contents
     instead of a uniform random subset."""
-    rows, starts = _draw_windows(buf, generator, batch_size, context_len)
-    bag_obs, bag_act = stored_bags(buf, rows, starts, context_len, obs_mask)
-    return _window_batch(buf, rows, starts, context_len, bag_obs, bag_act)
+    rows, starts = _draw_windows(buf, generator, batch_size, context_len,
+                                 mesh)
+
+    def make_batch(held_rows):
+        bag_obs, bag_act = stored_bags(buf, held_rows, starts, context_len,
+                                       obs_mask)
+        return _window_batch(buf, held_rows, starts, context_len, bag_obs,
+                             bag_act)
+
+    return _from_owners(buf, mesh, rows, make_batch)

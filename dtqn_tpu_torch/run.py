@@ -18,6 +18,12 @@ package's ``run.py``.  Examples:
     # On the CPU (the default is the GPU, and fails when there is none):
     python -m dtqn_tpu_torch.run --device cpu --envs Memory-5-v0 \
         --num-steps 2000 --verbose
+
+    # One run sharded over 2 ranks (processes started here; under torchrun
+    # each process is one rank of the launcher's group):
+    python -m dtqn_tpu_torch.run --envs DiscreteCarFlag-v0 --in-embed 64 \
+        --num-envs 64 --dp-devices 2
+    torchrun --nproc-per-node 2 -m dtqn_tpu_torch.run --dp-devices 2 ...
 """
 
 from dtqn_tpu_torch.config import get_args
@@ -25,17 +31,13 @@ from dtqn_tpu_torch.config import get_args
 
 def main(argv=None) -> dict:
     config = get_args(argv)
-    if any(n.startswith("MH-") for n in config.envs):
-        raise NotImplementedError(
-            "MiniHack envs (the host-loop runner) are not ported yet; see "
-            "ROADMAP.md queue 1 item 14"
-        )
+    from dtqn_tpu_torch.train.runner import require_ported, run_experiment
+
+    require_ported(config)
     if len(config.seeds) > 1:
         from dtqn_tpu_torch.train.sweep import run_sweep
 
         return run_sweep(config, config.seeds)
-    from dtqn_tpu_torch.train.runner import run_experiment
-
     if config.seeds:
         config.seed = config.seeds[0]
     return run_experiment(config)

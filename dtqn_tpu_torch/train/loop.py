@@ -14,6 +14,9 @@ envs of S seeds step as one batch, ``env.step_vec`` running once per seed
 on its block with its generator (``envs.core.per_seed``), and an
 evaluation runs ``eval_episodes`` episodes per seed and returns [S]
 results.
+
+An agent on a mesh (``parallel/mesh.py``) steps its rank's block of the
+envs; ``env_steps`` still counts all ``num_envs`` of the run.
 """
 
 from __future__ import annotations
@@ -49,17 +52,18 @@ def env_step(
     stores experience without consuming training budget.
     """
     cfg, env = agent.config, agent.env
+    generator = agent.rank_generator(state.generator)
     if random_only:
         # Prepopulation uses uniformly random actions (run.py:380-405) and
         # leaves the act-time carry as it is.
         actions = folded_draw(
-            state.generator, state.obs.shape[0], lambda g, n: torch.randint(
+            generator, state.obs.shape[0], lambda g, n: torch.randint(
                 0, env.num_actions, (n,), generator=g, device=agent.device))
     else:
         actions, state.carry = agent.select_actions(state, state.epsilon)
 
     obs, state.env_state, ts = per_seed(
-        env.step_vec, state.generator, state.env_state, actions
+        env.step_vec, generator, state.env_state, actions
     )
     state.obs = obs
     # TimeLimit truncation is not stored as done (run.py:371-374); ts.obs

@@ -9,6 +9,14 @@ and the mini-checkpoint completion sentinel.
 The host does config, logging and checkpoint I/O, and reads device values
 only at chunk boundaries; each chunk of ``eval_frequency`` env steps is one
 call of the train loop (train/loop.py).
+
+``--dp-devices N`` trains one run sharded over N ranks, one process each
+(``parallel/``).  Outside a process group the runner starts the N ranks
+itself (``parallel.distributed.spawn``); under ``torchrun`` each process
+joins the launcher's group.  Every rank prepopulates or resumes the global
+state and shards it, as the JAX runner does; only rank 0 evaluates and
+writes CSVs, policies and checkpoints, and it decides the time-limit stop
+for all ranks.
 """
 
 from __future__ import annotations
@@ -21,12 +29,24 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dtqn_tpu_torch import replay
 from dtqn_tpu_torch.agents import Agent
 from dtqn_tpu_torch.config import ExperimentConfig
 from dtqn_tpu_torch.envs import MultiDomainEnv, make_env, make_gridverse_env
 from dtqn_tpu_torch.models import zero_carry
+from dtqn_tpu_torch.parallel.distributed import (
+    init_distributed,
+    process_info,
+    spawn,
+)
+from dtqn_tpu_torch.parallel.mesh import (
+    check_replicated,
+    make_distributed_train_chunk,
+    make_mesh,
+    shard_state,
+)
 from dtqn_tpu_torch.train.loop import (
     make_evaluate_fn,
     make_prepopulate_fn,
@@ -40,17 +60,14 @@ from dtqn_tpu_torch.utils.rng import seed_everything
 
 
 def require_ported(config: ExperimentConfig) -> None:
-    """Raises for the flags that only the runner reads and that belong to
-    parts not ported yet, naming the ROADMAP item: no flag is silently
-    ignored.  (The agent, the network and ``make_env`` refuse theirs.)"""
-    not_ported = [
-        (config.dp_devices > 1, "--dp-devices above 1", 14),
-    ]
-    for is_set, what, item in not_ported:
-        if is_set:
-            raise NotImplementedError(
-                f"{what} is not ported yet; see ROADMAP.md queue 1 item {item}"
-            )
+    """Raises for the parts of a configuration not ported yet, naming the
+    ROADMAP item: MiniHack's envs, which the host-loop runner serves.  (The
+    agent, the network and ``make_env`` refuse their own.)"""
+    if any(n.startswith("MH-") for n in config.envs):
+        raise NotImplementedError(
+            "MiniHack envs (the host-loop runner) are not ported yet; see "
+            "ROADMAP.md queue 1 item 14"
+        )
 
 
 def _first_env(env_state):
@@ -139,14 +156,37 @@ def build_envs(config: ExperimentConfig):
     return MultiDomainEnv(members), evals
 
 
+def run_ranks(mesh, configs):
+    """``run_experiment`` of each config in turn, on one rank of ``mesh``
+    (the entry of the ranks ``spawn`` starts)."""
+    del mesh  # each run finds this process's rank in the group
+    return [run_experiment(c) for c in configs]
+
+
 def run_experiment(config: ExperimentConfig) -> dict:
-    """Train per the config; returns final metrics for programmatic use.
+    """Train per the config; returns final metrics for programmatic use
+    (rank 0's for a run over several ranks).
 
     Runs on ``config.device``: the card by default (raising when there is
-    none), the CPU only when the config says ``cpu``.
+    none), the CPU only when the config says ``cpu``.  With
+    ``--dp-devices N`` rank r runs on ``cuda:(r % device_count)``.
     """
-    start_time = time.time()
     require_ported(config)
+    # Enjoy mode only evaluates: one process does it.
+    ranks = 1 if config.render else config.dp_devices
+    if (ranks > 1 and not dist.is_initialized()
+            and "WORLD_SIZE" not in os.environ):
+        return spawn(run_ranks, ranks, ([config],),
+                     device=config.device)[0][0]
+    start_time = time.time()
+    mesh = None
+    if ranks > 1:
+        init_distributed(device=config.device)
+        mesh = make_mesh(ranks, device=config.device)
+        if mesh.rank == 0:
+            print(f"[dp] {mesh.size} ranks, backend {mesh.backend}: "
+                  f"{process_info()}")
+    lead = mesh is None or mesh.rank == 0
 
     env, eval_envs = build_envs(config)
     if config.max_episode_steps > 0:
@@ -154,7 +194,8 @@ def run_experiment(config: ExperimentConfig) -> dict:
         for e in eval_envs:
             e.max_episode_steps = config.max_episode_steps
 
-    agent = Agent(config.agent_config(), env, device=config.device)
+    agent = Agent(config.agent_config(), env,
+                  device=mesh.device if mesh else config.device)
     device = agent.device
     # LinearAnneal(1.0, 0.1, num_steps/10) (run.py:420); --eps-min raises
     # the floor (default keeps the reference 0.1).
@@ -167,7 +208,7 @@ def run_experiment(config: ExperimentConfig) -> dict:
     os.makedirs(config.policy_dir(), exist_ok=True)
     policy_path = config.policy_path()
 
-    if config.verbose:
+    if config.verbose and lead:
         print(
             f"[ {timestamp()} ] Creating {config.model} with "
             f"{state.params.numel()} parameters"
@@ -222,23 +263,37 @@ def run_experiment(config: ExperimentConfig) -> dict:
                 10, extra.get("mean_episode_length")
             )
             wandb_kwargs = {"resume": "must", "id": mini.get("wandb_id")}
-            print(f"Resumed from checkpoint at {int(state.env_steps)} steps.")
+            if lead:
+                print("Resumed from checkpoint at "
+                      f"{int(state.env_steps)} steps.")
     else:
         # Prepopulate the replay buffer with random experience (run.py:495).
         prepop_iters = max(config.prepop_steps // config.num_envs, 1)
         state = make_prepopulate_fn(agent, prepop_iters)(state)
 
-    logger = get_logger(policy_path, config, wandb_kwargs)
+    logger = get_logger(policy_path, config, wandb_kwargs) if lead else None
     # wandb run id rides the mini checkpoint so resume can reattach with
     # resume="must" (run.py:482-490, 527); None under CSV logging.
     wandb_id = getattr(getattr(logger, "run", None), "id", None)
 
-    train_chunk = make_train_chunk_fn(
-        agent,
-        eps,
-        config.resolved_updates_per_iter,
-        config.resolved_iters_per_chunk,
-    )
+    if mesh is not None:
+        # Shard after resume or prepopulation (dtqn_tpu/train/runner.py).
+        state = shard_state(agent, state, mesh)
+        train_chunk = make_distributed_train_chunk(
+            agent,
+            eps,
+            config.resolved_updates_per_iter,
+            config.resolved_iters_per_chunk,
+            mesh,
+            state,
+        )
+    else:
+        train_chunk = make_train_chunk_fn(
+            agent,
+            eps,
+            config.resolved_updates_per_iter,
+            config.resolved_iters_per_chunk,
+        )
     evaluators = [
         make_evaluate_fn(agent, e, config.eval_episodes) for e in eval_envs
     ]
@@ -266,6 +321,8 @@ def run_experiment(config: ExperimentConfig) -> dict:
         profiled = profiled or bool(profile_now)
         step = int(state.env_steps)
         hours = (time.time() - start_time) / 3600
+        if mesh is not None:
+            check_replicated(state, mesh)
 
         if int(state.nonfinite_grads) > 0:
             # The reference's error_if_nonfinite grad clip fails loudly
@@ -280,11 +337,13 @@ def run_experiment(config: ExperimentConfig) -> dict:
         }
         # Evaluation draws from generators of its own, seeded by one draw
         # from the train stream: that stream advances by the same amount
-        # whatever the evaluation does.
+        # whatever the evaluation does.  Every rank draws it, and rank 0
+        # evaluates the replicated network.
         eval_seed = int(torch.randint(
             0, 2**31 - 1, (), generator=state.generator, device=device
         ))
-        for i, (name, evaluate) in enumerate(zip(config.envs, evaluators)):
+        for i, (name, evaluate) in enumerate(
+                zip(config.envs, evaluators if lead else [])):
             sr, ret, ln = evaluate(
                 state.network,
                 torch.Generator(device=device).manual_seed(eval_seed + i),
@@ -295,10 +354,11 @@ def run_experiment(config: ExperimentConfig) -> dict:
             mean_success_rate.add(float(sr))
             mean_reward.add(float(ret))
             mean_episode_length.add(float(ln))
-        logger.log(log_vals, step=step)
         final_log = log_vals
+        if lead:
+            logger.log(log_vals, step=step)
 
-        if config.verbose:
+        if config.verbose and lead:
             name = config.envs[-1]
             print(
                 f"[ {timestamp()} ] Steps: {step}, "
@@ -311,14 +371,17 @@ def run_experiment(config: ExperimentConfig) -> dict:
 
         # Policy snapshot every 50k env steps (run.py:337-338).
         if config.save_policy and step - last_policy_save >= 50_000:
-            ckpt.save_policy(policy_path, state.network)
+            if lead:
+                ckpt.save_policy(policy_path, state.network)
             last_policy_save = step
 
         # Slurm-style time-limit checkpoint (run.py:340-353).
-        if time_budget and time.time() - start_time >= time_budget:
-            print(
-                f"Reached time limit. Saving checkpoint at {step} steps."
-            )
+        if _stop_now(mesh, bool(time_budget)
+                     and time.time() - start_time >= time_budget):
+            if lead:
+                print(
+                    f"Reached time limit. Saving checkpoint at {step} steps."
+                )
             ckpt.save_checkpoint(
                 policy_path,
                 state,
@@ -327,12 +390,35 @@ def run_experiment(config: ExperimentConfig) -> dict:
                     "mean_reward": mean_reward.to_list(),
                     "mean_episode_length": mean_episode_length.to_list(),
                 },
+                mesh=mesh,
             )
-            ckpt.save_mini_checkpoint(policy_path, step, wandb_id)
+            if lead:
+                ckpt.save_mini_checkpoint(policy_path, step, wandb_id)
+            _written(mesh)
             return final_log
 
     # Completion sentinel (run.py:527-529).
-    ckpt.save_mini_checkpoint(policy_path, int(state.env_steps), wandb_id)
-    if config.save_policy:
-        ckpt.save_policy(policy_path, state.network)
+    if lead:
+        ckpt.save_mini_checkpoint(policy_path, int(state.env_steps),
+                                  wandb_id)
+        if config.save_policy:
+            ckpt.save_policy(policy_path, state.network)
+    _written(mesh)
     return final_log
+
+
+def _written(mesh) -> None:
+    """Returns on every rank once rank 0 has written its files: a run that
+    follows in the same processes reads them complete."""
+    if mesh is not None:
+        mesh.broadcast(torch.zeros(1, device=mesh.device), src=0).item()
+
+
+def _stop_now(mesh, decision) -> bool:
+    """Rank 0's time-limit ``decision``, on every rank: the ranks' clocks
+    differ, and a rank that stopped alone would leave the others waiting
+    in a collective."""
+    if mesh is None:
+        return decision
+    flag = torch.tensor([int(bool(decision))], device=mesh.device)
+    return bool(mesh.broadcast(flag, src=0).item())

@@ -62,6 +62,13 @@ def run_sweep(config: ExperimentConfig, seeds: Sequence[int]) -> dict:
     {"completed": True, "step": ...} for a sweep that had finished."""
     start_time = time.time()
     require_ported(config)
+    if config.dp_devices > 1:
+        # The JAX sweep runs on one device and ignores the flag.
+        raise ValueError(
+            "--dp-devices applies to one seed's run; a sweep over several "
+            "seeds runs on one device (ROADMAP.md: differences kept on "
+            "purpose)"
+        )
     seeds = list(seeds)
 
     env, eval_envs = build_envs(config)

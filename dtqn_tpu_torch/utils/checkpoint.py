@@ -20,6 +20,13 @@ loads only into a generator of the same device kind, so a checkpoint
 resumes on the device kind it was written on.  A stacked state
 (``Agent.init_sweep_state``) is saved and restored the same way, its
 per-seed generators one leaf each.
+
+A run sharded over the ranks of a mesh keeps the one-device layout, as the
+JAX package's does: every rank calls ``save_checkpoint`` with its part, the
+parts are gathered and rank 0 writes the global state.  On resume every
+rank loads the file into a global template and keeps its slice
+(``parallel.mesh.shard_state``), so a sharded run and a one-device run
+resume each other's checkpoints.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 from torch import nn
 
 from dtqn_tpu_torch.models.stacked import StackedNetwork
+from dtqn_tpu_torch.parallel.mesh import unshard_state
 
 _GENERATOR_DEVICE = "generator_device"
 
@@ -81,9 +89,16 @@ def save_checkpoint(
     state: Any,
     *,
     extra: Optional[Dict[str, Any]] = None,
+    mesh=None,
 ) -> None:
     """Full checkpoint: every tensor of the AgentState and its generator's
-    state, plus host-side extras (the eval running averages)."""
+    state, plus host-side extras (the eval running averages).  With a
+    ``mesh`` of several ranks, every rank calls it with its part of the
+    state, and rank 0 writes the gathered one."""
+    if mesh is not None and mesh.size > 1:
+        state = unshard_state(state, mesh)
+        if mesh.rank:
+            return
     payload: Dict[str, Any] = {}
     for name, leaf in _leaves(state):
         if isinstance(leaf, torch.Generator):

@@ -5,7 +5,9 @@ the device so the training loop never syncs to the host for diagnostics.
 Unlike the JAX package, updates happen in place.  A stacked run of S seeds
 stacks them (``envs.core.stack_batch``): every field takes a leading seed
 axis, one ring per seed, and the means are [S] (the JAX sweep's
-``jax.vmap(lambda d: d.means())``).
+``jax.vmap(lambda d: d.means())``).  Over the ranks of a mesh each rank
+holds the same rings: every update's values are reduced over the ranks
+before they are written.
 """
 
 from __future__ import annotations
@@ -87,10 +89,24 @@ class TrainDiagnostics:
     def create(cls, window: int = 100, device="cpu") -> "TrainDiagnostics":
         return cls(RunningAverage.create(window, (8,), device))
 
-    def update(self, pred, *, td, gnorm, q, targets) -> None:
+    def update(self, pred, *, td, gnorm, q, targets, mesh=None) -> None:
         """Stacked, ``pred``, ``td`` and ``gnorm`` are [S] and ``q`` and
-        ``targets`` [S*B, ...], seed-major."""
+        ``targets`` [S*B, ...], seed-major.  Over a mesh, ``td`` is this
+        rank's share of the loss and ``q`` and ``targets`` its share of the
+        batch: the sums and extremes are reduced over the ranks (two
+        collectives)."""
         seeds = self.averages.idx.shape
+        if mesh is not None:
+            sums = mesh.all_reduce(torch.stack([
+                td, q.sum(), targets.sum(),
+                torch.tensor(float(q.numel()), device=q.device)]))
+            # max(x) and -min(x) in one MAX reduction.
+            top = mesh.all_reduce(torch.stack([
+                q.max(), targets.max(), -q.min(), -targets.min()]), "max")
+            self.averages.add_if(pred, torch.stack([
+                sums[0], gnorm, top[0], sums[1] / sums[3], -top[2], top[1],
+                sums[2] / sums[3], -top[3]]))
+            return
 
         def stats(x):
             if not seeds:

@@ -159,13 +159,14 @@ def test_nonfinite_gradients_fail_loudly_per_seed(tmp_path, monkeypatch):
     (dict(dp_devices=2), "item 14"), (dict(profile_dir="prof"), "item 14"),
     (dict(bf16=True), "item 13")])
 def test_sweep_refuses_flags_not_ported(kw, item, tmp_path, monkeypatch):
-    """Each flag with its ROADMAP item: ``--dp-devices`` (14.3) is still
-    refused; ``--profile-dir`` (14.2) and ``--bf16`` (13), ported since,
-    run a 2-seed sweep under these ids: the second of its two chunks
-    traced, or the seeds in bf16."""
+    """Each flag with its ROADMAP item, under the ids of their refusals:
+    ``--dp-devices`` (14.3) trains one seed's run over several ranks, and a
+    sweep refuses it, as it runs on one device (the JAX sweep ignores the
+    flag); ``--profile-dir`` (14.2) and ``--bf16`` (13) run a 2-seed sweep:
+    the second of its two chunks traced, or the seeds in bf16."""
     monkeypatch.chdir(tmp_path)
     if "dp_devices" in kw:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        with pytest.raises(ValueError, match="--dp-devices.*one device"):
             run_sweep(small_cfg(**kw), [1, 2])
         assert not os.listdir(tmp_path)  # refused before anything is written
         return
