@@ -138,7 +138,26 @@ Phases (any failure exits non-zero and prints no result):
      device ms per update and, over 2 ranks, the collectives per update
      and their host ms; then ``run_experiment`` with --dp-devices 2 whole,
      cut and resumed (final parameters bit-equal), and the cut run's
-     checkpoint resumed by a one-device run.
+     checkpoint resumed by a one-device run;
+ 21. the host loop (MiniHack's runner, ``train/host_loop.py``) on host envs
+     defined here: ``run_host_experiment`` trained from scratch on the cue
+     task at the JAX validation configuration (in_embed 32, context 8, 8
+     heads: head width 4, padded to <8, 1>; 32 envs, batch 32,
+     prepopulation 1000) for 4992 env steps, its final success rate above
+     0.8, every attention launch reckoned by shape and held, the saved
+     policy's Q on the card against the CPU's; at full width (the JAX
+     CLI's defaults for MH-Room-5-v0: in_embed 128, context 50, 32 envs) on
+     a glyph room shaped like MH-Room-5-v0's crop (81 int32 tokens, mask
+     5977, 8 actions, 100-step cap): 110 prepopulation iterations, an
+     iteration clocked part by part (device-to-host copy of the actions,
+     the host envs' step, host-to-device copies: counts, bytes, ms), one
+     timed (env-steps/s) and one profiled (device ms and operations, busy
+     share), launches reckoned, card Q against CPU Q, gradients repeating,
+     an update's peak memory, one evaluation; one bf16 iteration (every
+     launch the tensor-core form, card Q within BF16_Q_ULPS); the runner
+     whole, then cut by the time limit and resumed (the loaded state bit
+     for bit the saved one).  Phase 17 also times <8, 1> at the cue task's
+     B=32, Lq = Lk = 8, D=4.
 
 Before the last line it prints the script's total seconds, the card line
 and one ``{"kernels": [...]}`` JSON line (each kernel with its dtype: the
@@ -287,6 +306,10 @@ PARITY_CASES = [
     # Phase 20's ranks: the flagless update's batch of 32 over 2 ranks
     # (each rank's act forward, at 32 of the 64 envs, is listed above).
     (16, 50, 50, 8, True, 64),
+    # Phase 21's cue task (head width 4, context 8, 32 envs): the act step
+    # and the update at 32, the evaluation at 10.  (Its full-width glyph
+    # room launches at shapes listed above: 32 and 10 at head width 16.)
+    (32, 8, 8, 8, True, 32), (10, 8, 8, 8, True, 32),
 ]
 
 
@@ -762,13 +785,15 @@ def drqn_runner_config(seed, **kw):
              prepop_steps=64 * 60, eval_frequency=64, num_steps=128), **kw))
 
 
-def check_csvs(cfg, steps):
+def check_csvs(cfg, steps, cap=None):
     """Both CSVs: the reference headers and one row per entry of ``steps``,
-    every value finite, success rate and episode length in range."""
+    every value finite, success rate and episode length (at most ``cap``,
+    by default the env's) in range."""
     from dtqn_tpu_torch.envs import make_env
 
     env = cfg.envs[0]
-    cap = make_env(env).max_episode_steps
+    if cap is None:
+        cap = make_env(env).max_episode_steps
     tables = []
     for suffix, head in (("_results.csv",
                           [h.format(e=env) for h in RESULT_HEAD]),
@@ -2787,6 +2812,509 @@ def dp_phase(seed, card, flagless):
     return result
 
 
+# ------------------------------------------------ the host loop (phase 21)
+# The CueHost run: the JAX package's validation configuration
+# (tools/host_loop_tpu_smoke.py: in_embed 32, context and history 8, 8
+# heads, 2 layers, 32 envs, batch 32, prepopulation 1000) for one chunk of
+# 156 iterations, the JAX run's first evaluation step (its _results.csv),
+# where it stood at SuccessRate 1.0; the tool's bar is above 0.8.
+CUE_ENV, CUE_STEPS, CUE_SR = "MH-CueHost-v0", 4992, 0.8
+# The full-width configuration: the JAX CLI's defaults for
+# --envs MH-Room-5-v0 (in_embed 128, context 50, 8 heads, 2 layers, batch
+# 32, 32 envs, buffer 500k) on a fake env shaped like that domain's glyph
+# crop: 9 x 9 int32 glyph tokens, MiniHack navigation's 8 compass moves and
+# the 100-step cap (envs/minihack.py MH_SPECS).  The crop's observation
+# space is NLE's Box(0, MAX_GLYPH) with MAX_GLYPH = 5976 (NetHack 3.6's
+# glyph count), so the wrapper's mask is 5976 + 1 (mini_hack.py:44-53).
+GLYPH_ENV, NLE_MAX_GLYPH, GLYPH_CROP, GLYPH_CAP = ("MH-GlyphRoom-v0", 5976,
+                                                    9, 100)
+# Prepopulation of the full-width drives: past the 100-step cap every env
+# has ended an episode, so the ring holds more than the batch's 32.
+GLYPH_PREPOP_ITERS = 110
+
+
+def host_env_classes():
+    """The phase's host envs: the cue task of tools/host_loop_tpu_smoke.py
+    and a glyph room shaped like MH-Room-5-v0's observations."""
+    import numpy as np
+
+    from dtqn_tpu_torch.envs.core import ObsKind
+    from dtqn_tpu_torch.envs.host import HostEnvironment
+
+    class CueHostEnv(HostEnvironment):
+        """Observe a cue token at t=0, then blanks; acting the cue ends the
+        episode with +1, any other action costs 0.1."""
+
+        name = CUE_ENV
+        num_actions = 2
+        max_episode_steps = 8
+        obs_kind = ObsKind.DISCRETE
+        obs_shape = (1,)
+        obs_dtype = torch.int32
+
+        def __init__(self, seed=0):
+            self.rng = np.random.default_rng(seed)
+            self.cue = 0
+
+        @property
+        def obs_mask(self):
+            return 3.0
+
+        def seed(self, seed):
+            self.rng = np.random.default_rng(seed)
+
+        def reset(self):
+            self.cue = int(self.rng.integers(0, 2))
+            return np.array([self.cue], np.int32)
+
+        def step(self, action):
+            if action == self.cue:
+                return np.array([2], np.int32), 1.0, True, {"is_success": True}
+            return np.array([2], np.int32), -0.1, False, {}
+
+    # Stand-in glyph ids inside NLE's range: rock beyond the room, its
+    # walls, floor, the down stair (the goal) and the agent.
+    stone, wall, floor, stair, agent = 2359, 2360, 2378, 2382, 333
+    moves = [(-1, 0), (0, 1), (1, 0), (0, -1),
+             (-1, 1), (1, 1), (1, -1), (-1, -1)]
+    pad = GLYPH_CROP // 2
+
+    class GlyphRoomHost(HostEnvironment):
+        """A 5 x 5 room: reach the stair by compass moves (+1 and the end
+        of the episode); the observation is the 9 x 9 glyph crop around
+        the agent, flattened to 81 int32 tokens."""
+
+        name = GLYPH_ENV
+        num_actions = len(moves)
+        max_episode_steps = GLYPH_CAP
+        obs_kind = ObsKind.DISCRETE
+        obs_shape = (GLYPH_CROP * GLYPH_CROP,)
+        obs_dtype = torch.int32
+
+        def __init__(self, seed=0):
+            self.rng = np.random.default_rng(seed)
+            room = np.full((7, 7), wall, np.int32)
+            room[1:6, 1:6] = floor
+            self.map = np.pad(room, pad, constant_values=stone)
+
+        @property
+        def obs_mask(self):
+            return float(NLE_MAX_GLYPH + 1)
+
+        def seed(self, seed):
+            self.rng = np.random.default_rng(seed)
+
+        def _obs(self):
+            r, c = self.pos
+            crop = self.map[r:r + GLYPH_CROP, c:c + GLYPH_CROP].copy()
+            gr, gc = self.goal
+            if abs(gr - r) <= pad and abs(gc - c) <= pad:
+                crop[gr - r + pad, gc - c + pad] = stair
+            crop[pad, pad] = agent
+            return crop.reshape(-1)
+
+        def reset(self):
+            cells = self.rng.choice(25, 2, replace=False)
+            self.pos, self.goal = ((1 + x // 5, 1 + x % 5) for x in cells)
+            return self._obs()
+
+        def step(self, action):
+            dr, dc = moves[action]
+            r, c = self.pos[0] + dr, self.pos[1] + dc
+            if 1 <= r <= 5 and 1 <= c <= 5:
+                self.pos = (r, c)
+            if self.pos == self.goal:
+                return self._obs(), 1.0, True, {"is_success": True}
+            return self._obs(), 0.0, False, {}
+
+    return CueHostEnv, GlyphRoomHost
+
+
+def host_config(seed, **kw):
+    """A run of the host loop: the JAX CLI's defaults (32 envs, batch 32,
+    in_embed 128, context 50, buffer 500k) unless ``kw`` replaces them."""
+    from dtqn_tpu_torch.config import ExperimentConfig
+
+    fields = dict(seed=seed, project_name="chip-smoke", device=DEVICE,
+                  save_policy=True, eval_episodes=10)
+    return ExperimentConfig(**dict(fields, **kw))
+
+
+def host_reckoned(cfg, act_steps, updates, eval_steps):
+    """The attention launches of ``act_steps`` act steps and ``updates``
+    updates at the run's width and ``eval_steps`` evaluation steps of 10
+    episodes (AgentConfig ``cfg``; no bag on these paths)."""
+    out = reckoned_launches(cfg, act_steps, updates)
+    evaluation = reckoned_launches(dataclasses.replace(cfg, num_envs=10),
+                                   eval_steps, 0)
+    for key, n in evaluation.items():
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+class HostProbe:
+    """Clocks the host-side parts of a host-loop iteration from outside,
+    each between synchronizations: the device-to-host copy of the actions,
+    the host envs' step, the host-to-device copies of the step's arrays;
+    counts the copies and their bytes."""
+
+    def __init__(self):
+        self.ms = {"d2h": 0.0, "env_step": 0.0, "h2d": 0.0}
+        self.copies = {"d2h": 0, "h2d": 0}
+        self.bytes = {"d2h": 0, "h2d": 0}
+
+    def clocked(self, kind, fn, tensors=None):
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.ms[kind] += 1e3 * (time.perf_counter() - t0)
+            if tensors is not None:
+                moved = tensors(args, out)
+                self.copies[kind] += len(moved)
+                self.bytes[kind] += sum(t.numel() * t.element_size()
+                                        for t in moved)
+            return out
+        return wrapper
+
+    @contextlib.contextmanager
+    def attached(self, hl, vec):
+        with patched(hl, "actions_to_host", self.clocked(
+                "d2h", hl.actions_to_host, lambda args, out: [args[0]])), \
+                patched(hl, "step_to_device", self.clocked(
+                    "h2d", hl.step_to_device, lambda args, out: out)), \
+                patched(vec, "step", self.clocked("env_step", vec.step)):
+            yield self
+
+
+def host_cue_phase(seed, ca):
+    """``run_host_experiment`` from scratch on the cue task at the JAX
+    validation configuration: the final success rate above CUE_SR, every
+    attention launch reckoned by shape (head width 4, which the kernels
+    pad to 8: <8, 1>) and held, the saved policy's Q on the card against
+    the CPU's."""
+    from dtqn_tpu_torch.agents import Agent
+    from dtqn_tpu_torch.train import host_loop as hl
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+
+    CueHostEnv, _ = host_env_classes()
+    cfg = host_config(seed, envs=[CUE_ENV], in_embed=32, context=8,
+                      history=8, prepop_steps=1000, num_steps=CUE_STEPS)
+    acfg = cfg.agent_config()
+    iters = CUE_STEPS // cfg.num_envs
+    check(cfg.resolved_iters_per_chunk == iters,
+          f"the cue run's chunk is {cfg.resolved_iters_per_chunk} "
+          f"iterations, not {iters}")
+    evaluations = []
+    evaluate = hl.evaluate_host
+
+    def clocked_evaluate(*args):
+        t0 = time.perf_counter()
+        out = evaluate(*args)
+        evaluations.append(time.perf_counter() - t0)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
+            launch_ledger(ca) as ledger, counted_greedy_calls() as calls, \
+            patched(hl, "evaluate_host", clocked_evaluate):
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        final = hl.run_host_experiment(
+            cfg, env_factory=lambda name: CueHostEnv())
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        eval_steps = len(calls) - iters
+        by_shape = check_ledger(
+            ca, ledger,
+            host_reckoned(acfg, iters, iters * cfg.resolved_updates_per_iter,
+                          eval_steps), "host loop, cue task")
+        launches = dict(ca.launch_counts)
+        nets = {d: ckpt.load_policy(cfg.policy_path(), Agent(
+            acfg, CueHostEnv(), device=d).build_network().to(d))
+            for d in (DEVICE, "cpu")}
+    sr = final[f"{CUE_ENV}/SuccessRate"]
+    check(sr > CUE_SR, f"host loop, cue task: SuccessRate {sr} at step "
+                       f"{CUE_STEPS}, not above {CUE_SR}")
+    check(all(math.isfinite(v) for v in final.values()),
+          f"host loop, cue task: final log not finite: {final}")
+    gen = torch.Generator().manual_seed(seed)
+    obs = torch.randint(0, 4, (cfg.num_envs, cfg.context, 1), generator=gen,
+                        dtype=torch.int32)
+    act = torch.randint(0, 2, (cfg.num_envs, cfg.context), generator=gen,
+                        dtype=torch.int32)
+    with torch.no_grad():
+        q_gpu = nets[DEVICE](obs.to(DEVICE), act.to(DEVICE))
+        q_cpu = nets["cpu"](obs, act)
+    q_err = (q_gpu.cpu() - q_cpu).abs().max().item()
+    check(q_err <= Q_ATOL, f"host loop, cue task: card Q differs from CPU Q "
+                           f"by {q_err}")
+    train_s = seconds - sum(evaluations)
+    result = {
+        "final_log": final, "success_rate": sr, "seconds": seconds,
+        "evaluation_s": evaluations, "evaluation_steps": eval_steps,
+        "env_steps_per_s_with_prepopulation": CUE_STEPS / train_s,
+        "launches": launches, "launches_by_shape": by_shape,
+        "policy_q_max_abs_err_vs_cpu": q_err,
+    }
+    log(f"host loop, cue task: {json.dumps(result)}")
+    return result
+
+
+def host_drive(seed, ca, bf16=False):
+    """The host loop's functions at full width on the glyph room:
+    init from the host envs' reset, GLYPH_PREPOP_ITERS random iterations,
+    then (float32) an iteration clocked part by part (HostProbe), one timed
+    whole and one profiled, or (bf16) one iteration to warm up and one
+    timed; every attention launch reckoned and held; card Q against CPU Q;
+    gradients repeating; one evaluation (float32)."""
+    from dtqn_tpu_torch.agents import Agent
+    from dtqn_tpu_torch.envs.host import HostVecEnv
+    from dtqn_tpu_torch.train import host_loop as hl
+    from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+
+    _, GlyphRoomHost = host_env_classes()
+    cfg = host_config(seed, envs=[GLYPH_ENV], bf16=bf16)
+    acfg = cfg.agent_config()
+    what = f"host loop, glyph room{' bf16' if bf16 else ''}"
+    envs = [GlyphRoomHost() for _ in range(cfg.num_envs)]
+    for i, e in enumerate(envs):
+        e.seed(seed + i)
+    vec = HostVecEnv(envs)
+    agent = Agent(acfg, vec.meta, device=DEVICE)
+    updates = cfg.resolved_updates_per_iter
+    act, act_random, observe_only, observe_and_learn = hl.make_host_fns(
+        agent, EpsilonSchedule(1.0, 0.1, 200_000), updates)
+    result = {}
+
+    with launch_ledger(ca) as ledger:
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = agent.init_state(seed, vec.reset_all())
+        for _ in range(GLYPH_PREPOP_ITERS):
+            hl.host_iteration(vec, state, act_random, observe_only)
+        torch.cuda.synchronize()
+        result["init_and_prepopulate_s"] = time.perf_counter() - t0
+        check(not ledger, f"{what}: the prepopulation launched "
+                          f"{show_ledger(ledger)}")
+    flushed = int(state.buffer.flushed_total)
+    check(flushed > cfg.batch, f"{what}: prepopulation flushed {flushed}")
+    check(state.obs.dtype == torch.int32
+          and tuple(state.obs.shape) == (cfg.num_envs, 81),
+          f"{what}: observations {state.obs.dtype} {tuple(state.obs.shape)}")
+
+    def one_iteration():
+        hl.host_iteration(vec, state, act, observe_and_learn)
+
+    iters = 2 if bf16 else 3
+    with launch_ledger(ca) as ledger:
+        ca.reset_launch_counts()
+        if bf16:
+            one_iteration()  # the first bf16 iteration warms up
+        else:
+            with HostProbe().attached(hl, vec) as probe:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one_iteration()
+                torch.cuda.synchronize()
+                probed_ms = 1e3 * (time.perf_counter() - t0)
+            result["probed_iteration"] = {
+                "wall_ms": probed_ms, "host_ms": probe.ms,
+                "copies": probe.copies, "bytes": probe.bytes}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_iteration()
+        torch.cuda.synchronize()
+        t_iter = time.perf_counter() - t0
+        result.update(iteration_s=t_iter,
+                      env_steps_per_s=cfg.num_envs / t_iter)
+        if not bf16:
+            wall_us, by_name = device_events(one_iteration)
+            device_us = sum(us for _, us in by_name.values())
+            ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+            result["profiled_iteration"] = {
+                "wall_us": wall_us, "device_us": device_us,
+                "device_ops": sum(n for n, _ in by_name.values()),
+                "device_ops_per_update": sum(
+                    n for n, _ in by_name.values()) / updates,
+                "device_busy_share": device_us / wall_us,
+                "top_kernels": [{"name": name[:80], "count": n,
+                                 "device_us": us}
+                                for name, (n, us) in ranked],
+            }
+        result["launches"] = dict(ca.launch_counts)
+        result["launches_by_shape"] = check_ledger(
+            ca, ledger, reckoned_launches(acfg, iters, iters * updates),
+            f"{what}, {iters} iterations")
+        if bf16:
+            check_mma(ledger, what)
+    applied = int(state.train_steps)
+    check(applied == iters * updates, f"{what}: train_steps {applied}")
+    check(int(state.nonfinite_grads) == 0, f"{what}: non-finite gradients")
+    check(int(state.env_steps) == iters * cfg.num_envs,
+          f"{what}: env_steps {int(state.env_steps)}")
+    diags = {k: float(v) for k, v in state.diagnostics.means().items()}
+    check(all(map(math.isfinite, diags.values())),
+          f"{what}: diagnostics not finite: {diags}")
+    result["q_vs_cpu"] = q_card_vs_cpu(agent, state, what)
+    if bf16:
+        log(f"{what}: {json.dumps(result)}")
+        return result
+
+    result["parameters_with_repeating_gradients"] = gradients_repeat(
+        agent, state, what)
+    torch.cuda.reset_peak_memory_stats()
+    agent.learn(state)
+    torch.cuda.synchronize()
+    result["update_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
+        ca.reset_launch_counts()
+        t0 = time.perf_counter()
+        seeds = iter(range(seed, seed + 10))
+        sr, ret, length = hl.evaluate_host(
+            agent, state.network, lambda: GlyphRoomHost(next(seeds)), 10,
+            torch.Generator(device=DEVICE).manual_seed(seed + 1))
+        result["evaluation_s"] = time.perf_counter() - t0
+        steps = len(calls)
+        result["launches_evaluation"] = check_ledger(
+            ca, ledger, host_reckoned(acfg, 0, 0, steps),
+            f"{what}, evaluation")
+    check(1 <= steps <= GLYPH_CAP and 0.0 <= sr <= 1.0
+          and 1.0 <= length <= GLYPH_CAP and 0.0 <= ret <= 1.0,
+          f"{what}: evaluation out of range: {sr}, {ret}, {length}, "
+          f"{steps} steps")
+    result.update(evaluation=[float(sr), float(ret), float(length)],
+                  evaluation_steps=steps, flushed_episodes=flushed,
+                  diagnostics=diags)
+    log(f"{what}: {json.dumps(result)}")
+    return result
+
+
+def state_leaves(state):
+    """Every checkpointed leaf of ``state`` on the host: tensors copied,
+    generators as their state."""
+    from dtqn_tpu_torch.utils.checkpoint import _leaves
+
+    return {name: (leaf.get_state() if isinstance(leaf, torch.Generator)
+                   else leaf.detach().cpu().clone())
+            for name, leaf in _leaves(state)}
+
+
+def host_runner_phase(seed, ca):
+    """``run_host_experiment`` at full width on the glyph room: whole (two
+    chunks of two iterations, each followed by a 10-episode evaluation),
+    with every launch reckoned; then cut by the time limit after its first
+    chunk and resumed: the loaded state bit-equal to the saved one, the
+    resumed run reaching its steps.  As in the JAX package, the resumed
+    run is not the uninterrupted one: the host envs restart."""
+    from dtqn_tpu_torch.train import host_loop as hl
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+
+    _, GlyphRoomHost = host_env_classes()
+    factory = lambda name: GlyphRoomHost()  # noqa: E731
+    steps = 128
+
+    def config(**kw):
+        return host_config(seed, envs=[GLYPH_ENV],
+                           prepop_steps=32 * GLYPH_PREPOP_ITERS,
+                           eval_frequency=64, num_steps=steps, **kw)
+
+    cfg = config()
+    iters = steps // cfg.num_envs
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
+        with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
+            ca.reset_launch_counts()
+            t0 = time.perf_counter()
+            final = hl.run_host_experiment(cfg, env_factory=factory)
+            torch.cuda.synchronize()
+            result["whole_s"] = time.perf_counter() - t0
+            eval_steps = len(calls) - iters
+            result["launches_by_shape"] = check_ledger(
+                ca, ledger,
+                host_reckoned(cfg.agent_config(), iters,
+                              iters * cfg.resolved_updates_per_iter,
+                              eval_steps), "host loop runner")
+        check_csvs(cfg, [64, 128], cap=GLYPH_CAP)
+        check(all(math.isfinite(v) for v in final.values()),
+              f"host loop runner: final log not finite: {final}")
+        check(ckpt.load_mini_checkpoint(cfg.policy_path())
+              == {"step": steps, "wandb_id": None}, "completion sentinel")
+        whole = ckpt.load_policy(cfg.policy_path(), saved_host_network(cfg))
+        for name in os.listdir(cfg.policy_dir()):
+            os.remove(os.path.join(cfg.policy_dir(), name))
+
+        saved, loaded = {}, {}
+        save, load = hl.ckpt.save_checkpoint, hl.ckpt.load_checkpoint
+
+        def saving(path, state, **kw):
+            saved.update(state_leaves(state))
+            return save(path, state, **kw)
+
+        def loading(path, template):
+            out = load(path, template)
+            loaded.update(state_leaves(out[0]))
+            return out
+
+        with patched(hl.ckpt, "save_checkpoint", saving):
+            t0 = time.perf_counter()
+            hl.run_host_experiment(config(time_limit=1e-9),
+                                   env_factory=factory)
+            result["cut_s"] = time.perf_counter() - t0
+        check(ckpt.load_mini_checkpoint(cfg.policy_path())["step"] == 64,
+              "the cut host run's mini checkpoint is not at step 64")
+        result["checkpoint_bytes"] = os.path.getsize(
+            cfg.policy_path() + "_checkpoint.pt")
+        with patched(hl.ckpt, "load_checkpoint", loading):
+            t0 = time.perf_counter()
+            hl.run_host_experiment(cfg, env_factory=factory)
+            result["resumed_s"] = time.perf_counter() - t0
+        check(ckpt.load_mini_checkpoint(cfg.policy_path())["step"] >= steps,
+              "the resumed host run did not reach its steps")
+        check_csvs(cfg, [64, 128], cap=GLYPH_CAP)
+        resumed = ckpt.load_policy(cfg.policy_path(),
+                                   saved_host_network(cfg))
+    check(set(saved) == set(loaded) and saved,
+          f"saved and loaded leaves differ: {set(saved) ^ set(loaded)}")
+    differing = [k for k in saved if not torch.equal(saved[k], loaded[k])]
+    check(not differing, f"the host run's resume did not load its "
+                         f"checkpoint bit for bit: {differing}")
+    result.update(
+        final_log=final, resume_loads_bit_equal=True,
+        leaves_checked=len(saved),
+        resumed_equals_uninterrupted=all(
+            torch.equal(a, b) for a, b in zip(
+                resumed.state_dict().values(), whole.state_dict().values())))
+    log(f"host loop runner: {json.dumps(result)}")
+    return result
+
+
+def saved_host_network(cfg):
+    """A fresh CPU network of the glyph room's configuration."""
+    from dtqn_tpu_torch.agents import Agent
+
+    _, GlyphRoomHost = host_env_classes()
+    return Agent(cfg.agent_config(), GlyphRoomHost(),
+                 device="cpu").build_network()
+
+
+def host_phase(seed, ca):
+    """Phase 21: the host loop (MiniHack's runner) on in-script host envs:
+    the cue task trained from scratch, the full-width glyph room's
+    iterations in float32 and bf16, and its runner whole, cut and
+    resumed."""
+    t0 = time.perf_counter()
+    result = {
+        "cue": host_cue_phase(seed, ca),
+        "glyph": host_drive(seed, ca),
+        "glyph_bf16": host_drive(seed, ca, bf16=True),
+        "runner": host_runner_phase(seed, ca),
+    }
+    result["seconds"] = time.perf_counter() - t0
+    log(f"host phase: {result['seconds']:.1f} s")
+    return result
+
+
 def run(seed):
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
@@ -2843,6 +3371,9 @@ def run(seed):
     main_shape, t_main = timings(ca, 32)  # each update's batch
     _, t_act = timings(ca, 64)  # the act forward's batch
     _, t_wide = timings(ca, 32, d=16)  # the in_embed-128 paths' update
+    # The host loop's cue task: act step and update at B=32, context 8,
+    # head width 4 (padded to 8: <8, 1>).
+    _, t_cue = timings(ca, 32, lq=8, lk=8, d=4)
     # ... their act step and their evaluation's batch
     t_d16 = dict(timings(ca, b, d=16) for b in (64, 10))
     t_bag = dict(timings(ca, **shape) for shape in BAG_TIMING_SHAPES)
@@ -2855,6 +3386,7 @@ def run(seed):
         "drqn": baselines["DRQN Memory-5-v0"]["operations"],
         "image": image["operations"]})
     dp = dp_phase(seed, card, (agent, state))
+    host = host_phase(seed, ca)
 
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
@@ -2894,6 +3426,9 @@ def run(seed):
                 shape: t for shape, t in t_streamed.items()
                 if shape.startswith(name)},
             "sweep_shapes": {shape: t[name] for shape, t in t_sweep.items()},
+            "launches_host_loop_cue_path": host["cue"]["launches"][name],
+            "launches_host_loop_glyph_path": host["glyph"]["launches"][name],
+            "host_loop_cue_shape": t_cue[name],
         })
     shape_bf16, t_bf16 = next(iter(bf16["timings"].items()))  # B=32 D=8
     for name in ("attention_fwd", "attention_bwd"):
@@ -2912,6 +3447,8 @@ def run(seed):
             "launches_image_path": bf16["image"]["launches"][f"{name}_bf16"],
             "launches_sweep_path":
                 bf16["sweep_drive"]["launches"][f"{name}_bf16"],
+            "launches_host_loop_glyph_path":
+                host["glyph_bf16"]["launches"][f"{name}_bf16"],
             "max_abs_err": bf16["parity"]["picked"][name],
             "max_abs_err_lanes": bf16["parity"]["lanes"][name],
             "ms": t["ms"],
@@ -2932,6 +3469,7 @@ def run(seed):
                       "four_rooms": multi, "continuous_car_flag": continuous,
                       "sweep": sweep, "timings_sweep": t_sweep,
                       "timings_b64": t_act, "timings_b32_d16": t_wide,
+                      "timings_host_loop_cue": t_cue, "host_loop": host,
                       "timings_d16": t_d16, "timings_bag": t_bag,
                       "timings_streamed": t_streamed,
                       "profile": prof, "bf16": bf16, "several_devices": dp,

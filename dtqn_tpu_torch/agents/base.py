@@ -285,9 +285,14 @@ class Agent:
             compute_dtype=torch.bfloat16 if cfg.bf16 else None,
         )
 
-    def init_state(self, seed: int) -> AgentState:
+    def init_state(self, seed: int, external_obs=None) -> AgentState:
         """Initial state: weights from a CPU generator seeded with ``seed``
-        (device-independent), run-time draws from a device generator."""
+        (device-independent), run-time draws from a device generator.
+
+        ``external_obs`` serves HOST environments (train/host_loop.py): the
+        caller gives the reset observations [E, *obs_shape] (numpy or a
+        tensor), they go to the device, and ``env_state`` stays None (the
+        env's state lives on the host); ``env.reset_vec`` is not called."""
         cfg, env, device = self.config, self.env, self.device
         network = self.build_network(
             torch.Generator().manual_seed(seed)
@@ -296,7 +301,10 @@ class Agent:
         params = flatten_parameters(network)
         target_params = flatten_parameters(target_network)
         generator = torch.Generator(device=device).manual_seed(seed)
-        obs, env_state = env.reset_vec(generator, cfg.num_envs, device)
+        if external_obs is None:
+            obs, env_state = env.reset_vec(generator, cfg.num_envs, device)
+        else:
+            obs, env_state = torch.as_tensor(external_obs, device=device), None
         context = replay.init_context(
             generator, cfg.num_envs, cfg.context_len, tuple(env.obs_shape),
             env.obs_dtype, env.obs_mask, env.num_actions, obs,

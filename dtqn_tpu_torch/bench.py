@@ -2,7 +2,7 @@
 one GPU.
 
     python -m dtqn_tpu_torch.bench [--bag N] [--seeds N] [--bf16]
-                                   [--device cpu] [--iters N]
+                                   [--device cpu] [--iters N] [--no-extras]
 
 Prints ONE JSON line:
   {"metric": ..., "value": N, "unit": ..., "device": ...}
@@ -24,20 +24,34 @@ It prepopulates 625 iterations, runs one warm-up chunk of ``--iters``
 iterations (default 50), and reports the best of 4 timed chunks.  Only
 ``--device cpu`` runs on the CPU; ``--iters`` shortens the chunks so a test
 can run the script.
+
+The flagless invocation (no flag but ``--device``) also measures the JAX
+script's two variants, ``--seeds 5`` and ``--bf16``, each in a process of
+its own (``--no-extras``, the same ``--device``), and reports them in the
+same line under ``"extra"``: {"aggregate_5seeds": ..., "bf16": ...}, each
+env-steps/s or an error string.  ``--no-extras`` prints the value alone.
 """
 
 import argparse
 import json
+import os
 import subprocess
+import sys
+import threading
 import time
 
 import torch
+
+from dtqn_tpu_torch.utils.device import resolve_device
 
 METRIC = "carflag_dtqn_torch_env_steps_per_s_1to1_updates"
 BAG_METRIC = "gv7x7_dtqn_bag{bag}_torch_env_steps_per_s_1to1_updates"
 NUM_ENVS = 64
 DEFAULT_ITERS = 50
 PREPOP_STEPS = 40_000
+# The flagless line's variants: (name under "extra", their flags).
+EXTRAS = (("aggregate_5seeds", ["--seeds", "5"]), ("bf16", ["--bf16"]))
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def card_line() -> str:
@@ -70,10 +84,79 @@ def main(argv=None) -> dict:
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute, float32 parameters (the JAX "
                         "bench.py's bf16 mode)")
+    p.add_argument("--no-extras", action="store_true",
+                   help="the flagless line without its --seeds 5 and --bf16 "
+                        "variants")
     args = p.parse_args(argv)
     if args.iters < 1 or args.seeds < 1:
         raise ValueError("--iters and --seeds must be at least 1")
+    # Raises without a GPU unless the CPU is asked for, before anything
+    # runs (the variants' processes included).
+    resolve_device(args.device)
+    line = measure(args)
+    flagless = all(value == p.get_default(key)
+                   for key, value in vars(args).items() if key != "device")
+    if flagless:
+        line["extra"] = run_extras(args.device)
+    print(json.dumps(line), flush=True)
+    return line
 
+
+def run_extras(device: str) -> dict:
+    """Each of ``EXTRAS`` in a process of its own, on ``device``: {name:
+    env-steps/s, or an error string}."""
+    return {
+        name: _run_extra([sys.executable, "-m", "dtqn_tpu_torch.bench",
+                          *flags, "--no-extras", "--device", device])
+        for name, flags in EXTRAS
+    }
+
+
+def _run_extra(cmd, soft_deadline_s=1500.0):
+    """Runs one variant and returns the value of the last line it prints,
+    never SIGKILLing it (the JAX script's ``_run_extra``): poll to a soft
+    deadline, send one SIGTERM, give it a grace minute, then leave the
+    child running and report the timeout, so the flagless line always
+    prints.  A child killed inside a device call can leave the device in a
+    state the next job inherits."""
+    try:
+        child = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.DEVNULL, text=True,
+                                 cwd=REPO_ROOT)
+    except OSError as e:
+        return f"error: {type(e).__name__}: {e}"[:120]
+    # Drain stdout from a thread while polling: a child that writes more
+    # than the pipe's buffer before exiting would otherwise block on write
+    # and be reported as a timeout.
+    chunks = []
+    reader = threading.Thread(
+        target=lambda: chunks.append(child.stdout.read()), daemon=True
+    )
+    reader.start()
+    deadline = time.monotonic() + soft_deadline_s
+    while child.poll() is None and time.monotonic() < deadline:
+        time.sleep(2.0)
+    if child.poll() is None:
+        child.terminate()  # soft; a stalled device call may ignore it
+        grace = time.monotonic() + 60.0
+        while child.poll() is None and time.monotonic() < grace:
+            time.sleep(2.0)
+        if child.poll() is None:
+            return "error: timeout (child left running, not SIGKILLed)"
+        return "error: soft-timeout (child SIGTERMed after deadline)"
+    reader.join(timeout=30.0)
+    out = "".join(chunks).strip().splitlines()
+    if child.returncode != 0 or not out:
+        return f"error: exit code {child.returncode}"
+    try:
+        return json.loads(out[-1])["value"]
+    except (ValueError, KeyError, TypeError) as e:
+        return f"error: {type(e).__name__}: {e}"[:120]
+
+
+def measure(args) -> dict:
+    """The benchmark line of ``args`` (printing the card's line first on a
+    GPU)."""
     from dtqn_tpu_torch.agents import Agent, AgentConfig
     from dtqn_tpu_torch.envs import make_env
     from dtqn_tpu_torch.train.loop import (
@@ -149,7 +232,6 @@ def main(argv=None) -> dict:
         "unit": "env-steps/s (== learner updates/s)",
         "device": (torch.cuda.get_device_name(0) if on_card else "cpu"),
     }
-    print(json.dumps(line), flush=True)
     return line
 
 

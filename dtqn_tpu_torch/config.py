@@ -4,7 +4,7 @@ Every flag of the reference argparse CLI (run.py:16-184) and of the JAX
 package's CLI, under the same names, so command lines carry over.  The
 config-derived run name reproduces the reference's 13-field policy filename
 (run.py:456-460) letter for letter, so a port run and a JAX run of one
-configuration share a name.  Flags of parts not ported yet parse here and
+configuration share a name.  Combinations the JAX package cannot run either
 are refused when the run is built (by the runner, the agent, the network or
 ``make_env``); ``--attention``, ``--unroll`` and ``--outer-unroll`` are kept
 and change nothing.

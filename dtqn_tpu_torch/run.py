@@ -24,6 +24,10 @@ package's ``run.py``.  Examples:
     python -m dtqn_tpu_torch.run --envs DiscreteCarFlag-v0 --in-embed 64 \
         --num-envs 64 --dp-devices 2
     torchrun --nproc-per-node 2 -m dtqn_tpu_torch.run --dp-devices 2 ...
+
+    # MiniHack (needs the minihack package): the host loop
+    # (train/host_loop.py), host envs stepped between device calls:
+    python -m dtqn_tpu_torch.run --envs MH-Room-5-v0 --verbose
 """
 
 from dtqn_tpu_torch.config import get_args
@@ -31,13 +35,19 @@ from dtqn_tpu_torch.config import get_args
 
 def main(argv=None) -> dict:
     config = get_args(argv)
-    from dtqn_tpu_torch.train.runner import require_ported, run_experiment
+    if any(n.startswith("MH-") for n in config.envs):
+        # MiniHack is C-backed host code: the host loop.
+        from dtqn_tpu_torch.train.host_loop import run_host_experiment
 
-    require_ported(config)
+        if config.seeds:
+            config.seed = config.seeds[0]
+        return run_host_experiment(config)
     if len(config.seeds) > 1:
         from dtqn_tpu_torch.train.sweep import run_sweep
 
         return run_sweep(config, config.seeds)
+    from dtqn_tpu_torch.train.runner import run_experiment
+
     if config.seeds:
         config.seed = config.seeds[0]
     return run_experiment(config)

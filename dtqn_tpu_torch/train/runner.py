@@ -59,17 +59,6 @@ from dtqn_tpu_torch.utils.profiling import trace_chunks
 from dtqn_tpu_torch.utils.rng import seed_everything
 
 
-def require_ported(config: ExperimentConfig) -> None:
-    """Raises for the parts of a configuration not ported yet, naming the
-    ROADMAP item: MiniHack's envs, which the host-loop runner serves.  (The
-    agent, the network and ``make_env`` refuse their own.)"""
-    if any(n.startswith("MH-") for n in config.envs):
-        raise NotImplementedError(
-            "MiniHack envs (the host-loop runner) are not ported yet; see "
-            "ROADMAP.md queue 1 item 14"
-        )
-
-
 def _first_env(env_state):
     """The state of env 0 as scalars, for ``render_frame``."""
     return dataclasses.replace(env_state, **{
@@ -171,7 +160,6 @@ def run_experiment(config: ExperimentConfig) -> dict:
     none), the CPU only when the config says ``cpu``.  With
     ``--dp-devices N`` rank r runs on ``cuda:(r % device_count)``.
     """
-    require_ported(config)
     # Enjoy mode only evaluates: one process does it.
     ranks = 1 if config.render else config.dp_devices
     if (ranks > 1 and not dist.is_initialized()

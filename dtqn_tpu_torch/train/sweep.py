@@ -37,7 +37,7 @@ from dtqn_tpu_torch.train.loop import (
     make_prepopulate_fn,
     make_train_chunk_fn,
 )
-from dtqn_tpu_torch.train.runner import build_envs, require_ported
+from dtqn_tpu_torch.train.runner import build_envs
 from dtqn_tpu_torch.utils import checkpoint as ckpt
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 from dtqn_tpu_torch.utils.logging import CSVLogger, timestamp
@@ -61,7 +61,6 @@ def run_sweep(config: ExperimentConfig, seeds: Sequence[int]) -> dict:
     the config says ``cpu``); returns {seed: final metrics}, or
     {"completed": True, "step": ...} for a sweep that had finished."""
     start_time = time.time()
-    require_ported(config)
     if config.dp_devices > 1:
         # The JAX sweep runs on one device and ignores the flag.
         raise ValueError(

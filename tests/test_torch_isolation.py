@@ -51,6 +51,9 @@ def test_port_imports_no_jax():
         "dtqn_tpu_torch/envs/image_maze.py", "dtqn_tpu_torch/envs/multi.py",
         "dtqn_tpu_torch/models/stacked.py", "dtqn_tpu_torch/train/sweep.py",
         "dtqn_tpu_torch/utils/profiling.py",
+        "dtqn_tpu_torch/envs/host.py", "dtqn_tpu_torch/envs/minihack.py",
+        "dtqn_tpu_torch/train/host_loop.py",
+        "dtqn_tpu_torch/sweep_checkpoint.py",
     }
     assert len(paths) > 30
     offenders = {
@@ -114,6 +117,27 @@ def test_runner_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch,
         run.main(small + ["--seeds", "1", "2"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench.main(["--seeds", "2"])
+    # The flagless bench raises before its variants' processes start.
+    monkeypatch.setattr(bench.subprocess, "Popen", lambda *a, **k: pytest.fail(
+        "the bench started a process"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main([])
+    # The host loop (MiniHack's runner) too, before any env steps.
+    from dtqn_tpu_torch.envs.host import HostEnvironment
+    from dtqn_tpu_torch.train.host_loop import run_host_experiment
+
+    class Untouched(HostEnvironment):
+        def reset(self):
+            pytest.fail("the host loop reset an env")
+
+        def step(self, action):
+            pytest.fail("the host loop stepped an env")
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_host_experiment(get_args(small + ["--envs", "MH-Room-5-v0"]),
+                            env_factory=lambda name: Untouched())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.main(small + ["--envs", "MH-Room-5-v0"])
     assert not os.listdir(tmp_path)  # nothing ran, nothing was written
 
 

@@ -7,6 +7,7 @@ must agree exactly.
 
 import csv
 import dataclasses
+import glob
 import json
 import os
 import random
@@ -25,6 +26,7 @@ from dtqn_tpu_torch.agents import Agent, AgentConfig
 from dtqn_tpu_torch.config import ExperimentConfig, get_args
 from dtqn_tpu_torch.envs import make_env
 from dtqn_tpu_torch.envs.car_flag import CarFlagState
+from dtqn_tpu_torch.envs.minihack import minihack_available
 from dtqn_tpu_torch.train import runner
 from dtqn_tpu_torch.train.loop import (
     make_prepopulate_fn,
@@ -656,8 +658,18 @@ def test_run_module_main(tmp_path, monkeypatch, capsys):
     run.main(["--seeds", "1", "2", *CLI])
     assert [seeds for _, seeds in calls] == [[1, 2]]
     assert calls[0][0].device == "cpu"
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # MiniHack goes to the host loop (train/host_loop.py): an unknown name
+    # raises KeyError, a known one ImportError naming minihack where it is
+    # not installed, and one run over several ranks ValueError; nothing is
+    # written.
+    with pytest.raises(KeyError, match="MH-Room-5x5-v0"):
         run.main(["--envs", "MH-Room-5x5-v0", *CLI])
+    if not minihack_available():
+        with pytest.raises(ImportError, match="minihack"):
+            run.main(["--envs", "MH-Room-5-v0", *CLI])
+    with pytest.raises(ValueError, match="dp-devices"):
+        run.main(["--envs", "MH-Room-5-v0", "--dp-devices", "2", *CLI])
+    assert not glob.glob(os.path.join("policies", "*", "MH-*"))
 
 
 def test_bench_prints_one_json_line(monkeypatch, capsys):
