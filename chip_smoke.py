@@ -157,7 +157,28 @@ Phases (any failure exits non-zero and prints no result):
      launch the tensor-core form, card Q within BF16_Q_ULPS); the runner
      whole, then cut by the time limit and resumed (the loaded state bit
      for bit the saved one).  Phase 17 also times <8, 1> at the cue task's
-     B=32, Lq = Lk = 8, D=4.
+     B=32, Lq = Lk = 8, D=4;
+ 22. CUDA graphs: the flagless configuration in float32 and in bf16, the
+     bag of 25, DRQN on Memory-5, ImageMaze, dropout 0.1 and 5 stacked
+     seeds, each prepopulated through ``make_prepopulate`` and saved, and
+     from the saved state a chunk of 3 iterations of 64 updates eager
+     (``make_train_chunk_fn``, from the checkpoint) and graphed
+     (``make_train_chunk``: a warm-up, the capture and two replays): every
+     leaf of the two states, each generator's state, launch_counts and
+     the launches by shape bit-equal; the capture's seconds and the graph
+     pool's bytes; for the flagless configuration in both dtypes a second
+     chunk (replays only, the graph reused), held the same way, then eager
+     and graphed chunks in turns (host ms, wall ms and env-steps/s per
+     iteration) and a graphed chunk profiled (device ms, busy share).
+
+Every phase on the card trains through the compiled entry points of
+``train/loop.py`` (``make_prepopulate``, ``make_train_chunk``: one
+iteration captured as a CUDA graph, then replayed), directly or through
+``run_experiment`` and ``run_sweep``, but phase 20's ranks, the host loop
+and evaluation, which stay eager.  A replay runs no Python, so the greedy
+calls and the launches by shape that the phases reckon are counted through
+``utils.graphs.TRACKED_COUNTERS`` (``install_counters``): a replay adds
+what its capture counted.
 
 Before the last line it prints the script's total seconds, the card line
 and one ``{"kernels": [...]}`` JSON line (each kernel with its dtype: the
@@ -515,10 +536,7 @@ def parity(ca):
 def main_path(seed, ca):
     from dtqn_tpu_torch.agents import Agent, AgentConfig
     from dtqn_tpu_torch.envs import make_env
-    from dtqn_tpu_torch.train.loop import (
-        make_prepopulate_fn,
-        make_train_chunk_fn,
-    )
+    from dtqn_tpu_torch.train.loop import make_prepopulate, make_train_chunk
     from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 
     num_envs, updates = 64, 64
@@ -529,8 +547,8 @@ def main_path(seed, ca):
     )
     agent = Agent(cfg, make_env("DiscreteCarFlag-v0"))  # the card
     check(agent.device.type == "cuda", "Agent did not default to cuda")
-    prepopulate = make_prepopulate_fn(agent, max(40_000 // num_envs, 1))
-    train_iter = make_train_chunk_fn(
+    prepopulate = make_prepopulate(agent, max(40_000 // num_envs, 1))
+    train_iter = make_train_chunk(
         agent, EpsilonSchedule(1.0, 0.1, 200_000),
         updates_per_iter=updates, iters_per_chunk=1,
     )
@@ -588,6 +606,8 @@ def main_path(seed, ca):
         "updates_per_s": updates / t_iter,
         "timed_iteration_s": t_iter,
         "init_and_prepopulate_s": t_prepop,
+        "prepopulation_graph": graph_stats(prepopulate),
+        "iteration_graph": graph_stats(train_iter),
         "flushed_episodes": flushed,
         "train_steps": train_steps,
         "nonfinite_grads": nonfinite,
@@ -627,7 +647,10 @@ def profile_iteration(state, train_iter, updates=64, top=12,
                       what="one train iteration"):
     """Where one train iteration's time goes (torch.profiler): the device's
     busy share of the wall time, kernel launches, and the kernels with the
-    most device time."""
+    most device time.  One unprofiled call first: a compiled chunk whose
+    state moved since its capture (an eager step in between) captures
+    again there, and the profile holds replays only."""
+    train_iter(state)
     wall_us, by_name = device_events(lambda: train_iter(state))
     check(by_name, f"{what}: the profiler recorded no device operation")
     device_us = sum(us for _, us in by_name.values())
@@ -675,20 +698,73 @@ def in_directory(path):
         os.chdir(old)
 
 
-@contextlib.contextmanager
-def counted_greedy_calls():
-    """Yields a list that grows by one with every ``Agent.greedy_actions``
-    call: each is one forward of the policy network, for an act step or an
-    evaluation step (with a bag, each is followed by one evict forward)."""
-    from dtqn_tpu_torch.agents.base import Agent
+COUNTERS_INSTALLED = []
 
-    calls, greedy = [], Agent.greedy_actions
+
+def install_counters():
+    """Once per process: ``Agent.greedy_actions`` counts its calls, and the
+    kernels' wrappers note their calls by shape, into the dicts registered
+    under "greedy_calls" and "ledger" in ``utils.graphs.TRACKED_COUNTERS``.
+    A graph replay adds to the dicts registered then what its capture
+    counted, so the counts are those of the work that ran, graphed or
+    eager; ``counted_greedy_calls`` and ``launch_ledger`` register a fresh
+    dict for the stretch they count."""
+    if COUNTERS_INSTALLED:
+        return
+    from dtqn_tpu_torch.agents.base import Agent
+    from dtqn_tpu_torch.ops import cuda_attention as ca
+    from dtqn_tpu_torch.utils import graphs
+
+    tracked = graphs.TRACKED_COUNTERS
+    tracked.update(greedy_calls={}, ledger={})
+    greedy = Agent.greedy_actions
 
     def counting(agent, network, context, *args, **kwargs):
-        calls.append(1)
+        calls = tracked["greedy_calls"]
+        calls["calls"] = calls.get("calls", 0) + 1
         return greedy(agent, network, context, *args, **kwargs)
 
-    with patched(Agent, "greedy_actions", counting):
+    def noting(name, fn):
+        def wrapper(q, k, *rest):
+            b, lq, lk, _, d = ca.check_shapes(q, k, rest[0], rest[-2],
+                                              rest[-1])
+            form = ("mma" if ca.launch_config(name, lq, lk, d, q.dtype)
+                    .keys_per_lane == ca.MMA_FORM else "lanes")
+            key = (name, b, lq, lk, d, bool(rest[-1]), dtype_name(q.dtype),
+                   form)
+            ledger = tracked["ledger"]
+            ledger[key] = ledger.get(key, 0) + 1
+            return fn(q, k, *rest)
+        return wrapper
+
+    Agent.greedy_actions = counting
+    ca.attention_fwd = noting("attention_fwd", ca.attention_fwd)
+    ca.attention_bwd = noting("attention_bwd", ca.attention_bwd)
+    COUNTERS_INSTALLED.append(True)
+
+
+@contextlib.contextmanager
+def registered(name):
+    """Yields a fresh dict that counts under ``name`` inside the context."""
+    from dtqn_tpu_torch.utils import graphs
+
+    install_counters()
+    tracked = graphs.TRACKED_COUNTERS
+    old, tracked[name] = tracked[name], {}
+    try:
+        yield tracked[name]
+    finally:
+        tracked[name] = old
+
+
+@contextlib.contextmanager
+def counted_greedy_calls():
+    """Yields a dict whose "calls" counts the ``Agent.greedy_actions`` calls
+    inside the context, graph replays included: each is one forward of the
+    policy network, for an act step or an evaluation step (with a bag, each
+    is followed by one evict forward)."""
+    with registered("greedy_calls") as calls:
+        calls["calls"] = 0
         yield calls
 
 
@@ -699,7 +775,7 @@ class Probe:
     device value after each of them anyway."""
 
     def __init__(self):
-        self.greedy_calls = []
+        self.greedy_calls = {"calls": 0}
         self.seconds = {"chunk": [], "evaluate": [], "save_checkpoint": [],
                         "load_checkpoint": []}
         self.first_chunk_start = None
@@ -721,7 +797,7 @@ class Probe:
     def attached(self):
         from dtqn_tpu_torch.train import runner
 
-        make_chunk, make_eval = (runner.make_train_chunk_fn,
+        make_chunk, make_eval = (runner.make_train_chunk,
                                  runner.make_evaluate_fn)
         save, real_load = (runner.ckpt.save_checkpoint,
                            runner.ckpt.load_checkpoint)
@@ -732,7 +808,7 @@ class Probe:
             return state, extra
 
         with counted_greedy_calls() as self.greedy_calls, \
-                patched(runner, "make_train_chunk_fn",
+                patched(runner, "make_train_chunk",
                         lambda *a: self.clocked("chunk", make_chunk(*a))), \
                 patched(runner, "make_evaluate_fn",
                         lambda *a: self.clocked("evaluate", make_eval(*a))), \
@@ -820,7 +896,7 @@ def check_launches(ca, probe, cfg, iters, what, prepopulated=True):
     attention_bwd per layer and for the bag.  With dropout the update's
     forwards are train-mode ones, in stock ops: an update launches none."""
     updates = iters * cfg.resolved_updates_per_iter * (cfg.dropout <= 0.0)
-    greedy_calls = len(probe.greedy_calls)
+    greedy_calls = probe.greedy_calls["calls"]
     eval_steps = greedy_calls - iters
     launches = dict(ca.launch_counts)
     bag = cfg.bag_size > 0
@@ -986,8 +1062,8 @@ def discrete_phase(seed, ca):
     from dtqn_tpu_torch.envs import make_env
     from dtqn_tpu_torch.train.loop import (
         make_evaluate_fn,
-        make_prepopulate_fn,
-        make_train_chunk_fn,
+        make_prepopulate,
+        make_train_chunk,
     )
     from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 
@@ -1009,11 +1085,11 @@ def discrete_phase(seed, ca):
               f"{kind} instance for head width 16: {lc}")
     ca.reset_launch_counts()
     state = agent.init_state(seed)
-    make_prepopulate_fn(agent, 150)(state)
+    make_prepopulate(agent, 150)(state)
     flushed = int(state.buffer.flushed_total)
     check(flushed > cfg.batch_size, f"prepopulation flushed only {flushed}")
     with counted_greedy_calls() as greedy_calls:
-        make_train_chunk_fn(
+        make_train_chunk(
             agent, EpsilonSchedule(1.0, 0.1, 200_000),
             updates_per_iter=updates, iters_per_chunk=1)(state)
         sr, ret, length = (
@@ -1031,7 +1107,7 @@ def discrete_phase(seed, ca):
           f"evaluation out of range: {sr}, {ret}, {length}")
     # One act forward, three forwards per update, and one forward per
     # evaluation step (all 50 unless every game was won before).
-    eval_steps = len(greedy_calls) - 1
+    eval_steps = greedy_calls["calls"] - 1
     check(10 <= eval_steps <= 50, f"{eval_steps} evaluation steps")
     check(launches["attention_fwd"] == layers * (1 + 3 * updates + eval_steps),
           f"attention_fwd launched {launches['attention_fwd']} times")
@@ -1068,28 +1144,13 @@ def dtype_name(dtype):
 
 @contextlib.contextmanager
 def launch_ledger(ca):
-    """Yields a dict that counts every call of the kernels' wrappers by
-    (kernel, B, Lq, Lk, head width, causal, dtype, form): the form "mma"
-    where the wrapper launches the tensor-core form, else "lanes".  The
-    wrappers themselves go on counting their launches."""
-    ledger = {}
-
-    def noting(name, fn):
-        def wrapper(q, k, *rest):
-            b, lq, lk, _, d = ca.check_shapes(q, k, rest[0], rest[-2],
-                                              rest[-1])
-            form = ("mma" if ca.launch_config(name, lq, lk, d, q.dtype)
-                    .keys_per_lane == ca.MMA_FORM else "lanes")
-            key = (name, b, lq, lk, d, bool(rest[-1]), dtype_name(q.dtype),
-                   form)
-            ledger[key] = ledger.get(key, 0) + 1
-            return fn(q, k, *rest)
-        return wrapper
-
-    with patched(ca, "attention_fwd",
-                 noting("attention_fwd", ca.attention_fwd)), \
-            patched(ca, "attention_bwd",
-                    noting("attention_bwd", ca.attention_bwd)):
+    """Yields a dict that counts every call of the kernels' wrappers inside
+    the context, graph replays included, by (kernel, B, Lq, Lk, head width,
+    causal, dtype, form): the form "mma" where the wrapper launches the
+    tensor-core form, else "lanes" (``install_counters`` wraps them once).
+    The wrappers themselves go on counting their launches."""
+    del ca
+    with registered("ledger") as ledger:
         yield ledger
 
 
@@ -1285,8 +1346,8 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
     from dtqn_tpu_torch.envs import make_env
     from dtqn_tpu_torch.train.loop import (
         make_evaluate_fn,
-        make_prepopulate_fn,
-        make_train_chunk_fn,
+        make_prepopulate,
+        make_train_chunk,
     )
     from dtqn_tpu_torch.train.runner import build_envs
     from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
@@ -1308,7 +1369,7 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
     # The launches' shapes: the seeds' envs and batches folded.
     folded = dataclasses.replace(cfg, num_envs=n * cfg.num_envs,
                                  batch_size=n * cfg.batch_size)
-    train_iter = make_train_chunk_fn(
+    train_iter = make_train_chunk(
         agent, EpsilonSchedule(1.0, 0.1, 200_000),
         updates_per_iter=updates, iters_per_chunk=1)
     result = {"config": kw, "env": env_name, "seeds": seeds}
@@ -1318,7 +1379,7 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
         t0 = time.perf_counter()
         state = (agent.init_sweep_state(seeds) if seeds
                  else agent.init_state(seed))
-        make_prepopulate_fn(agent, prepop_iters)(state)
+        make_prepopulate(agent, prepop_iters)(state)
         torch.cuda.synchronize()
         result["init_and_prepopulate_s"] = time.perf_counter() - t0
         # Random actions: no greedy forward, one evict forward per step.
@@ -1374,7 +1435,7 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
                 state.network, gens if seeds else gens[0])
             sr, ret, length = (x.reshape(-1).tolist() for x in out)
             result["evaluation_s"] = time.perf_counter() - t0
-            steps = len(calls)
+            steps = calls["calls"]
             eval_cfg = dataclasses.replace(cfg, num_envs=10 * n)
             result["launches_evaluation"] = check_ledger(
                 ca, ledger, reckoned_launches(eval_cfg, steps, 0),
@@ -1393,8 +1454,11 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
 
 def operations(agent, state, what):
     """Device operations and device time of one act step, one update and,
-    with a bag, one evict forward (torch.profiler)."""
+    with a bag, one evict forward (torch.profiler), eagerly.  The state's
+    leaves stay where a graph of its iteration reads them
+    (``leaves_kept``; its copies run outside the profile)."""
     from dtqn_tpu_torch.train import loop
+    from dtqn_tpu_torch.utils.graphs import leaves_kept
 
     runs = {
         "act_step": lambda: loop.env_step(agent, state),
@@ -1408,8 +1472,9 @@ def operations(agent, state, what):
             state.network, ctx, bag, ctx.obs[:, 0], ev_act, ev_act, need)
     result = {}
     for name, fn in runs.items():
-        fn()  # warm
-        wall_us, by_name = device_events(fn)
+        with leaves_kept(state):
+            fn()  # warm
+            wall_us, by_name = device_events(fn)
         result[name] = {
             "device_ops": sum(n for n, _ in by_name.values()),
             "device_us": sum(us for _, us in by_name.values()),
@@ -1477,16 +1542,19 @@ def update_ms_in_turns(runs, rounds=3, updates=16):
     """Host time of one update of each of ``runs`` ({name: (agent, state)}),
     timed in turns within one call, best of ``rounds``: phases timed at
     different moments of a call differ by more than their work does."""
+    from dtqn_tpu_torch.utils.graphs import leaves_kept
+
     best = dict.fromkeys(runs, math.inf)
     for _ in range(rounds):
         for name, (agent, state) in runs.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(updates):
-                agent.learn(state)
-            torch.cuda.synchronize()
-            best[name] = min(best[name],
-                             1e3 * (time.perf_counter() - t0) / updates)
+            with leaves_kept(state):  # the copies after the clock stops
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(updates):
+                    agent.learn(state)
+                torch.cuda.synchronize()
+                best[name] = min(best[name],
+                                 1e3 * (time.perf_counter() - t0) / updates)
     log(f"update ms in turns: {json.dumps(best)}")
     return best
 
@@ -1578,11 +1646,11 @@ def evaluation_phase(seed, agent, state):
                 counted_greedy_calls() as calls:
             run_once()  # warm
             torch.cuda.synchronize()
-            del calls[:]
+            calls["calls"] = 0
             t0 = time.perf_counter()
             out = [float(x) for x in run_once()]
             seconds = time.perf_counter() - t0
-            steps = len(calls)
+            steps = calls["calls"]
             wall_us, by_name = device_events(run_once)
         ops = sum(n for n, _ in by_name.values())
         result[f"check_every_{every}"] = {
@@ -1824,7 +1892,7 @@ def multi_phase(seed, ca):
                 float(x) for x in make_evaluate_fn(agent, env, 10)(
                     state.network,
                     torch.Generator(device=DEVICE).manual_seed(seed + i)))
-            steps = len(calls)
+            steps = calls["calls"]
             launches = check_ledger(
                 ca, ledger, reckoned_launches(eval_cfg, steps, 0),
                 f"four rooms, evaluation on {env.name}")
@@ -1882,13 +1950,17 @@ def update_kernels_in_turns(ca, runs, turns=TURNS):
     """Device kernels, device time and attention launches of one update of
     each of ``runs`` ({key: (agent, state)}), profiled in ``turns`` (keys
     of ``runs``); the means of each key's turns."""
+    from dtqn_tpu_torch.utils.graphs import leaves_kept
+
     for agent, state in runs.values():
-        agent.learn(state)  # warm
+        with leaves_kept(state):
+            agent.learn(state)  # warm
     seen = {n: [] for n in runs}
     for n in turns:
         agent, state = runs[n]
         ca.reset_launch_counts()
-        _, by_name = device_events(lambda: agent.learn(state))
+        with leaves_kept(state):
+            _, by_name = device_events(lambda: agent.learn(state))
         seen[n].append((sum(k for k, _ in by_name.values()),
                         sum(us for _, us in by_name.values()),
                         {k: v for k, v in ca.launch_counts.items() if v}))
@@ -1927,7 +1999,11 @@ def sweep_kernels_in_turns(ca, runs):
 def rates_in_turns(runs, what, turns=TURNS):
     """Aggregate env-steps/s of one train iteration (64 env steps per seed,
     64 updates) of each of ``runs`` ({key: (state, train_iter)}), timed in
-    ``turns`` (keys of ``runs``), over every seed's env steps."""
+    ``turns`` (keys of ``runs``), over every seed's env steps, after one
+    untimed call each (a compiled chunk whose state moved since its
+    capture captures again there)."""
+    for state, train_iter in runs.values():
+        train_iter(state)
     seen = {n: [] for n in runs}
     for n in turns:
         state, train_iter = runs[n]
@@ -2302,10 +2378,13 @@ def dtypes_of_one_update(agent, state, types):
         out = output[0] if isinstance(output, tuple) else output
         seen.setdefault(type(module).__name__, set()).add(str(out.dtype))
 
+    from dtqn_tpu_torch.utils.graphs import leaves_kept
+
     hooks = [m.register_forward_hook(note) for m in state.network.modules()
              if isinstance(m, types)]
     try:
-        agent.learn(state)
+        with leaves_kept(state):
+            agent.learn(state)
     finally:
         for h in hooks:
             h.remove()
@@ -3024,7 +3103,7 @@ def host_cue_phase(seed, ca):
             cfg, env_factory=lambda name: CueHostEnv())
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        eval_steps = len(calls) - iters
+        eval_steps = calls["calls"] - iters
         by_shape = check_ledger(
             ca, ledger,
             host_reckoned(acfg, iters, iters * cfg.resolved_updates_per_iter,
@@ -3175,7 +3254,7 @@ def host_drive(seed, ca, bf16=False):
             agent, state.network, lambda: GlyphRoomHost(next(seeds)), 10,
             torch.Generator(device=DEVICE).manual_seed(seed + 1))
         result["evaluation_s"] = time.perf_counter() - t0
-        steps = len(calls)
+        steps = calls["calls"]
         result["launches_evaluation"] = check_ledger(
             ca, ledger, host_reckoned(acfg, 0, 0, steps),
             f"{what}, evaluation")
@@ -3229,7 +3308,7 @@ def host_runner_phase(seed, ca):
             final = hl.run_host_experiment(cfg, env_factory=factory)
             torch.cuda.synchronize()
             result["whole_s"] = time.perf_counter() - t0
-            eval_steps = len(calls) - iters
+            eval_steps = calls["calls"] - iters
             result["launches_by_shape"] = check_ledger(
                 ca, ledger,
                 host_reckoned(cfg.agent_config(), iters,
@@ -3315,6 +3394,207 @@ def host_phase(seed, ca):
     return result
 
 
+# ------------------------------------------------------------------ graphs
+# (name, env, AgentConfig fields over the bag configuration, prepopulation
+# iterations, stacked seeds): the paths phase 22 holds graphed against eager.
+GRAPH_PATHS = (
+    ("flagless", "DiscreteCarFlag-v0",
+     dict(model="DTQN", inner_embed=64, bag_size=0), 200, None),
+    ("flagless bf16", "DiscreteCarFlag-v0",
+     dict(model="DTQN", inner_embed=64, bag_size=0, bf16=True), 200, None),
+    ("bag 25", GV_ENV, {}, 300, None),
+    ("DRQN Memory-5", "Memory-5-v0", dict(model="DRQN", bag_size=0), 100,
+     None),
+    ("ImageMaze", IMAGE_ENV, dict(model="DTQN", bag_size=0), 150, None),
+    ("dropout 0.1", "DiscreteCarFlag-v0",
+     dict(model="DTQN", inner_embed=64, bag_size=0, dropout=0.1), 200, None),
+    ("5 seeds", "DiscreteCarFlag-v0",
+     dict(model="DTQN", inner_embed=64, bag_size=0), 200,
+     list(range(SWEEP_SEEDS))),
+)
+GRAPH_ITERS = 3  # iterations of 64 updates per compared chunk
+# The paths given a second chunk, which only replays (the first warms up,
+# captures and replays twice), and timed eager and graphed in turns (eager,
+# graphed, graphed, eager), one chunk each.  5 seeds and DRQN were timed so
+# in PR 13 (PERF.md); phases 11 and 16 time their graphed iterations.
+GRAPH_TIMED = ("flagless", "flagless bf16")
+
+
+def differing_leaves(a, b):
+    """The leaves (``utils.tree.leaves``, what a checkpoint saves) of two
+    states that are not bit for bit equal, generators' states included."""
+    from dtqn_tpu_torch.utils.tree import leaves
+
+    out = []
+    for (name, x), (_, y) in zip(leaves(a), leaves(b)):
+        if isinstance(x, torch.Generator):
+            x, y = x.get_state(), y.get_state()
+        if not torch.equal(x, y):
+            out.append(name)
+    return out
+
+
+def graph_stats(chunk):
+    """A compiled entry point's capture: warm-up and capture seconds (None
+    for the plain body of a CPU dry run)."""
+    return {"warm_up_s": getattr(chunk, "warm_up_s", None),
+            "capture_s": getattr(chunk, "capture_s", None),
+            "captures": getattr(chunk, "captures", None)}
+
+
+def pool_bytes(agent):
+    """Bytes the caching allocator holds in ``agent``'s graph memory pool
+    (None before its first capture)."""
+    if agent.graph_pool is None:
+        return None
+    want = tuple(agent.graph_pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == want)
+
+
+def graphed_path(seed, ca, name, env_name, kw, prepop_iters, seeds):
+    """One saved state trained a chunk of GRAPH_ITERS iterations (two for
+    GRAPH_TIMED) eager (``make_train_chunk_fn``) and graphed
+    (``make_train_chunk``): after each chunk every leaf, each generator's
+    state, ``launch_counts`` and the launches by shape bit-equal; then, for
+    GRAPH_TIMED, the chunks timed in turns and a graphed chunk profiled."""
+    from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.envs import make_env
+    from dtqn_tpu_torch.train.loop import (
+        make_prepopulate,
+        make_train_chunk,
+        make_train_chunk_fn,
+    )
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+    from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+
+    updates = 64
+    cfg = AgentConfig(**dict(dict(
+        model="DTQN-bag", num_envs=64, context_len=50, history=50,
+        inner_embed=128, num_heads=8, num_layers=2, batch_size=32,
+        buffer_size=500_000, target_update_frequency=10_000,
+        bag_size=GV_BAG), **kw))
+    what = f"graphs, {name}"
+    agent = Agent(cfg, make_env(env_name), device=DEVICE)
+    n = len(seeds) if seeds else 1
+
+    def fresh():
+        return (agent.init_sweep_state(seeds) if seeds
+                else agent.init_state(seed))
+
+    graphed = fresh()
+    prepopulate = make_prepopulate(agent, prepop_iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prepopulate(graphed)
+    torch.cuda.synchronize()
+    result = {"config": kw, "env": env_name, "seeds": seeds,
+              "prepopulation_s": time.perf_counter() - t0,
+              "prepopulation_graph": graph_stats(prepopulate),
+              "pool_bytes_after_prepopulation": pool_bytes(agent)}
+    flushed = graphed.buffer.flushed_total.reshape(-1).tolist()
+    check(min(flushed) > cfg.batch_size,
+          f"{what}: prepopulation flushed only {flushed}")
+    # The graphed run goes on from the saved state, the eager one from its
+    # checkpoint.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "saved")
+        ckpt.save_checkpoint(path, graphed)
+        eager, _ = ckpt.load_checkpoint(path, fresh())
+    del prepopulate
+
+    eps = EpsilonSchedule(1.0, 0.1, 200_000)
+    chunks = {"eager": (eager, make_train_chunk_fn(agent, eps, updates,
+                                                   GRAPH_ITERS)),
+              "graphed": (graphed, make_train_chunk(agent, eps, updates,
+                                                    GRAPH_ITERS))}
+    rounds = []
+    for r in range(2 if name in GRAPH_TIMED else 1):
+        seen = {}
+        for kind, (st, chunk) in chunks.items():
+            with launch_ledger(ca) as ledger:
+                ca.reset_launch_counts()
+                seen[kind] = (timed_call(chunk, st), dict(ca.launch_counts),
+                              dict(ledger))
+        differ = differing_leaves(eager, graphed)
+        check(not differ, f"{what}, chunk {r + 1}: the graphed chunk's "
+                          f"leaves differ from the eager one's: {differ}")
+        check(seen["eager"][1] == seen["graphed"][1],
+              f"{what}, chunk {r + 1}: launch_counts eager "
+              f"{seen['eager'][1]}, graphed {seen['graphed'][1]}")
+        check(seen["eager"][2] == seen["graphed"][2],
+              f"{what}, chunk {r + 1}: launches by shape eager "
+              f"{show_ledger(seen['eager'][2])}, graphed "
+              f"{show_ledger(seen['graphed'][2])}")
+        rounds.append({"eager_s": seen["eager"][0][1],
+                       "graphed_s": seen["graphed"][0][1],
+                       "launches": {k: v for k, v in seen["graphed"][1].items()
+                                    if v}})
+    captures = getattr(chunks["graphed"][1], "captures", 1)
+    check(captures == 1, f"{what}: {captures} captures of one state's "
+                         "iteration: its graph was not reused")
+    applied = graphed.train_steps.reshape(-1).tolist()
+    check(applied == [len(rounds) * GRAPH_ITERS * updates] * n,
+          f"{what}: train_steps {applied}")
+    check(int(graphed.nonfinite_grads.sum()) == 0,
+          f"{what}: non-finite gradient steps")
+    result.update(rounds=rounds, leaves_bit_equal=True,
+                  chunk_graph=graph_stats(chunks["graphed"][1]),
+                  pool_bytes=pool_bytes(agent))
+    if name in GRAPH_TIMED:
+        # The last round's chunks (eager, then graphed) are the first two
+        # turns.
+        result["in_turns"] = graph_turns(
+            chunks, n * cfg.num_envs, what,
+            {kind: seen[kind][0] for kind in chunks})
+        state, chunk = chunks["graphed"]
+        result["profile"] = profile_iteration(
+            state, chunk, updates=GRAPH_ITERS * updates,
+            what=f"{what}, a graphed chunk of {GRAPH_ITERS} iterations")
+    log(f"{what}: {json.dumps(result)}")
+    return result
+
+
+def timed_call(chunk, state):
+    """(host seconds until ``chunk(state)`` returns, wall seconds to the end
+    of its device work)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk(state)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host, time.perf_counter() - t0
+
+
+def graph_turns(chunks, envs, what, first):
+    """The chunks of ``chunks`` ({kind: (state, chunk)}) in turns eager,
+    graphed, graphed, eager, the first two ``first`` ({kind: (host s, wall
+    s)}, timed already): per iteration the host ms until the call returns,
+    the wall ms to the end of its device work, and env-steps/s over
+    ``envs`` envs."""
+    seen = {kind: [first[kind]] for kind in ("eager", "graphed")}
+    for kind in ("graphed", "eager"):
+        state, chunk = chunks[kind]
+        seen[kind].append(timed_call(chunk, state))
+    out = {k: {"host_ms_per_iteration": [1e3 * h / GRAPH_ITERS for h, _ in v],
+               "wall_ms_per_iteration": [1e3 * w / GRAPH_ITERS for _, w in v],
+               "env_steps_per_s": [envs * GRAPH_ITERS / w for _, w in v]}
+           for k, v in seen.items()}
+    for v in out.values():
+        v["mean_env_steps_per_s"] = (sum(v["env_steps_per_s"])
+                                     / len(v["env_steps_per_s"]))
+    out["speedup"] = (out["graphed"]["mean_env_steps_per_s"]
+                      / out["eager"]["mean_env_steps_per_s"])
+    log(f"{what}: eager and graphed in turns: {json.dumps(out)}")
+    return out
+
+
+def graphs_phase(seed, ca):
+    """Phase 22: every path of GRAPH_PATHS graphed against eager."""
+    return {name: graphed_path(seed, ca, name, env, kw, prepop, seeds)
+            for name, env, kw, prepop, seeds in GRAPH_PATHS}
+
+
 def run(seed):
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
@@ -3333,6 +3613,15 @@ def run(seed):
     t_start = t0 = time.perf_counter()
     ca.build(verbose=True)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    phase_seconds, last = {"build": time.perf_counter() - t0}, [
+        time.perf_counter()]
+
+    def mark(name):
+        """Logs the seconds since the previous mark as phase ``name``'s."""
+        now = time.perf_counter()
+        phase_seconds[name], last[0] = now - last[0], now
+        log(f"phase {name}: {phase_seconds[name]:.1f} s")
+
     usage = ca.ptxas_usage()
     for u in usage:
         log(f"ptxas: {json.dumps(u)}")
@@ -3352,22 +3641,39 @@ def run(seed):
                and u.get("spill_stores", 0) + u.get("spill_loads", 0)]
     check(not spilled, f"instances on driven paths spill: {spilled}")
     errs = parity(ca)
+    mark("parity")
+    # Before any graph is captured: every capture then records what the
+    # counters that the phases reckon gained (install_counters).
+    install_counters()
     main, agent, state, train_iter = main_path(seed, ca)
+    mark("main path")
     runner, whole_weights = runner_phase(seed, ca)
+    mark("runner")
     resume = resume_phase(seed, ca, whole_weights)
+    mark("resume")
     discrete = discrete_phase(seed, ca)
+    mark("discrete")
     evaluation = evaluation_phase(seed, agent, state)
+    mark("evaluation")
     bag = bag_phase(seed, ca)
+    mark("bag")
     pomdp = pomdp_phase(seed, ca, (agent, state))
+    mark("pomdp")
     baselines = baselines_phase(seed, ca)
+    mark("baselines")
     image, image_run = image_phase(seed, ca)
+    mark("image")
     multi, multi_run = multi_phase(seed, ca)
+    mark("four rooms")
     variants = variants_phase(seed, ca, {"DiscreteCarFlag-v0": (agent, state),
                                          IMAGE_ENV: image_run,
                                          "four rooms": multi_run})
     del image_run, multi_run
+    mark("variants")
     continuous = continuous_phase(seed)
+    mark("continuous")
     sweep = sweep_phase(seed, ca, (agent, state, train_iter))
+    mark("sweep")
     main_shape, t_main = timings(ca, 32)  # each update's batch
     _, t_act = timings(ca, 64)  # the act forward's batch
     _, t_wide = timings(ca, 32, d=16)  # the in_embed-128 paths' update
@@ -3379,14 +3685,21 @@ def run(seed):
     t_bag = dict(timings(ca, **shape) for shape in BAG_TIMING_SHAPES)
     t_streamed = streamed_timings(ca)
     t_sweep = dict(timings(ca, **shape) for shape in SWEEP_TIMING_SHAPES)
+    mark("kernel timings")
 
     prof = profile_iteration(state, train_iter)
+    mark("profile")
     bf16 = bf16_phase(seed, ca, (agent, state, train_iter), {
         "bag": bag["operations"],
         "drqn": baselines["DRQN Memory-5-v0"]["operations"],
         "image": image["operations"]})
+    mark("bf16")
     dp = dp_phase(seed, card, (agent, state))
+    mark("several devices")
     host = host_phase(seed, ca)
+    mark("host loop")
+    graphed = graphs_phase(seed, ca)
+    mark("graphs")
 
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
@@ -3411,6 +3724,8 @@ def run(seed):
                 sum(n for shape, n in rank["launches"].items()
                     if shape.startswith(name + " "))
                 for rank in dp["turns"][1]],
+            "launches_graphed_per_iteration": graphed["flagless"]["rounds"][
+                -1]["launches"][name] // GRAPH_ITERS,
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -3449,6 +3764,8 @@ def run(seed):
                 bf16["sweep_drive"]["launches"][f"{name}_bf16"],
             "launches_host_loop_glyph_path":
                 host["glyph_bf16"]["launches"][f"{name}_bf16"],
+            "launches_graphed_per_iteration": graphed["flagless bf16"][
+                "rounds"][-1]["launches"][f"{name}_bf16"] // GRAPH_ITERS,
             "max_abs_err": bf16["parity"]["picked"][name],
             "max_abs_err_lanes": bf16["parity"]["lanes"][name],
             "ms": t["ms"],
@@ -3473,6 +3790,7 @@ def run(seed):
                       "timings_d16": t_d16, "timings_bag": t_bag,
                       "timings_streamed": t_streamed,
                       "profile": prof, "bf16": bf16, "several_devices": dp,
+                      "graphs": graphed, "phase_seconds": phase_seconds,
                       "ptxas": usage}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

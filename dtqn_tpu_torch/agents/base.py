@@ -254,6 +254,9 @@ class Agent:
         self.store_act_bags = self.use_bag and config.bag_store
         # A mesh of one rank issues no collective: the one-device path.
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # The memory pool that every CUDA graph of this agent's steps shares
+        # (``utils/graphs.py``), made at the first capture.
+        self.graph_pool = None
 
     def rank_generator(self, generator):
         """``generator`` as this rank's env-indexed draws take it: their

@@ -21,7 +21,10 @@ env steps of every seed and the metric's name ends in ``_x{N}seeds``.
 parameters): the metric's name gains ``_bf16``, so it never reads as the
 float32 line.
 It prepopulates 625 iterations, runs one warm-up chunk of ``--iters``
-iterations (default 50), and reports the best of 4 timed chunks.  Only
+iterations (default 50), and reports the best of 4 timed chunks.  On the
+GPU both go through the compiled entry points (``train/loop.py``:
+``make_prepopulate``, ``make_train_chunk``): the warm-up chunk captures
+the iteration as a CUDA graph, and the timed chunks replay it.  Only
 ``--device cpu`` runs on the CPU; ``--iters`` shortens the chunks so a test
 can run the script.
 
@@ -160,8 +163,8 @@ def measure(args) -> dict:
     from dtqn_tpu_torch.agents import Agent, AgentConfig
     from dtqn_tpu_torch.envs import make_env
     from dtqn_tpu_torch.train.loop import (
-        make_prepopulate_fn,
-        make_train_chunk_fn,
+        make_prepopulate,
+        make_train_chunk,
     )
     from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 
@@ -195,8 +198,8 @@ def measure(args) -> dict:
         print(card_line(), flush=True)
 
     iters = args.iters
-    prepopulate = make_prepopulate_fn(agent, max(PREPOP_STEPS // NUM_ENVS, 1))
-    chunk = make_train_chunk_fn(
+    prepopulate = make_prepopulate(agent, max(PREPOP_STEPS // NUM_ENVS, 1))
+    chunk = make_train_chunk(
         agent,
         EpsilonSchedule(1.0, 0.1, 200_000),
         updates_per_iter=NUM_ENVS,
@@ -210,7 +213,8 @@ def measure(args) -> dict:
     if int(state.buffer.flushed_total.min()) <= cfg.batch_size:
         raise RuntimeError("prepopulation finished too few episodes")
 
-    state = chunk(state)  # warm-up (builds the kernels on a GPU)
+    # Warm-up: builds the kernels and, on a GPU, captures the iteration.
+    state = chunk(state)
     sync(state)
 
     best = float("inf")

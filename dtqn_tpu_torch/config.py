@@ -68,7 +68,8 @@ class ExperimentConfig:
     iters_per_chunk: int = -1  # -1 => derived from eval_frequency
     prepop_steps: int = 50_000  # run.py:495
     # Kept so command lines carry over; they change nothing here: the
-    # tensor's device picks the attention path and the loops are Python.
+    # tensor's device picks the attention path, and on the card one CUDA
+    # graph holds an iteration's whole chain of updates (train/loop.py).
     attention: str = "xla"
     unroll: int = 4
     outer_unroll: int = 1
@@ -209,10 +210,11 @@ def get_args(argv=None) -> ExperimentConfig:
                         "CUDA attention kernels, a CPU tensor runs their "
                         "plain versions.")
     p.add_argument("--unroll", type=int, default=d.unroll,
-                   help="Accepted and ignored (the update loop is Python).")
+                   help="Accepted and ignored: on the GPU one CUDA graph "
+                        "holds an iteration's whole chain of updates.")
     p.add_argument("--outer-unroll", type=int, default=d.outer_unroll,
-                   help="Accepted and ignored (the iteration loop is "
-                        "Python).")
+                   help="Accepted and ignored: on the GPU a chunk replays "
+                        "the graph of one iteration.")
     p.add_argument("--dp-devices", type=int, default=d.dp_devices,
                    help="Train one run sharded over this many ranks, one "
                         "process each (started here, or by torchrun); a "

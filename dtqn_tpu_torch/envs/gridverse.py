@@ -196,6 +196,10 @@ class GridverseMemory(Environment):
                 "corners": table(
                     [[1, 1], [1, n - 2], [n - 2, 1], [n - 2, n - 2]]
                 ),
+                # The one-room layout's exits and beacon, in that order.
+                "fixed": table([[1, 1], [1, n - 2], [n - 2, n // 2]]),
+                "exit": table(EXIT),
+                "beacon": table(BEACON),
             }
         return self._constants[key]
 
@@ -204,7 +208,7 @@ class GridverseMemory(Environment):
         grid_color, good_color, beacon_pos)."""
         device = colors.device
         c = self._on(device)
-        n, p = self.size, self.pad
+        p = self.pad
         e = colors.shape[0]
         e_idx = torch.arange(e, device=device)
         colors = 1 + colors.to(torch.int32)
@@ -215,12 +219,7 @@ class GridverseMemory(Environment):
             placed = c["corners"][corner_order.to(torch.int64)]  # [E, 3, 2]
             exit_a, exit_b, beacon_pos = placed.unbind(dim=1)
         else:
-            def fixed(y, x):
-                return torch.tensor([y, x], dtype=torch.int32,
-                                    device=device).expand(e, 2)
-
-            exit_a, exit_b = fixed(1, 1), fixed(1, n - 2)
-            beacon_pos = fixed(n - 2, n // 2)
+            exit_a, exit_b, beacon_pos = c["fixed"][:, None].expand(3, e, 2)
 
         # Which exit is the good one.
         good_exit = torch.where(swap[:, None], exit_b, exit_a).to(torch.int64)
@@ -229,9 +228,9 @@ class GridverseMemory(Environment):
 
         gtype = c["base_grid"].expand(e, p, p).clone()
         gcolor = torch.zeros((e, p, p), dtype=torch.int32, device=device)
-        gtype[e_idx, good_exit[:, 0], good_exit[:, 1]] = EXIT
-        gtype[e_idx, bad_exit[:, 0], bad_exit[:, 1]] = EXIT
-        gtype[e_idx, beacon[:, 0], beacon[:, 1]] = BEACON
+        gtype[e_idx, good_exit[:, 0], good_exit[:, 1]] = c["exit"]
+        gtype[e_idx, bad_exit[:, 0], bad_exit[:, 1]] = c["exit"]
+        gtype[e_idx, beacon[:, 0], beacon[:, 1]] = c["beacon"]
         gcolor[e_idx, good_exit[:, 0], good_exit[:, 1]] = good
         gcolor[e_idx, bad_exit[:, 0], bad_exit[:, 1]] = bad
         gcolor[e_idx, beacon[:, 0], beacon[:, 1]] = good

@@ -17,7 +17,7 @@ over the free cells, Gumbel-max as ``jax.random.categorical``), and
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -50,10 +50,19 @@ class ImageMaze(Environment):
         self.name = f"ImageMaze-{size}-v0"
         self.max_episode_steps = max_episode_steps
         self.obs_shape = (3, size, size)
+        self._dirs: Dict[str, torch.Tensor] = {}
 
     @property
     def obs_mask(self) -> float:
         return 0.0  # image obs mask is 0 (env_processing.py:104-105)
+
+    def _dirs_on(self, device) -> torch.Tensor:
+        """``DIRS`` as [4, 2] int32 on ``device``, made once per device."""
+        key = str(device)
+        if key not in self._dirs:
+            self._dirs[key] = torch.tensor(DIRS, dtype=torch.int32,
+                                           device=device)
+        return self._dirs[key]
 
     def _grid(self, device):
         n = self.size
@@ -121,7 +130,7 @@ class ImageMaze(Environment):
     def step_env(self, generator, state: ImageMazeState, action):
         del generator  # dynamics are deterministic
         n = self.size
-        dirs = torch.tensor(DIRS, dtype=torch.int32, device=action.device)
+        dirs = self._dirs_on(action.device)
         target = torch.clamp(state.pos + dirs[action.to(torch.int64)], 0,
                              n - 1)
         e = torch.arange(action.shape[0], device=action.device)

@@ -14,9 +14,18 @@ the given masks.  A forward without draws is deterministic, as flax's
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
+
+
+@functools.lru_cache(maxsize=None)
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as jnp rounds a weakly typed Python
+    float beside an array of that dtype; worked out once per (value,
+    dtype), so that a forward makes no tensor from Python data."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 class DropoutDraws:
@@ -48,7 +57,7 @@ class DropoutDraws:
             keep = torch.rand(x.shape, generator=self.generator,
                               device=x.device) < keep_prob
         # keep_prob as jnp sees it beside x: rounded to x's dtype.
-        scale = torch.tensor(keep_prob, dtype=x.dtype).item()
+        scale = rounded(keep_prob, x.dtype)
         return torch.where(keep, x / scale, torch.zeros_like(x))
 
 

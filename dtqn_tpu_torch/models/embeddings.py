@@ -54,8 +54,12 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (tokens,) = ctx.saved_tensors
-        hot = F.one_hot(tokens.reshape(-1).to(torch.int64), ctx.rows)
-        return hot.to(grad.dtype).t() @ grad.reshape(-1, grad.shape[-1]), None
+        # Scattered ones, not ``F.one_hot``, which reads the tokens' range
+        # back to the host on the CPU.
+        flat = tokens.reshape(-1, 1).to(torch.int64)
+        hot = torch.zeros((flat.shape[0], ctx.rows), dtype=grad.dtype,
+                          device=grad.device).scatter_(1, flat, 1)
+        return hot.t() @ grad.reshape(-1, grad.shape[-1]), None
 
     @staticmethod
     def vmap(info, in_dims, table, tokens):

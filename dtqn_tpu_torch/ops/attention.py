@@ -25,11 +25,20 @@ Pallas semantics there on both devices.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from dtqn_tpu_torch.ops.cuda_attention import cuda_attention_packed
+
+
+@functools.lru_cache(maxsize=None)
+def _scale(d: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """1 / sqrt(d) as a 0-dim tensor of ``dtype`` on ``device``, each step
+    rounded to ``dtype``; made once per (d, dtype, device), so that a
+    forward makes no tensor from Python data."""
+    return (1.0 / torch.sqrt(torch.tensor(d, dtype=dtype))).to(device)
 
 
 def attention_probs(
@@ -50,7 +59,7 @@ def attention_probs(
     d = e // num_heads
     qh = q.reshape(b, lq, num_heads, d)
     kh = k.reshape(b, lk, num_heads, d)
-    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=q.dtype))
+    scale = _scale(d, q.dtype, q.device)
     scores = torch.einsum("blhd,bmhd->bhlm", qh, kh) * scale
     if causal:
         mask = torch.ones(lq, lk, dtype=torch.bool, device=q.device).tril(

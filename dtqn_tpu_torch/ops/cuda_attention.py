@@ -49,6 +49,14 @@ repeats the kernels' math (``plain_attention_fwd`` / ``plain_attention_bwd``:
 float32 inside, each output rounded once to the inputs' dtype); a CUDA
 tensor launches the instance of its dtype or raises.  There is no fallback
 and no cast: a bfloat16 call never reaches a float32 instance.
+
+A CUDA graph captures the launches (``utils/graphs.py``): they go to the
+current stream, and besides the launch the C entry points call only
+``cudaFuncSetAttribute`` and ``cudaGetLastError``, which a stream capture
+allows (``chip_smoke.py`` phase 22 holds graphed launches bit-equal to
+eager ones).  A wrapper's Python runs only while a graph is captured, so
+``launch_counts`` gains there, and ``utils/graphs.py`` takes that back
+and adds it again on every replay.
 """
 
 from __future__ import annotations
@@ -103,7 +111,8 @@ NVCC_FLAGS = (
 
 KINDS = ("attention_fwd", "attention_bwd")
 # Launches of each kernel since the last reset, the bfloat16 instances
-# under their own names (plain versions never count).
+# under their own names (plain versions never count; graph replays count
+# what their capture counted, ``utils/graphs.py``).
 launch_counts = {"attention_fwd": 0, "attention_bwd": 0,
                  "attention_fwd_bf16": 0, "attention_bwd_bf16": 0}
 

@@ -37,7 +37,7 @@ import torch
 
 from dtqn_tpu_torch.agents import Agent
 from dtqn_tpu_torch.config import get_args
-from dtqn_tpu_torch.train.loop import make_prepopulate_fn
+from dtqn_tpu_torch.train.loop import make_prepopulate
 from dtqn_tpu_torch.train.runner import build_envs
 from dtqn_tpu_torch.train.sweep import sweep_path
 from dtqn_tpu_torch.utils import checkpoint as ckpt
@@ -80,7 +80,7 @@ def main(argv=None) -> str:
     state.target_network.load_stacked_state_dict(stacked)
 
     prepop_iters = max(config.prepop_steps // config.num_envs, 1)
-    make_prepopulate_fn(agent, prepop_iters)(state)
+    make_prepopulate(agent, prepop_iters)(state)
     state.env_steps.fill_(args.at_step)
     state.train_steps.fill_(args.at_step)
     if args.restart_epsilon is not None:

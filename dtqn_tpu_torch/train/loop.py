@@ -3,11 +3,18 @@
 One iteration steps E envs in lockstep, writes the transitions into the
 device replay ring, and runs ``updates_per_iter`` gradient steps (the
 reference's 1 update per env step is ``updates_per_iter == num_envs``).
-The JAX package scans these loops under ``jit``; here they are Python loops
-over device work that never reads a value back to the host (evaluation
-reads one flag every ``EVAL_EXIT_CHECK_EVERY`` steps, to stop once every
-episode is over).  The scan knobs (``unroll``, ``outer_unroll``,
-``presample``) have no counterpart.
+The ``_fn`` bodies are Python loops over device work that never reads a
+value back to the host (evaluation reads one flag every
+``EVAL_EXIT_CHECK_EVERY`` steps, to stop once every episode is over).  The
+JAX package wraps them in ``jax.jit`` with donated buffers
+(``dtqn_tpu/train/loop.py:163-209``); the port's counterparts,
+``make_train_chunk`` and ``make_prepopulate``, capture one iteration as a
+CUDA graph on the card and replay it (``utils/graphs.py``), so a chunk
+dispatches nothing from Python after its first iteration.  The graph holds
+an iteration's whole chain of updates, which is what JAX's ``unroll`` works
+toward: ``--unroll`` and ``--outer-unroll`` are accepted and ignored, and
+``presample`` has no counterpart.  On the CPU both return the ``_fn``
+bodies.
 
 Each function also takes a stacked state (``Agent.init_sweep_state``): the
 envs of S seeds step as one batch, ``env.step_vec`` running once per seed
@@ -30,6 +37,7 @@ from dtqn_tpu_torch.agents.base import Agent, AgentState
 from dtqn_tpu_torch.envs.core import Environment, per_seed, where_batch
 from dtqn_tpu_torch.models import zero_carry
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+from dtqn_tpu_torch.utils.graphs import GraphedStep
 from dtqn_tpu_torch.utils.rng import folded_draw, seed_count
 
 # Evaluation freezes finished episodes and could run all max_episode_steps
@@ -108,6 +116,46 @@ def make_prepopulate_fn(
         return state
 
     return prepopulate
+
+
+def make_train_chunk(
+    agent: Agent,
+    eps_schedule: EpsilonSchedule,
+    updates_per_iter: int,
+    iters_per_chunk: int,
+) -> Callable[[AgentState], AgentState]:
+    """The compiled ``train_chunk`` (``dtqn_tpu/train/loop.py:163``): on the
+    card a ``GraphedStep`` whose unit is one iteration (``env_step``, then
+    ``updates_per_iter`` calls of ``learn``, then the epsilon anneal: the
+    body of JAX's outer scan, its inner scan of updates fully unrolled),
+    captured at its first call on a state and replayed ``iters_per_chunk``
+    times per call; on the CPU ``make_train_chunk_fn``'s body.
+
+    Three device loops stay eager: an agent on a mesh of several ranks
+    (``parallel/mesh.py:make_distributed_train_chunk``: the gloo
+    all-reduces are host calls, which a graph cannot hold, and the NCCL
+    path has not run), the host loop (``train/host_loop.py``: host envs
+    step between device calls) and evaluation (``make_evaluate_fn``: each
+    call takes a fresh generator, and it reads one host flag every
+    ``EVAL_EXIT_CHECK_EVERY`` steps)."""
+    if agent.device.type != "cuda":
+        return make_train_chunk_fn(agent, eps_schedule, updates_per_iter,
+                                   iters_per_chunk)
+    iteration = make_train_chunk_fn(agent, eps_schedule, updates_per_iter, 1)
+    return GraphedStep("train_chunk iteration", iteration, agent,
+                       iters_per_chunk)
+
+
+def make_prepopulate(
+    agent: Agent, iters: int
+) -> Callable[[AgentState], AgentState]:
+    """The compiled ``prepopulate`` (``dtqn_tpu/train/loop.py:205``): on the
+    card one random-action ``env_step`` captured as a CUDA graph and
+    replayed ``iters`` times; on the CPU ``make_prepopulate_fn``'s body."""
+    if agent.device.type != "cuda":
+        return make_prepopulate_fn(agent, iters)
+    return GraphedStep("prepopulation step", make_prepopulate_fn(agent, 1),
+                       agent, iters)
 
 
 def make_evaluate_fn(

@@ -8,7 +8,11 @@ and the mini-checkpoint completion sentinel.
 
 The host does config, logging and checkpoint I/O, and reads device values
 only at chunk boundaries; each chunk of ``eval_frequency`` env steps is one
-call of the train loop (train/loop.py).
+call of the train loop (train/loop.py).  On the card the prepopulation and
+every chunk go through the compiled entry points (``make_prepopulate``,
+``make_train_chunk``: one iteration captured as a CUDA graph and replayed);
+a resumed run loads its checkpoint into the state's own tensors and
+captures after loading.  The mesh path and evaluation stay eager.
 
 ``--dp-devices N`` trains one run sharded over N ranks, one process each
 (``parallel/``).  Outside a process group the runner starts the N ranks
@@ -49,8 +53,8 @@ from dtqn_tpu_torch.parallel.mesh import (
 )
 from dtqn_tpu_torch.train.loop import (
     make_evaluate_fn,
-    make_prepopulate_fn,
-    make_train_chunk_fn,
+    make_prepopulate,
+    make_train_chunk,
 )
 from dtqn_tpu_torch.utils import checkpoint as ckpt
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
@@ -257,7 +261,7 @@ def run_experiment(config: ExperimentConfig) -> dict:
     else:
         # Prepopulate the replay buffer with random experience (run.py:495).
         prepop_iters = max(config.prepop_steps // config.num_envs, 1)
-        state = make_prepopulate_fn(agent, prepop_iters)(state)
+        state = make_prepopulate(agent, prepop_iters)(state)
 
     logger = get_logger(policy_path, config, wandb_kwargs) if lead else None
     # wandb run id rides the mini checkpoint so resume can reattach with
@@ -276,7 +280,7 @@ def run_experiment(config: ExperimentConfig) -> dict:
             state,
         )
     else:
-        train_chunk = make_train_chunk_fn(
+        train_chunk = make_train_chunk(
             agent,
             eps,
             config.resolved_updates_per_iter,

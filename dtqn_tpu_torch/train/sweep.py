@@ -34,8 +34,8 @@ from dtqn_tpu_torch.agents import Agent
 from dtqn_tpu_torch.config import ExperimentConfig
 from dtqn_tpu_torch.train.loop import (
     make_evaluate_fn,
-    make_prepopulate_fn,
-    make_train_chunk_fn,
+    make_prepopulate,
+    make_train_chunk,
 )
 from dtqn_tpu_torch.train.runner import build_envs
 from dtqn_tpu_torch.utils import checkpoint as ckpt
@@ -104,9 +104,9 @@ def run_sweep(config: ExperimentConfig, seeds: Sequence[int]) -> dict:
         print(f"Resumed sweep at {int(state.env_steps[0])} steps.")
     else:
         prepop_iters = max(config.prepop_steps // config.num_envs, 1)
-        state = make_prepopulate_fn(agent, prepop_iters)(state)
+        state = make_prepopulate(agent, prepop_iters)(state)
 
-    chunk = make_train_chunk_fn(
+    chunk = make_train_chunk(
         agent,
         eps,
         config.resolved_updates_per_iter,

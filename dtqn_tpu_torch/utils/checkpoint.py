@@ -31,16 +31,15 @@ resume each other's checkpoints.
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
-from typing import Any, Dict, Iterator, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
-from dtqn_tpu_torch.models.stacked import StackedNetwork
 from dtqn_tpu_torch.parallel.mesh import unshard_state
+from dtqn_tpu_torch.utils.tree import leaves as _leaves
 
 _GENERATOR_DEVICE = "generator_device"
 
@@ -56,32 +55,6 @@ def load_mini_checkpoint(path: str) -> Optional[Dict[str, Any]]:
         return None
     with open(mini) as f:
         return json.load(f)
-
-
-def _fields(node: Any) -> Iterator[Tuple[str, Any]]:
-    if isinstance(node, tuple):  # a named tuple: the LSTM carry
-        return iter(node._asdict().items())
-    return ((f.name, getattr(node, f.name)) for f in dataclasses.fields(node))
-
-
-def _leaves(node: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(dotted name, tensor or generator) for every leaf of a tree of
-    dataclasses, named tuples and lists of generators (a stacked state's,
-    one per seed).  Networks are left out: their parameters are views of a
-    leaf; so are the parts a configuration does not have (``None``: no bag,
-    no carry)."""
-    for field, value in _fields(node):
-        name = prefix + field
-        if isinstance(value, (torch.Tensor, torch.Generator)):
-            yield name, value
-        elif isinstance(value, list):
-            for i, generator in enumerate(value):
-                yield f"{name}.{i}", generator
-        elif dataclasses.is_dataclass(value) or isinstance(value, tuple):
-            yield from _leaves(value, name + ".")
-        elif value is not None and not isinstance(
-                value, (nn.Module, StackedNetwork)):
-            raise TypeError(f"cannot checkpoint {name}: {type(value)}")
 
 
 def save_checkpoint(

@@ -7,6 +7,12 @@ activity and, on the card, every CUDA kernel, and writes one Chrome trace
 counterpart of the JAX package's TensorBoard trace.  ``annotate`` names a
 span inside it; ``device_memory_summary`` reports the card's allocator
 statistics.
+
+On the card a chunk replays a CUDA graph (``train/loop.py``:
+``make_train_chunk``), and CUPTI records every kernel of every replay as it
+records eager launches (``chip_smoke.py`` phases 19 and 22 read them); the
+host side of a replayed chunk is one graph launch per iteration, with no
+operator spans: those appear only in the chunk that captures the graph.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ bench line's variants (``dtqn_tpu_torch/bench.py``'s ``"extra"``).
 - the bench's variants run as processes of their own (``subprocess.Popen``
   replaced here: no real bench process runs in the suite): their command
   lines carry ``--no-extras`` and the device, a failing or stalled child
-  reports an error string, and ``--no-extras`` runs none.
+  reports an error string, and ``--no-extras`` runs none;
+- ``python -m dtqn_tpu_torch.compare_curves``: two results CSVs' means by
+  window of env steps and over their last rows.
 """
 
 import io
@@ -18,7 +20,7 @@ import sys
 import pytest
 import torch
 
-from dtqn_tpu_torch import bench, sweep_checkpoint
+from dtqn_tpu_torch import bench, compare_curves, sweep_checkpoint
 from dtqn_tpu_torch.config import get_args
 from dtqn_tpu_torch.train.sweep import run_sweep, sweep_path
 from dtqn_tpu_torch.utils import checkpoint as ckpt
@@ -153,3 +155,40 @@ def test_stalled_variant_is_terminated_never_killed(monkeypatch):
     out = bench._run_extra(["child"], soft_deadline_s=0.0)
     assert child.terminated
     assert out == "error: soft-timeout (child SIGTERMed after deadline)"
+
+
+def results_csv(path, env, rows):
+    """A results CSV as ``utils/logging.py`` writes it: (step, return,
+    length, success) per evaluation."""
+    lines = [f"Hours,Step,{env}/SuccessRate,{env}/EpisodeLength,"
+             f"{env}/Return"]
+    lines += [f"0.1,{step},{sr},{length},{ret}"
+              for step, ret, length, sr in rows]
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def test_compare_curves_means_by_window_and_last_rows(tmp_path, capsys):
+    run = results_csv(tmp_path / "run.csv", "Memory-5-v0", [
+        (100, -40.0, 50.0, 0.0), (200, -30.0, 40.0, 1.0),
+        (300, -20.0, 30.0, 1.0)])
+    ref = results_csv(tmp_path / "ref.csv", "Memory-5-v0", [
+        (150, -44.0, 50.0, 0.0), (250, -26.0, 36.0, 1.0),
+        (350, -10.0, 20.0, 1.0), (450, 0.0, 10.0, 1.0)])
+    out = compare_curves.main([run, ref, "--window", "200", "--last", "2"])
+    labels = [label for label, _, _ in out]
+    assert labels == ["(0, 200]", "(200, 300]", "last 2 up to 300"]
+    (_, run_a, ref_a), (_, run_b, ref_b), (_, run_last, ref_last) = out
+    assert run_a == {"rows": 2, "Return": -35.0, "EpisodeLength": 45.0,
+                     "SuccessRate": 0.5}
+    assert ref_a == {"rows": 1, "Return": -44.0, "EpisodeLength": 50.0,
+                     "SuccessRate": 0.0}
+    assert run_b["rows"] == 1 and ref_b["Return"] == -26.0
+    assert run_last["Return"] == -25.0 and ref_last["Return"] == -35.0
+    assert len(capsys.readouterr().out.splitlines()) == 3
+
+
+def test_compare_curves_refuses_an_empty_file(tmp_path):
+    empty = results_csv(tmp_path / "empty.csv", "Memory-5-v0", [])
+    with pytest.raises(ValueError, match="no evaluation"):
+        compare_curves.load(empty)
