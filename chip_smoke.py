@@ -30,9 +30,19 @@ Phases (any failure exits non-zero and prints no result):
   7. discrete observations: Memory-5-v0, DTQN in_embed 128 (head width
      16), 64 envs: prepopulation, one train iteration of 64 updates, one
      evaluation; launch counts, updates, card Q against CPU Q;
-  8. evaluation alone: seconds and device operations per evaluation, with
-     the early-exit read every 10 steps (the default), every step and
-     never, all giving the same numbers;
+  8. evaluation alone: the main path's network evaluated eager
+     (``make_evaluate_fn``) and graphed (``make_evaluate``: a reset and
+     blocks of env steps replayed as CUDA graphs) in turns (eager,
+     graphed, graphed, eager), results, launches by shape and generators'
+     end states bit-equal (``evaluation_turns``; the bag of 25, DRQN on
+     Memory-5 and 5 stacked seeds likewise in phases 9, 11 and 16), the
+     captures' seconds and the graph pool's bytes; the graphed evaluation
+     with the early-exit read every 10 steps (the default), every step and
+     never, all giving the same numbers, each timed and profiled (device
+     operations, busy share); the runner's chunk loop at
+     ``--eval-frequency 5000`` over 5 chunks whose evaluations are graphed,
+     then eager and graphed in turns: env-steps/s with the evaluations and
+     their share of the wall time;
   9. the bag: DTQN-bag on gv_memory.7x7.yaml at in_embed 128 (head width
      16), bag 25, 64 envs, batch 32, buffer 500k: prepopulation, two train
      iterations with every attention launch's shape reckoned from the
@@ -156,8 +166,15 @@ Phases (any failure exits non-zero and prints no result):
      an update's peak memory, one evaluation; one bf16 iteration (every
      launch the tensor-core form, card Q within BF16_Q_ULPS); the runner
      whole, then cut by the time limit and resumed (the loaded state bit
-     for bit the saved one).  Phase 17 also times <8, 1> at the cue task's
-     B=32, Lq = Lk = 8, D=4;
+     for bit the saved one).  The functions are CUDA graphs
+     (``make_host_fns``, ``make_host_eval``): from one saved state and
+     deep-copied host envs the plain bodies and the graphs train two
+     iterations bit-equal in every leaf and launch, then run in turns
+     (eager, graphed, graphed, eager: wall and host ms, env-steps/s) and
+     profiled (device ms, busy share) and clocked part by part each,
+     still bit-equal; the evaluation eager, then graphed twice, equal in
+     results and generator state.  Phase 17 also times <8, 1> at the cue
+     task's B=32, Lq = Lk = 8, D=4;
  22. CUDA graphs: the flagless configuration in float32 and in bf16, the
      bag of 25, DRQN on Memory-5, ImageMaze, dropout 0.1 and 5 stacked
      seeds, each prepopulated through ``make_prepopulate`` and saved, and
@@ -170,15 +187,21 @@ Phases (any failure exits non-zero and prints no result):
      chunk (replays only, the graph reused), held the same way, then eager
      and graphed chunks in turns (host ms, wall ms and env-steps/s per
      iteration) and a graphed chunk profiled (device ms, busy share).
+     After each compared chunk, one evaluation of each state's network,
+     eager and graphed, bit-equal (results, launches, generators); for
+     the flagless paths the second one replays between two graphed
+     chunks, and the chunks after it stay bit-equal to eager ones.
 
-Every phase on the card trains through the compiled entry points of
-``train/loop.py`` (``make_prepopulate``, ``make_train_chunk``: one
-iteration captured as a CUDA graph, then replayed), directly or through
-``run_experiment`` and ``run_sweep``, but phase 20's ranks, the host loop
-and evaluation, which stay eager.  A replay runs no Python, so the greedy
-calls and the launches by shape that the phases reckon are counted through
-``utils.graphs.TRACKED_COUNTERS`` (``install_counters``): a replay adds
-what its capture counted.
+Every phase on the card trains and evaluates through the compiled entry
+points (``train/loop.py``: ``make_prepopulate`` and ``make_train_chunk``,
+one iteration captured as a CUDA graph and replayed; ``make_evaluate``, a
+reset and blocks of env steps; ``train/host_loop.py``: the host loop's
+device halves), directly or through ``run_experiment``,
+``run_host_experiment`` and ``run_sweep``, but phase 20's ranks, which
+train eager (rank 0's evaluation is graphed).  A replay runs no Python,
+so the greedy calls and the launches by shape that the phases reckon are
+counted through ``utils.graphs.TRACKED_COUNTERS`` (``install_counters``):
+a replay adds what its capture counted.
 
 Before the last line it prints the script's total seconds, the card line
 and one ``{"kernels": [...]}`` JSON line (each kernel with its dtype: the
@@ -798,7 +821,7 @@ class Probe:
         from dtqn_tpu_torch.train import runner
 
         make_chunk, make_eval = (runner.make_train_chunk,
-                                 runner.make_evaluate_fn)
+                                 runner.make_evaluate)
         save, real_load = (runner.ckpt.save_checkpoint,
                            runner.ckpt.load_checkpoint)
 
@@ -810,7 +833,7 @@ class Probe:
         with counted_greedy_calls() as self.greedy_calls, \
                 patched(runner, "make_train_chunk",
                         lambda *a: self.clocked("chunk", make_chunk(*a))), \
-                patched(runner, "make_evaluate_fn",
+                patched(runner, "make_evaluate",
                         lambda *a: self.clocked("evaluate", make_eval(*a))), \
                 patched(runner.ckpt, "save_checkpoint",
                         self.clocked("save_checkpoint", save)), \
@@ -1061,7 +1084,7 @@ def discrete_phase(seed, ca):
     from dtqn_tpu_torch.agents import Agent, AgentConfig
     from dtqn_tpu_torch.envs import make_env
     from dtqn_tpu_torch.train.loop import (
-        make_evaluate_fn,
+        make_evaluate,
         make_prepopulate,
         make_train_chunk,
     )
@@ -1093,7 +1116,7 @@ def discrete_phase(seed, ca):
             agent, EpsilonSchedule(1.0, 0.1, 200_000),
             updates_per_iter=updates, iters_per_chunk=1)(state)
         sr, ret, length = (
-            float(x) for x in make_evaluate_fn(agent, env, 10)(
+            float(x) for x in make_evaluate(agent, env, 10)(
                 state.network,
                 torch.Generator(device=DEVICE).manual_seed(seed)))
     launches = dict(ca.launch_counts)
@@ -1332,12 +1355,14 @@ def gradients_repeat(agent, state, what):
 
 
 def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
-          max_episode_steps=None, seeds=None, **kw):
+          max_episode_steps=None, seeds=None, turns=False, **kw):
     """Init, prepopulation and ``iters`` train iterations of 64 updates of
     an agent on the card (by default DTQN-bag at the bag configuration;
     ``kw`` replaces AgentConfig fields) on ``env_name``, or on a list of
     names as the runner combines them, every attention launch held against
-    the reckoning; optionally one 10-episode evaluation (per seed).
+    the reckoning; optionally one 10-episode evaluation (per seed) through
+    ``make_evaluate``, and with ``turns`` its graphed form against the
+    eager one in turns (``evaluation_turns``).
     ``max_episode_steps`` replaces the env's cap, as the CLI's
     ``--max-episode-steps`` does.  With ``seeds``, a stacked state of those
     seeds (the sweep): one launch per forward at the seeds' folded batch."""
@@ -1345,7 +1370,7 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
     from dtqn_tpu_torch.config import ExperimentConfig
     from dtqn_tpu_torch.envs import make_env
     from dtqn_tpu_torch.train.loop import (
-        make_evaluate_fn,
+        make_evaluate,
         make_prepopulate,
         make_train_chunk,
     )
@@ -1431,7 +1456,7 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
         with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
             ca.reset_launch_counts()
             t0 = time.perf_counter()
-            out = make_evaluate_fn(agent, env, 10)(
+            out = make_evaluate(agent, env, 10)(
                 state.network, gens if seeds else gens[0])
             sr, ret, length = (x.reshape(-1).tolist() for x in out)
             result["evaluation_s"] = time.perf_counter() - t0
@@ -1448,6 +1473,9 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
         if not seeds:
             sr, ret, length = sr[0], ret[0], length[0]
         result.update(evaluation=[sr, ret, length], evaluation_steps=steps)
+        if turns:
+            result["evaluation_turns"] = evaluation_turns(
+                ca, agent, env, state.network, seed, seeds, what)
     log(f"{what}: {json.dumps(result)}")
     return result, agent, state, train_iter
 
@@ -1501,7 +1529,8 @@ def bag_phase(seed, ca):
                         "carflag_bag": [(8, 1)] * 2},
           f"bag instances {instances}")
 
-    main, agent, state, _ = drive(seed, ca, GV_ENV, 625, 2, evaluate=True)
+    main, agent, state, _ = drive(seed, ca, GV_ENV, 625, 2, evaluate=True,
+                                  turns=True)
     ops = operations(agent, state, "bag")
     del agent, state
     masked, *_ = drive(seed, ca, GV_ENV, 300, 1, bag_mask=True)
@@ -1592,7 +1621,8 @@ def baselines_phase(seed, ca):
     for model, env_name, width in BASELINES:
         run, agent, state, train_iter = drive(
             seed, ca, env_name, prepop[env_name], 2, evaluate=True,
-            model=model, inner_embed=width, bag_size=0)
+            turns=model == "DRQN", model=model, inner_embed=width,
+            bag_size=0)
         run["operations"] = operations(agent, state, model)
         # ADRQN's iteration is DRQN's plus an action lookup; profiling one
         # of ~200 000 kernels takes ~40 s, so its share comes from the
@@ -1627,14 +1657,77 @@ def baselines_phase(seed, ca):
     return result
 
 
-def evaluation_phase(seed, agent, state):
-    """One 10-episode evaluation of the main path's network: seconds and
-    device operations, reading the early-exit flag every 10 steps (the
-    default), every step and never; the three must agree."""
+EAGER_GRAPHED_TURNS = ("eager", "graphed", "graphed", "eager")
+
+
+def evaluation_turns(ca, agent, env, network, seed, seeds, what):
+    """Ten episodes (per seed) of ``network`` evaluated eager
+    (``make_evaluate_fn``) and graphed (``make_evaluate``) from generators
+    seeded alike: a first graphed call (its captures), then the two in
+    turns (EAGER_GRAPHED_TURNS).  Every call's results, steps, launches by
+    shape (reckoned) and generators' end states bit-equal; the seconds of each
+    call, the captures' seconds and the graph pool's bytes."""
+    from dtqn_tpu_torch.train.loop import make_evaluate, make_evaluate_fn
+
+    evaluators = {"eager": make_evaluate_fn(agent, env, 10),
+                  "graphed": make_evaluate(agent, env, 10)}
+    n = len(seeds) if seeds else 1
+
+    def one(kind):
+        gens = [torch.Generator(device=DEVICE).manual_seed(s + 1)
+                for s in (seeds or [seed])]
+        with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
+            ca.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = evaluators[kind](network, gens if seeds else gens[0])
+            out = [x.reshape(-1).tolist() for x in out]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            seen = (out, calls["calls"], dict(ca.launch_counts), dict(ledger))
+        return seconds, seen, [g.get_state() for g in gens]
+
+    first_s, reference, reference_gens = one("graphed")
+    out, steps, launches, ledger = reference
+    check_ledger(ca, ledger, reckoned_launches(
+        dataclasses.replace(agent.config, num_envs=10 * n), steps, 0),
+        f"{what}, graphed evaluation")
+    times = {"eager": [], "graphed": []}
+    for kind in EAGER_GRAPHED_TURNS:
+        seconds, seen, gens = one(kind)
+        check(seen == reference and all(
+            torch.equal(a, b) for a, b in zip(gens, reference_gens)),
+            f"{what}: the {kind} evaluation (results, steps, launches) "
+            f"{seen[:3]} differs from the first graphed one's "
+            f"{reference[:3]}, or its generators' end states do")
+        times[kind].append(seconds)
+    graphed = evaluators["graphed"]
+    result = {
+        "first_graphed_s": first_s, "eager_s": times["eager"],
+        "graphed_s": times["graphed"],
+        "speedup": sum(times["eager"]) / sum(times["graphed"]),
+        "steps": steps, "result": out, "launches": launches,
+        "captures": {str(k): graph_stats(v) for k, v in
+                     getattr(graphed, "compiled", {}).items()},
+        "pool_bytes": pool_bytes(agent), "bit_equal": True,
+    }
+    log(f"{what}: evaluations eager and graphed in turns: "
+        f"{json.dumps(result)}")
+    return result
+
+
+def evaluation_phase(seed, ca, agent, state):
+    """Phase 8: one 10-episode evaluation of the main path's network, eager
+    and graphed in turns (``evaluation_turns``); the graphed one reading
+    the early-exit flag every 10 steps (the default), every step and never,
+    all giving the same numbers, each timed and profiled; then the runner's
+    chunk loop with its evaluations eager and graphed in turns
+    (``runner_loop_turns``)."""
     from dtqn_tpu_torch.train import loop
 
-    evaluate = loop.make_evaluate_fn(agent, agent.env, 10)
-    result = {}
+    result = {"turns": evaluation_turns(ca, agent, agent.env, state.network,
+                                        seed, None, "evaluation, flagless")}
+    evaluate = loop.make_evaluate(agent, agent.env, 10)
     for every in (loop.EVAL_EXIT_CHECK_EVERY, 1, 0):
 
         def run_once():
@@ -1644,7 +1737,7 @@ def evaluation_phase(seed, agent, state):
 
         with patched(loop, "EVAL_EXIT_CHECK_EVERY", every), \
                 counted_greedy_calls() as calls:
-            run_once()  # warm
+            run_once()  # warm: this block length's captures
             torch.cuda.synchronize()
             calls["calls"] = 0
             t0 = time.perf_counter()
@@ -1653,16 +1746,88 @@ def evaluation_phase(seed, agent, state):
             steps = calls["calls"]
             wall_us, by_name = device_events(run_once)
         ops = sum(n for n, _ in by_name.values())
-        result[f"check_every_{every}"] = {
+        device_us = sum(us for _, us in by_name.values())
+        result[f"graphed_check_every_{every}"] = {
             "seconds": seconds, "steps": steps, "result": out,
             "device_ops": ops, "device_ops_per_step": ops / steps,
-            "device_busy_share_profiled":
-                sum(us for _, us in by_name.values()) / wall_us,
+            "device_us": device_us,
+            "device_busy_share_profiled": device_us / wall_us,
         }
-    outs = [r["result"] for r in result.values()]
-    check(outs[0] == outs[1] == outs[2],
-          f"early exit changed the evaluation: {outs}")
+    outs = [result[f"graphed_check_every_{every}"]["result"]
+            for every in (loop.EVAL_EXIT_CHECK_EVERY, 1, 0)]
+    turns = [x for xs in result["turns"]["result"] for x in xs]
+    check(outs[0] == outs[1] == outs[2] == turns,
+          f"early exit changed the evaluation: {outs}, {turns}")
+    result["runner_loop"] = runner_loop_turns(seed)
     log(f"evaluation alone: {json.dumps(result)}")
+    return result
+
+
+# The runner's chunk loop at the CLI's default --eval-frequency 5000 (78
+# iterations of 64 env steps a chunk), one evaluation after each chunk:
+# graphed (its captures), then in turns.
+LOOP_EVALS = ("graphed",) + EAGER_GRAPHED_TURNS
+
+
+def runner_loop_turns(seed):
+    """``run_experiment`` at the flagless configuration and the default
+    --eval-frequency 5000 over len(LOOP_EVALS) chunks, each followed by an
+    evaluation that is eager (``make_evaluate_fn``) or graphed
+    (``make_evaluate``) in the order of LOOP_EVALS: per kind, the chunks'
+    and the evaluations' seconds, the env-steps/s of a chunk with its
+    evaluation, and the evaluations' share of that wall time."""
+    from dtqn_tpu_torch.train import runner
+    from dtqn_tpu_torch.train.loop import make_evaluate, make_evaluate_fn
+
+    cfg = runner_config(seed, eval_frequency=5000,
+                        num_steps=len(LOOP_EVALS) * (5000 // 64) * 64,
+                        save_policy=False)
+    chunk_env_steps = cfg.resolved_iters_per_chunk * cfg.num_envs
+    seconds = {"chunk": [], "evaluate": []}
+    make_chunk = runner.make_train_chunk
+
+    def clocked(kind, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if kind == "evaluate":
+                out = [float(x) for x in out]
+            torch.cuda.synchronize()
+            seconds[kind].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def alternating(agent, env, n):
+        evaluators = {"eager": make_evaluate_fn(agent, env, n),
+                      "graphed": make_evaluate(agent, env, n)}
+        order = iter(LOOP_EVALS)
+        return clocked("evaluate", lambda network, generator: evaluators[
+            next(order)](network, generator))
+
+    with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
+            patched(runner, "make_train_chunk",
+                    lambda *a: clocked("chunk", make_chunk(*a))), \
+            patched(runner, "make_evaluate", alternating):
+        final = runner.run_experiment(cfg)
+    check(len(seconds["chunk"]) == len(seconds["evaluate"]) == len(LOOP_EVALS),
+          f"runner loop: chunks and evaluations {seconds}")
+    check(all(math.isfinite(v) for v in final.values()),
+          f"runner loop: final log not finite: {final}")
+    per = {"eager": [], "graphed": []}
+    for i, kind in enumerate(LOOP_EVALS):
+        if i:  # the first, graphed, evaluation captures
+            per[kind].append((seconds["chunk"][i], seconds["evaluate"][i]))
+    result = {"chunk_env_steps": chunk_env_steps, "order": LOOP_EVALS,
+              "chunk_s": seconds["chunk"], "evaluation_s": seconds["evaluate"]}
+    for kind, pairs in per.items():
+        wall = sum(c + e for c, e in pairs)
+        result[kind] = {
+            "env_steps_per_s_with_evaluation":
+                chunk_env_steps * len(pairs) / wall,
+            "evaluation_share_of_wall": sum(e for _, e in pairs) / wall,
+        }
+    log(f"runner chunk loop, evaluations in turns: {json.dumps(result)}")
     return result
 
 
@@ -1874,7 +2039,7 @@ def multi_phase(seed, ca):
     evaluation on each domain's own padded env.  Returns the result and the
     (agent, state) for the updates timed in turns."""
     from dtqn_tpu_torch.config import ExperimentConfig
-    from dtqn_tpu_torch.train.loop import make_evaluate_fn
+    from dtqn_tpu_torch.train.loop import make_evaluate
     from dtqn_tpu_torch.train.runner import build_envs
 
     run, agent, state, _ = drive(seed, ca, FOUR_ROOMS, 260, 2, model="DTQN",
@@ -1889,7 +2054,7 @@ def multi_phase(seed, ca):
         with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
             ca.reset_launch_counts()
             sr, ret, length = (
-                float(x) for x in make_evaluate_fn(agent, env, 10)(
+                float(x) for x in make_evaluate(agent, env, 10)(
                     state.network,
                     torch.Generator(device=DEVICE).manual_seed(seed + i)))
             steps = calls["calls"]
@@ -2120,7 +2285,7 @@ def sweep_phase(seed, ca, flagless):
     one_agent, one_state, one_iter = flagless
     run, agent, state, train_iter = drive(
         seed, ca, "DiscreteCarFlag-v0", 210, 2, evaluate=True, seeds=seeds,
-        model="DTQN", inner_embed=64, bag_size=0)
+        turns=True, model="DTQN", inner_embed=64, bag_size=0)
     result = {"flagless": run}
     runs = {1: (one_agent, one_state), SWEEP_SEEDS: (agent, state)}
     result["update_kernels_in_turns"] = sweep_kernels_in_turns(ca, runs)
@@ -3140,16 +3305,31 @@ def host_cue_phase(seed, ca):
     return result
 
 
+HOST_COMPARED = 2  # iterations compared leaf by leaf before the turns
+
+
 def host_drive(seed, ca, bf16=False):
-    """The host loop's functions at full width on the glyph room:
-    init from the host envs' reset, GLYPH_PREPOP_ITERS random iterations,
-    then (float32) an iteration clocked part by part (HostProbe), one timed
-    whole and one profiled, or (bf16) one iteration to warm up and one
-    timed; every attention launch reckoned and held; card Q against CPU Q;
-    gradients repeating; one evaluation (float32)."""
+    """The host loop's functions at full width on the glyph room: init from
+    the host envs' reset, GLYPH_PREPOP_ITERS random iterations (graphed);
+    then, in float32, the state saved and loaded into a second one and the
+    host envs deep-copied, and HOST_COMPARED iterations of the plain bodies
+    (``make_host_bodies``) on the copy and of the graphed functions
+    (``make_host_fns``) on the saved state, every leaf and launch bit-equal
+    after each; the two in turns (eager, graphed, graphed, eager: wall and
+    host ms per iteration, env-steps/s), one profiled iteration of each
+    (device ms, operations, busy share) and one clocked part by part
+    (HostProbe), the leaves still equal after them; the captures' seconds
+    and the graph pool's bytes; card Q against CPU Q; gradients repeating;
+    an update's peak memory; one evaluation eager, then two graphed
+    (captures, replays): results and generators' end states equal.  In
+    bf16, one iteration to warm up and one timed.  Every attention launch
+    reckoned and held."""
+    import copy
+
     from dtqn_tpu_torch.agents import Agent
     from dtqn_tpu_torch.envs.host import HostVecEnv
     from dtqn_tpu_torch.train import host_loop as hl
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
     from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 
     _, GlyphRoomHost = host_env_classes()
@@ -3162,8 +3342,8 @@ def host_drive(seed, ca, bf16=False):
     vec = HostVecEnv(envs)
     agent = Agent(acfg, vec.meta, device=DEVICE)
     updates = cfg.resolved_updates_per_iter
-    act, act_random, observe_only, observe_and_learn = hl.make_host_fns(
-        agent, EpsilonSchedule(1.0, 0.1, 200_000), updates)
+    eps = EpsilonSchedule(1.0, 0.1, 200_000)
+    fns = hl.make_host_fns(agent, eps, updates)
     result = {}
 
     with launch_ledger(ca) as ledger:
@@ -3171,7 +3351,8 @@ def host_drive(seed, ca, bf16=False):
         t0 = time.perf_counter()
         state = agent.init_state(seed, vec.reset_all())
         for _ in range(GLYPH_PREPOP_ITERS):
-            hl.host_iteration(vec, state, act_random, observe_only)
+            hl.host_iteration(vec, state, fns.act_random, fns.observe_only,
+                              fns.inputs)
         torch.cuda.synchronize()
         result["init_and_prepopulate_s"] = time.perf_counter() - t0
         check(not ledger, f"{what}: the prepopulation launched "
@@ -3182,51 +3363,120 @@ def host_drive(seed, ca, bf16=False):
           and tuple(state.obs.shape) == (cfg.num_envs, 81),
           f"{what}: observations {state.obs.dtype} {tuple(state.obs.shape)}")
 
-    def one_iteration():
-        hl.host_iteration(vec, state, act, observe_and_learn)
-
-    iters = 2 if bf16 else 3
-    with launch_ledger(ca) as ledger:
-        ca.reset_launch_counts()
-        if bf16:
-            one_iteration()  # the first bf16 iteration warms up
-        else:
-            with HostProbe().attached(hl, vec) as probe:
+    if bf16:
+        with launch_ledger(ca) as ledger:
+            ca.reset_launch_counts()
+            for _ in range(2):  # the first warms up (captures)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                one_iteration()
+                hl.host_iteration(vec, state, fns.act, fns.observe_and_learn,
+                                  fns.inputs)
                 torch.cuda.synchronize()
-                probed_ms = 1e3 * (time.perf_counter() - t0)
-            result["probed_iteration"] = {
-                "wall_ms": probed_ms, "host_ms": probe.ms,
-                "copies": probe.copies, "bytes": probe.bytes}
+            t_iter = time.perf_counter() - t0
+            result.update(iteration_s=t_iter,
+                          env_steps_per_s=cfg.num_envs / t_iter,
+                          launches=dict(ca.launch_counts),
+                          launches_by_shape=check_ledger(
+                              ca, ledger, reckoned_launches(acfg, 2,
+                                                            2 * updates),
+                              f"{what}, 2 iterations"))
+            check_mma(ledger, what)
+        check(int(state.train_steps) == 2 * updates,
+              f"{what}: train_steps {int(state.train_steps)}")
+        check(int(state.nonfinite_grads) == 0, f"{what}: non-finite "
+                                               "gradients")
+        result["q_vs_cpu"] = q_card_vs_cpu(agent, state, what)
+        log(f"{what}: {json.dumps(result)}")
+        return result
+
+    # The eager run goes on from the saved state, on host envs in the
+    # graphed run's state.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "saved")
+        ckpt.save_checkpoint(path, state)
+        eager, _ = ckpt.load_checkpoint(
+            path, agent.init_state(seed, state.obs.cpu()))
+    runs = {"eager": (eager, copy.deepcopy(vec),
+                      hl.make_host_bodies(agent, eps, updates)),
+            "graphed": (state, vec, fns)}
+
+    def iterate(kind):
+        st, v, f = runs[kind]
+        hl.host_iteration(v, st, f.act, f.observe_and_learn, f.inputs)
+
+    def same(when):
+        differ = differing_leaves(eager, state)
+        check(not differ, f"{what}, {when}: the graphed state's leaves "
+                          f"differ from the eager one's: {differ}")
+
+    for i in range(HOST_COMPARED):
+        seen = {}
+        for kind in runs:
+            with launch_ledger(ca) as ledger:
+                ca.reset_launch_counts()
+                iterate(kind)
+                seen[kind] = (dict(ca.launch_counts), check_ledger(
+                    ca, ledger, reckoned_launches(acfg, 1, updates),
+                    f"{what}, {kind} iteration {i + 1}"))
+        same(f"iteration {i + 1}")
+        check(seen["eager"] == seen["graphed"],
+              f"{what}, iteration {i + 1}: launches eager "
+              f"{seen['eager']}, graphed {seen['graphed']}")
+    result["launches"] = {k: HOST_COMPARED * n
+                          for k, n in seen["graphed"][0].items()}
+    result["launches_by_shape_per_iteration"] = seen["graphed"][1]
+
+    def timed(kind):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        one_iteration()
+        iterate(kind)
+        host = time.perf_counter() - t0
         torch.cuda.synchronize()
-        t_iter = time.perf_counter() - t0
-        result.update(iteration_s=t_iter,
-                      env_steps_per_s=cfg.num_envs / t_iter)
-        if not bf16:
-            wall_us, by_name = device_events(one_iteration)
-            device_us = sum(us for _, us in by_name.values())
-            ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-            result["profiled_iteration"] = {
-                "wall_us": wall_us, "device_us": device_us,
-                "device_ops": sum(n for n, _ in by_name.values()),
-                "device_ops_per_update": sum(
-                    n for n, _ in by_name.values()) / updates,
-                "device_busy_share": device_us / wall_us,
-                "top_kernels": [{"name": name[:80], "count": n,
-                                 "device_us": us}
-                                for name, (n, us) in ranked],
-            }
-        result["launches"] = dict(ca.launch_counts)
-        result["launches_by_shape"] = check_ledger(
-            ca, ledger, reckoned_launches(acfg, iters, iters * updates),
-            f"{what}, {iters} iterations")
-        if bf16:
-            check_mma(ledger, what)
+        return host, time.perf_counter() - t0
+
+    times = {"eager": [], "graphed": []}
+    for kind in EAGER_GRAPHED_TURNS:
+        times[kind].append(timed(kind))
+    turns = {kind: {"wall_ms": [1e3 * w for _, w in v],
+                    "host_ms": [1e3 * h for h, _ in v],
+                    "env_steps_per_s": [cfg.num_envs / w for _, w in v]}
+             for kind, v in times.items()}
+    for kind, (_, v, _) in runs.items():
+        wall_us, by_name = device_events(lambda: iterate(kind))
+        device_us = sum(us for _, us in by_name.values())
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        turns[kind]["profiled_iteration"] = {
+            "wall_us": wall_us, "device_us": device_us,
+            "device_ops": sum(n for n, _ in by_name.values()),
+            "device_ops_per_update": sum(
+                n for n, _ in by_name.values()) / updates,
+            "device_busy_share": device_us / wall_us,
+            "top_kernels": [{"name": name[:80], "count": n,
+                             "device_us": us}
+                            for name, (n, us) in ranked],
+        }
+        with HostProbe().attached(hl, v) as probe:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iterate(kind)
+            torch.cuda.synchronize()
+            turns[kind]["probed_iteration"] = {
+                "wall_ms": 1e3 * (time.perf_counter() - t0),
+                "host_ms": probe.ms, "copies": probe.copies,
+                "bytes": probe.bytes}
+    same("the turns, a profiled and a probed iteration")
+    for kind in turns:
+        turns[kind]["mean_env_steps_per_s"] = (
+            sum(turns[kind]["env_steps_per_s"]) / 2)
+    turns["speedup"] = (turns["graphed"]["mean_env_steps_per_s"]
+                        / turns["eager"]["mean_env_steps_per_s"])
+    result["in_turns"] = turns
+    result["graphs"] = {name: graph_stats(getattr(fns, name).graph)
+                        for name in ("act", "act_random", "observe_only",
+                                     "observe_and_learn")}
+    result["pool_bytes"] = pool_bytes(agent)
+    log(f"{what}: eager and graphed in turns: {json.dumps(turns)}")
+    iters = HOST_COMPARED + len(EAGER_GRAPHED_TURNS) // 2 + 2
     applied = int(state.train_steps)
     check(applied == iters * updates, f"{what}: train_steps {applied}")
     check(int(state.nonfinite_grads) == 0, f"{what}: non-finite gradients")
@@ -3236,35 +3486,58 @@ def host_drive(seed, ca, bf16=False):
     check(all(map(math.isfinite, diags.values())),
           f"{what}: diagnostics not finite: {diags}")
     result["q_vs_cpu"] = q_card_vs_cpu(agent, state, what)
-    if bf16:
-        log(f"{what}: {json.dumps(result)}")
-        return result
-
     result["parameters_with_repeating_gradients"] = gradients_repeat(
         agent, state, what)
     torch.cuda.reset_peak_memory_stats()
     agent.learn(state)
     torch.cuda.synchronize()
     result["update_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
-        ca.reset_launch_counts()
-        t0 = time.perf_counter()
-        seeds = iter(range(seed, seed + 10))
-        sr, ret, length = hl.evaluate_host(
-            agent, state.network, lambda: GlyphRoomHost(next(seeds)), 10,
-            torch.Generator(device=DEVICE).manual_seed(seed + 1))
-        result["evaluation_s"] = time.perf_counter() - t0
-        steps = calls["calls"]
-        result["launches_evaluation"] = check_ledger(
-            ca, ledger, host_reckoned(acfg, 0, 0, steps),
-            f"{what}, evaluation")
+
+    eval_fns = {"eager": hl.make_host_eval_bodies(agent, vec.meta, 10),
+                "graphed": hl.make_host_eval(agent, vec.meta, 10)}
+    evaluations = {}
+    for kind in ("eager", "graphed", "graphed"):
+        with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
+            ca.reset_launch_counts()
+            gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+            seeds = iter(range(seed, seed + 10))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [float(x) for x in hl.evaluate_host(
+                agent, state.network, lambda: GlyphRoomHost(next(seeds)), 10,
+                gen, eval_fns[kind])]
+            seconds = time.perf_counter() - t0
+            steps = calls["calls"]
+            launches = check_ledger(ca, ledger,
+                                    host_reckoned(acfg, 0, 0, steps),
+                                    f"{what}, {kind} evaluation")
+        evaluations.setdefault(kind, []).append(
+            {"seconds": seconds, "steps": steps, "result": out,
+             "launches": launches, "generator": gen.get_state()})
+    first = evaluations["eager"][0]
+    for e in evaluations["graphed"]:
+        check(e["result"] == first["result"] and e["steps"] == first["steps"]
+              and e["launches"] == first["launches"]
+              and torch.equal(e["generator"], first["generator"]),
+              f"{what}: a graphed evaluation {e['result']} in {e['steps']} "
+              f"steps differs from the eager one, {first['result']} in "
+              f"{first['steps']} steps, or its generator's end state does")
+    sr, ret, length = first["result"]
+    steps = first["steps"]
     check(1 <= steps <= GLYPH_CAP and 0.0 <= sr <= 1.0
           and 1.0 <= length <= GLYPH_CAP and 0.0 <= ret <= 1.0,
           f"{what}: evaluation out of range: {sr}, {ret}, {length}, "
           f"{steps} steps")
-    result.update(evaluation=[float(sr), float(ret), float(length)],
-                  evaluation_steps=steps, flushed_episodes=flushed,
-                  diagnostics=diags)
+    result.update(
+        evaluation=first["result"], evaluation_steps=steps,
+        launches_evaluation=first["launches"],
+        evaluation_s={kind: [e["seconds"] for e in v]
+                      for kind, v in evaluations.items()},
+        evaluation_graphs={name: graph_stats(getattr(
+            eval_fns["graphed"], name).graph)
+            for name in ("eval_init", "greedy", "eval_observe")},
+        pool_bytes_after_evaluation=pool_bytes(agent),
+        flushed_episodes=flushed, diagnostics=diags)
     log(f"{what}: {json.dumps(result)}")
     return result
 
@@ -3461,6 +3734,8 @@ def graphed_path(seed, ca, name, env_name, kw, prepop_iters, seeds):
     from dtqn_tpu_torch.agents import Agent, AgentConfig
     from dtqn_tpu_torch.envs import make_env
     from dtqn_tpu_torch.train.loop import (
+        make_evaluate,
+        make_evaluate_fn,
         make_prepopulate,
         make_train_chunk,
         make_train_chunk_fn,
@@ -3508,6 +3783,8 @@ def graphed_path(seed, ca, name, env_name, kw, prepop_iters, seeds):
                                                    GRAPH_ITERS)),
               "graphed": (graphed, make_train_chunk(agent, eps, updates,
                                                     GRAPH_ITERS))}
+    evaluators = {"eager": (eager, make_evaluate_fn(agent, agent.env, 10)),
+                  "graphed": (graphed, make_evaluate(agent, agent.env, 10))}
     rounds = []
     for r in range(2 if name in GRAPH_TIMED else 1):
         seen = {}
@@ -3529,7 +3806,10 @@ def graphed_path(seed, ca, name, env_name, kw, prepop_iters, seeds):
         rounds.append({"eager_s": seen["eager"][0][1],
                        "graphed_s": seen["graphed"][0][1],
                        "launches": {k: v for k, v in seen["graphed"][1].items()
-                                    if v}})
+                                    if v},
+                       "evaluation": evaluations_equal(
+                           ca, evaluators, seeds or seed,
+                           f"{what}, after chunk {r + 1}")})
     captures = getattr(chunks["graphed"][1], "captures", 1)
     check(captures == 1, f"{what}: {captures} captures of one state's "
                          "iteration: its graph was not reused")
@@ -3547,12 +3827,44 @@ def graphed_path(seed, ca, name, env_name, kw, prepop_iters, seeds):
         result["in_turns"] = graph_turns(
             chunks, n * cfg.num_envs, what,
             {kind: seen[kind][0] for kind in chunks})
+        # The second evaluation replayed between the second round's chunks
+        # and these: they are bit-equal still.
+        differ = differing_leaves(eager, graphed)
+        check(not differ, f"{what}: after an evaluation's replay between "
+                          f"graphed chunks, the leaves differ: {differ}")
         state, chunk = chunks["graphed"]
         result["profile"] = profile_iteration(
             state, chunk, updates=GRAPH_ITERS * updates,
             what=f"{what}, a graphed chunk of {GRAPH_ITERS} iterations")
     log(f"{what}: {json.dumps(result)}")
     return result
+
+
+def evaluations_equal(ca, evaluators, seed, what):
+    """One 10-episode evaluation (per seed) of each state's network,
+    {kind: (state, evaluator)}, from generators seeded alike: results,
+    steps, launches by shape and the generators' end states bit-equal."""
+    seen = {}
+    for kind, (state, evaluate) in evaluators.items():
+        gens = [torch.Generator(device=DEVICE).manual_seed(s + 7)
+                for s in (seed if isinstance(seed, list) else [seed])]
+        with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
+            ca.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = evaluate(state.network,
+                           gens if isinstance(seed, list) else gens[0])
+            out = [x.reshape(-1).tolist() for x in out]
+            seconds = time.perf_counter() - t0
+            seen[kind] = ((out, calls["calls"], dict(ca.launch_counts),
+                           dict(ledger)), [g.get_state() for g in gens],
+                          seconds)
+    (a, gens_a, _), (b, gens_b, _) = seen["eager"], seen["graphed"]
+    check(a == b and all(torch.equal(x, y) for x, y in zip(gens_a, gens_b)),
+          f"{what}: the graphed evaluation {b[:3]} differs from the eager "
+          f"one {a[:3]}, or its generators' end states do")
+    return {"result": a[0], "steps": a[1], "launches": a[2],
+            "bit_equal": True, "eager_s": seen["eager"][2],
+            "graphed_s": seen["graphed"][2]}
 
 
 def timed_call(chunk, state):
@@ -3653,7 +3965,7 @@ def run(seed):
     mark("resume")
     discrete = discrete_phase(seed, ca)
     mark("discrete")
-    evaluation = evaluation_phase(seed, agent, state)
+    evaluation = evaluation_phase(seed, ca, agent, state)
     mark("evaluation")
     bag = bag_phase(seed, ca)
     mark("bag")
@@ -3726,6 +4038,8 @@ def run(seed):
                 for rank in dp["turns"][1]],
             "launches_graphed_per_iteration": graphed["flagless"]["rounds"][
                 -1]["launches"][name] // GRAPH_ITERS,
+            "launches_graphed_evaluation": evaluation["turns"]["launches"][
+                name],
             "max_abs_err": errs[name],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -3766,6 +4080,9 @@ def run(seed):
                 host["glyph_bf16"]["launches"][f"{name}_bf16"],
             "launches_graphed_per_iteration": graphed["flagless bf16"][
                 "rounds"][-1]["launches"][f"{name}_bf16"] // GRAPH_ITERS,
+            "launches_graphed_evaluation": graphed["flagless bf16"][
+                "rounds"][-1]["evaluation"]["launches"].get(
+                    f"{name}_bf16", 0),
             "max_abs_err": bf16["parity"]["picked"][name],
             "max_abs_err_lanes": bf16["parity"]["lanes"][name],
             "ms": t["ms"],

@@ -15,18 +15,28 @@ host-to-device copy of each array of the step (``step_to_device``).  The
 host reads no other device value inside an iteration; ``env_steps`` and
 ``nonfinite_grads`` are read once per chunk, as in the JAX package.
 
+The JAX package jits the device halves between those copies
+(``make_host_fns``, ``make_host_eval``).  On the card the port captures
+each as a CUDA graph (``compiled_host_fns``, ``compiled_host_eval``) over
+static buffers: the host's arrays are copied into them through pinned
+staging buffers before a replay (``StagedInputs``), and the actions leave
+the act graph in a buffer that ``actions_to_host`` copies after it.  An
+iteration then runs two graph replays and the host step.  On the CPU the
+functions are the plain bodies.
+
 Evaluation runs ``eval_episodes`` host envs with greedy device acting
 (run.py:187-243; success = is_success flag or positive return).  As the
-JAX package's host evaluation, and unlike ``train/loop.make_evaluate_fn``,
+JAX package's host evaluation, and unlike ``train/loop.make_evaluate``,
 the contexts of finished episodes keep rolling (their metrics are frozen
 on the host), and the host reads its own ``finished`` flags every step.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,11 +50,43 @@ from dtqn_tpu_torch.models import zero_carry
 from dtqn_tpu_torch.utils import checkpoint as ckpt
 from dtqn_tpu_torch.utils.device import resolve_device
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+from dtqn_tpu_torch.utils.graphs import (
+    GraphedStep,
+    copy_states,
+    fresh_buffers,
+    own_generators,
+    write_back,
+)
 from dtqn_tpu_torch.utils.logging import get_logger, timestamp
 from dtqn_tpu_torch.utils.rng import seed_everything
+from dtqn_tpu_torch.utils.tree import leaves
 
 # The arrays of a host step that the device's observe/reset path takes.
 STEP_KEYS = ("next_obs", "reward", "terminated", "done", "reset_obs")
+
+
+class StagedInputs:
+    """Static device buffers, by name, that host arrays are copied into
+    through pinned host buffers of their own: the inputs that a graph of
+    the host loop reads, filled before its replay.  A copy does not wait
+    for the card; the loops that load read a device value (the actions)
+    between two loads of one name, so a pinned buffer is rewritten only
+    after the copy out of it has run.  On the CPU the copy is direct."""
+
+    def __init__(self, specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+                 device):
+        self.buffers = {name: torch.empty(shape, dtype=dtype, device=device)
+                        for name, (shape, dtype) in specs.items()}
+        self.staging = (
+            {name: torch.empty(shape, dtype=dtype, pin_memory=True)
+             for name, (shape, dtype) in specs.items()}
+            if torch.device(device).type == "cuda" else None)
+
+    def load(self, name: str, array) -> torch.Tensor:
+        host = torch.as_tensor(array)
+        if self.staging is not None:
+            host = self.staging[name].copy_(host)
+        return self.buffers[name].copy_(host, non_blocking=True)
 
 
 def actions_to_host(actions: torch.Tensor) -> np.ndarray:
@@ -52,14 +94,56 @@ def actions_to_host(actions: torch.Tensor) -> np.ndarray:
     return actions.cpu().numpy()
 
 
-def step_to_device(out: Dict[str, np.ndarray], device) -> List[torch.Tensor]:
+def to_device(array, device, inputs: Optional[StagedInputs] = None,
+              name: Optional[str] = None) -> torch.Tensor:
+    """One host-to-device copy: into the static buffer ``name`` of
+    ``inputs`` where given, else into a new tensor."""
+    if inputs is None:
+        return torch.as_tensor(array, device=device)
+    return inputs.load(name, array)
+
+
+def step_to_device(out: Dict[str, np.ndarray], device,
+                   inputs: Optional[StagedInputs] = None
+                   ) -> List[torch.Tensor]:
     """The host-to-device copies of an iteration: each of ``STEP_KEYS``'s
-    arrays of the host step ``out``."""
-    return [torch.as_tensor(out[k], device=device) for k in STEP_KEYS]
+    arrays of the host step ``out`` (into ``inputs``' buffers where
+    given)."""
+    return [to_device(out[k], device, inputs, k) for k in STEP_KEYS]
 
 
-def make_host_fns(agent: Agent, eps: EpsilonSchedule, updates_per_iter: int):
-    """The device halves of the host loop: ``act(state)`` and
+def _compile(agent: Agent, name: str, step, graphed: bool):
+    """``step`` as a CUDA graph (``GraphedStep``), or written back."""
+    return GraphedStep(name, step, agent, 1) if graphed else write_back(step)
+
+
+def _load(target, given) -> None:
+    """Copies ``given`` (a tensor or a tree of them) into ``target``, the
+    buffer it stands for, unless it is that buffer."""
+    if given is target:
+        return
+    if isinstance(target, torch.Tensor):
+        target.copy_(given)
+        return
+    for (_, t), (_, g) in zip(leaves(target), leaves(given), strict=True):
+        t.copy_(g)
+
+
+class HostFns(NamedTuple):
+    """The device halves of the host loop (``make_host_fns``), and the
+    static buffers that ``step_to_device`` fills for them (None for the
+    plain bodies, which take new tensors)."""
+
+    act: Callable
+    act_random: Callable
+    observe_only: Callable
+    observe_and_learn: Callable
+    inputs: Optional[StagedInputs] = None
+
+
+def make_host_bodies(agent: Agent, eps: EpsilonSchedule,
+                     updates_per_iter: int) -> HostFns:
+    """The plain device halves of the host loop: ``act(state)`` and
     ``act_random(state)`` return actions [E]; ``observe_only(state,
     actions, *step)`` and ``observe_and_learn(state, actions, *step)``
     (``step``: the device arrays of ``STEP_KEYS``) store the step.  All
@@ -91,24 +175,125 @@ def make_host_fns(agent: Agent, eps: EpsilonSchedule, updates_per_iter: int):
         state.env_steps = state.env_steps + cfg.num_envs
         return state
 
-    return act, act_random, observe_only, observe_and_learn
+    return HostFns(act, act_random, observe_only, observe_and_learn)
 
 
-def host_iteration(vec: HostVecEnv, state: AgentState, act_fn, update_fn):
+@dataclasses.dataclass
+class HostIO:
+    """What the graphs of the host loop's training halves read and write:
+    the agent's state, the actions [E] and a host step's arrays
+    (``STEP_KEYS``), the last six static buffers."""
+
+    state: Any
+    actions: torch.Tensor
+    next_obs: torch.Tensor
+    reward: torch.Tensor
+    terminated: torch.Tensor
+    done: torch.Tensor
+    reset_obs: torch.Tensor
+
+
+def compiled_host_fns(agent: Agent, bodies: HostFns, graphed: bool
+                      ) -> HostFns:
+    """``bodies`` as steps over one ``HostIO`` whose buffers stay put:
+    each a ``GraphedStep`` where ``graphed`` (``act`` and ``act_random``
+    leave the actions in their buffer, which the functions return), else
+    written back, as the CPU tests run them.  The functions are called as
+    the bodies are; an argument that is not the buffer it stands for is
+    copied into it.  Each function's ``graph`` is the step it runs."""
+    e, env = agent.config.num_envs, agent.env
+    obs = ((e, *env.obs_shape), env.obs_dtype)
+    inputs = StagedInputs(dict(
+        actions=((e,), torch.int64), next_obs=obs,
+        reward=((e,), torch.float32), terminated=((e,), torch.bool),
+        done=((e,), torch.bool), reset_obs=obs), agent.device)
+    io = HostIO(None, **inputs.buffers)
+
+    def acting(name, body):
+        def step(io: HostIO) -> HostIO:
+            io.actions = body(io.state)
+            return io
+
+        compiled = _compile(agent, name, step, graphed)
+
+        def call(state):
+            io.state = state
+            compiled(io)
+            return io.actions
+
+        call.graph = compiled
+        return call
+
+    def observing(name, body):
+        def step(io: HostIO) -> HostIO:
+            body(io.state, io.actions, *(getattr(io, k) for k in STEP_KEYS))
+            return io
+
+        compiled = _compile(agent, name, step, graphed)
+
+        def call(state, actions, *arrays):
+            io.state = state
+            for k, given in zip(("actions",) + STEP_KEYS, (actions, *arrays),
+                                strict=True):
+                _load(getattr(io, k), given)
+            compiled(io)
+            return state
+
+        call.graph = compiled
+        return call
+
+    return HostFns(
+        acting("host act", bodies.act),
+        acting("host random act", bodies.act_random),
+        observing("host observe", bodies.observe_only),
+        observing("host observe and learn", bodies.observe_and_learn),
+        inputs)
+
+
+def make_host_fns(agent: Agent, eps: EpsilonSchedule,
+                  updates_per_iter: int) -> HostFns:
+    """The compiled device halves of the host loop
+    (``dtqn_tpu/train/host_loop.py:41``): on the card each of the four is a
+    CUDA graph, ``observe_and_learn`` whole (observe, resets, the updates,
+    the epsilon anneal and ``env_steps``: JAX's scan of updates unrolled);
+    on the CPU the plain bodies (``make_host_bodies``)."""
+    bodies = make_host_bodies(agent, eps, updates_per_iter)
+    if agent.device.type != "cuda":
+        return bodies
+    return compiled_host_fns(agent, bodies, graphed=True)
+
+
+def host_iteration(vec: HostVecEnv, state: AgentState, act_fn, update_fn,
+                   inputs: Optional[StagedInputs] = None):
     """One iteration: act on the device, step the host envs, store the step
-    on the device (the host/device boundary of the module docstring)."""
+    on the device (the host/device boundary of the module docstring;
+    ``inputs``: the compiled functions' buffers)."""
     actions = act_fn(state)
     out = vec.step(actions_to_host(actions))
-    return update_fn(state, actions, *step_to_device(out, actions.device))
+    return update_fn(state, actions,
+                     *step_to_device(out, actions.device, inputs))
 
 
-def make_host_eval(agent: Agent, meta: HostEnvironment, n: int):
-    """The device halves of host-side greedy evaluation over n envs:
+class HostEvalFns(NamedTuple):
+    """The device halves of host-side evaluation (``make_host_eval``), and
+    the static buffers that their host arrays are loaded into (None for the
+    plain bodies)."""
+
+    eval_init: Callable
+    greedy: Callable
+    eval_observe: Callable
+    inputs: Optional[StagedInputs] = None
+
+
+def make_host_eval_bodies(agent: Agent, meta: HostEnvironment,
+                          n: int) -> HostEvalFns:
+    """The plain device halves of host-side greedy evaluation over n envs:
     ``eval_init(generator, obs)`` -> (context, bag, carry), ``greedy``
     (``agent.greedy_actions``) and ``eval_observe(network, context, bag,
     next_obs, actions, reward, terminated, live)`` -> (context, bag)."""
     cfg, device = agent.config, agent.device
 
+    @torch.no_grad()
     def eval_init(generator, obs):
         context = replay.init_context(
             generator, n, cfg.context_len, tuple(meta.obs_shape),
@@ -138,7 +323,116 @@ def make_host_eval(agent: Agent, meta: HostEnvironment, n: int):
                                    ev_idx, need & ~accepted)
         return context, bag
 
-    return eval_init, agent.greedy_actions, eval_observe
+    return HostEvalFns(eval_init, agent.greedy_actions, eval_observe)
+
+
+@dataclasses.dataclass
+class HostEvalIO:
+    """What the graphs of host-side evaluation read and write: the network,
+    the generator the contexts draw from (the graphs' own), the contexts,
+    bags and carries, and the static buffers of the host arrays."""
+
+    network: Any
+    generator: Any
+    obs: torch.Tensor
+    actions: torch.Tensor
+    next_obs: torch.Tensor
+    reward: torch.Tensor
+    terminated: torch.Tensor
+    live: torch.Tensor
+    context: Any = None
+    bag: Any = None
+    carry: Any = None
+
+
+def compiled_host_eval(agent: Agent, meta: HostEnvironment, n: int,
+                       bodies: HostEvalFns, graphed: bool) -> HostEvalFns:
+    """``bodies`` as steps over one ``HostEvalIO`` whose buffers stay put,
+    each a ``GraphedStep`` where ``graphed``, else written back.  The
+    functions are called as the bodies are and return the buffers;
+    ``eval_init`` draws from a generator of its own, loaded with the
+    caller's state and copied back after the replay.  Each function's
+    ``graph`` is the step it runs."""
+    obs = ((n, *meta.obs_shape), meta.obs_dtype)
+    flags = ((n,), torch.bool)
+    inputs = StagedInputs(dict(
+        obs=obs, actions=((n,), torch.int64), next_obs=obs,
+        reward=((n,), torch.float32), terminated=flags, live=flags),
+        agent.device)
+    io = HostEvalIO(None, None, **inputs.buffers)
+
+    def init_step(io: HostEvalIO) -> HostEvalIO:
+        io.context, io.bag, io.carry = bodies.eval_init(io.generator, io.obs)
+        return io
+
+    def greedy_step(io: HostEvalIO) -> HostEvalIO:
+        io.actions, io.carry = bodies.greedy(io.network, io.context, io.bag,
+                                             io.carry, io.obs)
+        return io
+
+    def observe_step(io: HostEvalIO) -> HostEvalIO:
+        io.context, io.bag = bodies.eval_observe(
+            io.network, io.context, io.bag, io.next_obs, io.actions,
+            io.reward, io.terminated, io.live)
+        return io
+
+    init_c, greedy_c, observe_c = (
+        _compile(agent, name, step, graphed) for name, step in (
+            ("host evaluation reset", init_step),
+            ("host greedy act", greedy_step),
+            ("host evaluation observe", observe_step)))
+
+    def eval_init(generator, obs):
+        # The reset reads no network: its graph is bound to none.
+        io.network = None
+        _load(io.obs, obs)
+        if io.context is None:
+            # The buffers: one eager call, outside any capture.
+            io.generator = own_generators(generator, agent.device)
+            copy_states(generator, io.generator)
+            init_step(io)
+            io.context, io.bag, io.carry = (
+                None if x is None else fresh_buffers(x)
+                for x in (io.context, io.bag, io.carry))
+        copy_states(generator, io.generator)
+        init_c(io)
+        copy_states(io.generator, generator)
+        return io.context, io.bag, io.carry
+
+    def greedy(network, context, bag, carry, obs):
+        io.network = network
+        for name, given in (("context", context), ("bag", bag),
+                            ("carry", carry), ("obs", obs)):
+            _load(getattr(io, name), given)
+        greedy_c(io)
+        return io.actions, io.carry
+
+    def eval_observe(network, context, bag, next_obs, actions, reward,
+                     terminated, live):
+        io.network = network
+        for name, given in (("context", context), ("bag", bag),
+                            ("next_obs", next_obs), ("actions", actions),
+                            ("reward", reward), ("terminated", terminated),
+                            ("live", live)):
+            _load(getattr(io, name), given)
+        observe_c(io)
+        return io.context, io.bag
+
+    eval_init.graph, greedy.graph, eval_observe.graph = (
+        init_c, greedy_c, observe_c)
+    return HostEvalFns(eval_init, greedy, eval_observe, inputs)
+
+
+def make_host_eval(agent: Agent, meta: HostEnvironment, n: int
+                   ) -> HostEvalFns:
+    """The compiled device halves of host-side evaluation
+    (``dtqn_tpu/train/host_loop.py:99``): on the card ``eval_init``,
+    ``greedy`` and ``eval_observe`` replay CUDA graphs; on the CPU the
+    plain bodies (``make_host_eval_bodies``)."""
+    bodies = make_host_eval_bodies(agent, meta, n)
+    if agent.device.type != "cuda":
+        return bodies
+    return compiled_host_eval(agent, meta, n, bodies, graphed=True)
 
 
 def evaluate_host(
@@ -147,18 +441,23 @@ def evaluate_host(
     make_one_env: Callable[[], HostEnvironment],
     n_episodes: int,
     generator: torch.Generator,
+    fns: Optional[HostEvalFns] = None,
 ):
     """``n_episodes`` greedy host episodes (run.py:187-243): (success rate,
     mean return, mean length) as host floats.  ``generator`` (on the
-    agent's device) draws the contexts' random actions."""
+    agent's device) draws the contexts' random actions.  ``fns``: the
+    device halves (``make_host_eval`` of ``n_episodes`` envs; made here
+    when not given), which a run keeps across its evaluations."""
     vec = HostVecEnv([make_one_env() for _ in range(n_episodes)])
     meta, device = vec.meta, agent.device
-    eval_init, greedy, eval_observe = make_host_eval(agent, meta, n_episodes)
+    if fns is None:
+        fns = make_host_eval(agent, meta, n_episodes)
+    eval_init, greedy, eval_observe, inputs = fns
 
-    def to_device(x):
-        return torch.as_tensor(x, device=device)
+    def load(name, x):
+        return to_device(x, device, inputs, name)
 
-    obs = to_device(vec.reset_all())
+    obs = load("obs", vec.reset_all())
     context, bag, carry = eval_init(generator, obs)
     finished = np.zeros((n_episodes,), bool)
     ep_reward = np.zeros((n_episodes,), np.float64)
@@ -177,14 +476,14 @@ def evaluate_host(
             | (ep_reward[done_now] > 0)  # run.py:232
         )
         context, bag = eval_observe(
-            network, context, bag, to_device(out["next_obs"]), actions,
-            to_device(out["reward"]), to_device(out["terminated"]),
-            to_device(live),
+            network, context, bag, load("next_obs", out["next_obs"]),
+            actions, load("reward", out["reward"]),
+            load("terminated", out["terminated"]), load("live", live),
         )
         finished |= out["done"]
         # Contexts of finished episodes keep rolling harmlessly; their
         # metrics are frozen above.
-        obs = to_device(out["reset_obs"])
+        obs = load("obs", out["reset_obs"])
         if finished.all():
             break
 
@@ -243,9 +542,9 @@ def run_host_experiment(
             f"{state.params.numel()} parameters (host loop: {name})"
         )
 
-    act, act_random, observe_only, observe_and_learn = make_host_fns(
-        agent, eps, config.resolved_updates_per_iter
-    )
+    fns = make_host_fns(agent, eps, config.resolved_updates_per_iter)
+    # Made once: its graphs serve every evaluation of the run.
+    eval_fns = make_host_eval(agent, meta, config.eval_episodes)
 
     # Resume-or-prepopulate (run.py:471-495).
     mini = ckpt.load_mini_checkpoint(policy_path)
@@ -266,7 +565,8 @@ def run_host_experiment(
         print(f"Resumed from checkpoint at {int(state.env_steps)} steps.")
     else:
         for _ in range(max(config.prepop_steps // config.num_envs, 1)):
-            host_iteration(vec, state, act_random, observe_only)
+            host_iteration(vec, state, fns.act_random, fns.observe_only,
+                           fns.inputs)
 
     logger = get_logger(policy_path, config, wandb_kwargs)
     wandb_id = getattr(getattr(logger, "run", None), "id", None)
@@ -278,7 +578,8 @@ def run_host_experiment(
 
     while int(state.env_steps) < config.num_steps:
         for _ in range(iters_per_chunk):
-            host_iteration(vec, state, act, observe_and_learn)
+            host_iteration(vec, state, fns.act, fns.observe_and_learn,
+                           fns.inputs)
         step = int(state.env_steps)
         hours = (time.time() - start_time) / 3600
 
@@ -296,6 +597,7 @@ def run_host_experiment(
             agent, state.network, lambda: env_factory(name),
             config.eval_episodes,
             torch.Generator(device=device).manual_seed(eval_seed),
+            eval_fns,
         )
         log_vals = {
             **{k: float(v) for k, v in state.diagnostics.means().items()},

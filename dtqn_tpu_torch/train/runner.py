@@ -8,11 +8,14 @@ and the mini-checkpoint completion sentinel.
 
 The host does config, logging and checkpoint I/O, and reads device values
 only at chunk boundaries; each chunk of ``eval_frequency`` env steps is one
-call of the train loop (train/loop.py).  On the card the prepopulation and
-every chunk go through the compiled entry points (``make_prepopulate``,
-``make_train_chunk``: one iteration captured as a CUDA graph and replayed);
-a resumed run loads its checkpoint into the state's own tensors and
-captures after loading.  The mesh path and evaluation stay eager.
+call of the train loop (train/loop.py).  On the card the prepopulation,
+every chunk and every evaluation go through the compiled entry points
+(``make_prepopulate``, ``make_train_chunk``: one iteration captured as a
+CUDA graph and replayed; ``make_evaluate``: a reset and blocks of env
+steps, each a graph); a resumed run loads its checkpoint into the state's
+own tensors and captures after loading.  The mesh path and the enjoy
+mode's rendered episode (``_render_episode``, not compiled in the JAX
+package either) stay eager.
 
 ``--dp-devices N`` trains one run sharded over N ranks, one process each
 (``parallel/``).  Outside a process group the runner starts the N ranks
@@ -52,7 +55,7 @@ from dtqn_tpu_torch.parallel.mesh import (
     shard_state,
 )
 from dtqn_tpu_torch.train.loop import (
-    make_evaluate_fn,
+    make_evaluate,
     make_prepopulate,
     make_train_chunk,
 )
@@ -211,7 +214,7 @@ def run_experiment(config: ExperimentConfig) -> dict:
     # additionally get an episode image strip saved next to the policy.
     if config.render:
         network = ckpt.load_policy(policy_path, state.network)
-        ev = make_evaluate_fn(agent, eval_envs[0], config.eval_episodes)
+        ev = make_evaluate(agent, eval_envs[0], config.eval_episodes)
         sr, ret, ln = ev(
             network,
             torch.Generator(device=device).manual_seed(config.seed + 1),
@@ -287,7 +290,7 @@ def run_experiment(config: ExperimentConfig) -> dict:
             config.resolved_iters_per_chunk,
         )
     evaluators = [
-        make_evaluate_fn(agent, e, config.eval_episodes) for e in eval_envs
+        make_evaluate(agent, e, config.eval_episodes) for e in eval_envs
     ]
 
     time_budget = (

@@ -33,7 +33,7 @@ import torch
 from dtqn_tpu_torch.agents import Agent
 from dtqn_tpu_torch.config import ExperimentConfig
 from dtqn_tpu_torch.train.loop import (
-    make_evaluate_fn,
+    make_evaluate,
     make_prepopulate,
     make_train_chunk,
 )
@@ -113,7 +113,7 @@ def run_sweep(config: ExperimentConfig, seeds: Sequence[int]) -> dict:
         config.resolved_iters_per_chunk,
     )
     evaluators = [
-        make_evaluate_fn(agent, e, config.eval_episodes) for e in eval_envs
+        make_evaluate(agent, e, config.eval_episodes) for e in eval_envs
     ]
 
     time_budget = config.time_limit * 3600 if config.time_limit else None

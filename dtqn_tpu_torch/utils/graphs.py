@@ -1,31 +1,43 @@
-"""One step function captured as a CUDA graph and replayed
-(the port's counterpart of the JAX package's jitted, donated ``lax.scan``).
+"""A step function captured as a CUDA graph and replayed (the port's
+counterpart of the JAX package's jitted, donated functions).
 
-A step updates an ``AgentState`` (``agents/base.py``), partly in place and
-partly by rebinding a field to a new tensor (``state.obs = obs``, a new
-``ContextState``, ``opt.count = torch.where(...)``, ...).  A graph reads and
+A step updates a tree of dataclasses whose leaves are tensors and
+generators (``utils.tree.leaves``): an ``AgentState`` (``agents/base.py``),
+an evaluation's loop-carried state (``train/loop.py``), the host loop's
+state with its static input buffers (``train/host_loop.py``).  It works
+partly in place and partly by rebinding a field to a new tensor
+(``state.obs = obs``, a new ``ContextState``, ...).  A graph reads and
 writes fixed addresses, so ``write_back(step)`` runs the step and then
 (``leaves_kept``) copies every leaf that changed identity into the leaf it
 replaced and rebinds the field to that original tensor: after the call
-every tensor leaf of the state (``utils.tree.leaves``, what a checkpoint
-saves; networks are left out, their parameters are views of ``params`` and
-``target_params``) is the tensor it was before, holding the new value.  On
-the CPU that wrapper is all there is, and it is what the tests hold
-against the plain step.
+every tensor leaf of the tree is the tensor it was before, holding the new
+value.  Networks are not leaves (an ``AgentState``'s parameters are views
+of ``params`` and ``target_params``); a graph is bound to their parameters'
+addresses too.  On the CPU that wrapper is all there is, and it is what
+the tests hold against the plain step.
 
 ``GraphedStep`` runs a written-back step ``times`` times per call on the
-card.  Its first call on a state runs the step once for real on a side
+card.  Its first call on a tree runs the step once for real on a side
 stream (the warm-up of PyTorch's whole-network capture recipe), then
 captures one more call on that stream into a ``torch.cuda.CUDAGraph``, with
-every generator among the state's leaves registered
+every generator among the tree's leaves registered
 (``register_generator_state``: a replay's draws are those the eager step
-would make, and each replay advances the generators as the eager step
-does), and replays it for the remaining calls.  The graph is reused while the state's leaves keep their
-addresses (``load_checkpoint`` writes into them in place); a state whose
-leaves moved is captured anew.  Every graph of one agent shares its memory
-pool (``Agent.graph_pool``): they never run concurrently.  A capture that
-fails raises, naming the step and the CUDA error; nothing falls back to
-the eager step.
+would make from the generator's state at the replay, and each replay
+advances the generator as the eager step does), and replays it for the
+remaining calls.  The graph is reused while the tree's leaves and networks
+keep their addresses (``load_checkpoint`` writes into them in place); a
+tree whose leaves moved is captured anew.  Every graph of one agent shares
+its memory pool (``Agent.graph_pool``): they never run concurrently, and
+nothing in the pool outlives a replay (every result lands in a leaf
+allocated outside any capture), so they may replay in any order.  A
+capture that fails raises, naming the step and the CUDA error; nothing
+falls back to the eager step.
+
+A caller that passes a fresh generator to each call (an evaluation) cannot
+have it registered: the graph draws from generators of its own
+(``own_generators``), loaded with the caller's state before the replays
+and copied back after them (``copy_states``), so that the caller's
+generator ends where the eager call leaves it.
 
 Python code runs only while a graph is captured, so counters that Python
 code advances (``ops.cuda_attention.launch_counts``: one per kernel launch)
@@ -43,7 +55,9 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch import nn
 
+from dtqn_tpu_torch.models.stacked import StackedNetwork
 from dtqn_tpu_torch.ops.cuda_attention import launch_counts
 from dtqn_tpu_torch.utils.tree import fields, leaves
 
@@ -167,18 +181,57 @@ def write_back(step: Step) -> Step:
     return run
 
 
+def networks(node: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted name, network) for every network of a tree of dataclasses:
+    what ``leaves`` leaves out."""
+    for field, value in fields(node):
+        if isinstance(value, (nn.Module, StackedNetwork)):
+            yield prefix + field, value
+        elif dataclasses.is_dataclass(value):
+            yield from networks(value, prefix + field + ".")
+
+
 def addresses(state) -> Tuple:
-    """What a graph of ``state`` is bound to: every tensor leaf's address
-    and every generator."""
+    """What a graph of ``state`` is bound to: every tensor leaf's address,
+    every generator, and the parameters of every network."""
     return tuple(
         (name, leaf.data_ptr() if isinstance(leaf, torch.Tensor)
          else id(leaf))
-        for name, leaf in leaves(state))
+        for name, leaf in leaves(state)) + tuple(
+        (name, tuple(p.data_ptr() for p in network.parameters()))
+        for name, network in networks(state))
 
 
 def generators(state) -> List[torch.Generator]:
     return [leaf for _, leaf in leaves(state)
             if isinstance(leaf, torch.Generator)]
+
+
+def fresh_buffers(tree):
+    """``tree`` with every tensor leaf replaced by a copy of its own, in
+    place: buffers that nothing else holds, for a written-back step to
+    write into."""
+    return _rebind(tree, {name: leaf.clone() for name, leaf in leaves(tree)
+                          if isinstance(leaf, torch.Tensor)})
+
+
+def _as_list(generator) -> List[torch.Generator]:
+    return [generator] if isinstance(generator, torch.Generator) else list(
+        generator)
+
+
+def own_generators(like, device):
+    """Generators on ``device`` as many as ``like`` holds (one, or a list
+    per seed), for a graph to register in the place of a caller's."""
+    owned = [torch.Generator(device=device) for _ in _as_list(like)]
+    return owned[0] if isinstance(like, torch.Generator) else owned
+
+
+def copy_states(source, target) -> None:
+    """Each generator of ``target`` (one, or a list) set to the state of its
+    counterpart in ``source``."""
+    for s, t in zip(_as_list(source), _as_list(target), strict=True):
+        t.set_state(s.get_state())
 
 
 def shared_pool(owner):
@@ -205,10 +258,11 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class GraphedStep:
-    """``times`` calls of ``step`` per call on a CUDA state: the first call
-    on a state runs the step once eagerly and captures it, every other one
-    is a graph replay.  ``warm_up_s`` and ``capture_s`` time the last
-    capture (host seconds, each ending in a synchronize)."""
+    """``times`` calls of ``step`` per call on a tree on the card
+    (``owner.device``): the first call on a tree runs the step once eagerly
+    and captures it, every other one is a graph replay.  ``warm_up_s`` and
+    ``capture_s`` time the last capture (host seconds, each ending in a
+    synchronize)."""
 
     def __init__(self, name: str, step: Step, owner, times: int):
         self.name = name
@@ -231,10 +285,10 @@ class GraphedStep:
 
     def capture(self, state) -> None:
         """Runs the step once for real, then captures it into a graph bound
-        to ``state``'s leaves.  An earlier graph lives until the new one is
-        captured: the pool they share stays in use throughout."""
+        to ``state``'s leaves and networks.  An earlier graph lives until the
+        new one is captured: the pool they share stays in use throughout."""
         self.bound = None
-        device = state.params.device
+        device = self.owner.device
         main = torch.cuda.current_stream(device)
         side = capture_stream(device)
         torch.cuda.synchronize(device)

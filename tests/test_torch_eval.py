@@ -5,7 +5,9 @@ step and the same (success rate, return, length): counts exact, return
 atol 1e-5.  CarFlag's dynamics are deterministic, so the start states fix
 the whole episode; for Memory Cards and the tabular POMDPs the JAX run's
 draws of every step (the next card revealed, the next state and
-observation) are injected as well.
+observation) are injected as well.  The cases run through
+``make_evaluate_fn``, and again through ``make_evaluate`` and the blocked
+evaluation that the card replays as CUDA graphs.
 """
 
 import glob
@@ -31,7 +33,7 @@ from dtqn_tpu_torch.envs.car_flag import CarFlagState
 from dtqn_tpu_torch.envs.memory_cards import MemoryCards
 from dtqn_tpu_torch.envs.pomdp import TabularPOMDP
 from dtqn_tpu_torch.train import loop
-from dtqn_tpu_torch.train.loop import make_evaluate_fn
+from dtqn_tpu_torch.train.loop import make_evaluate, make_evaluate_fn
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POLICY = glob.glob(os.path.join(
@@ -114,12 +116,13 @@ def inject(env, start, steps, monkeypatch):
                             lambda *a: t(outcome()[0].current_card))
 
 
-def port_evaluate(agent, env, network, start, steps, n, monkeypatch):
-    """The port's evaluation from the JAX run's start and draws, with the
-    greedy actions of every step recorded."""
+def port_evaluate(agent, env, network, start, steps, n, monkeypatch,
+                  make=make_evaluate_fn):
+    """The port's evaluation (``make(agent, env, n)``) from the JAX run's
+    start and draws, with the greedy actions of every step recorded."""
     inject(env, start, steps, monkeypatch)
     recorded = []
-    greedy = agent.greedy_actions
+    greedy = type(agent).greedy_actions.__get__(agent)
 
     def recording(network, context, *args):
         actions, carry = greedy(network, context, *args)
@@ -127,19 +130,28 @@ def port_evaluate(agent, env, network, start, steps, n, monkeypatch):
         return actions, carry
 
     monkeypatch.setattr(agent, "greedy_actions", recording)
-    evaluate = make_evaluate_fn(agent, env, n)
+    evaluate = make(agent, env, n)
     out = evaluate(network, torch.Generator().manual_seed(0))
     return [float(x) for x in out], recorded
 
 
 def compare(jagent, jenv, params, agent, env, network, n, monkeypatch,
-            key=7):
+            key=7, makes=(make_evaluate_fn,)):
+    """The JAX evaluation against the port's, through each of ``makes``."""
     key = jax.random.key(key)
     sr, ret, ln = (float(x) for x in
                    jax_make_evaluate(jagent, jenv, n)(params, key))
     start, steps = jax_rollout(jagent, jenv, params, key, n)
+    for make in makes:
+        out = compare_one(sr, ret, ln, start, steps, agent, env, network, n,
+                          monkeypatch, make)
+    return out
+
+
+def compare_one(sr, ret, ln, start, steps, agent, env, network, n,
+                monkeypatch, make):
     (t_sr, t_ret, t_ln), actions = port_evaluate(
-        agent, env, network, start, steps, n, monkeypatch)
+        agent, env, network, start, steps, n, monkeypatch, make)
     # The port stops once every episode is over; up to there, every live
     # episode takes the JAX package's greedy action.
     assert 0 < len(actions) <= len(steps)
@@ -155,7 +167,7 @@ def compare(jagent, jenv, params, agent, env, network, n, monkeypatch,
     return sr, ret, ln, len(actions)
 
 
-def test_eval_matches_jax_fresh_network(monkeypatch):
+def fresh_network_case(monkeypatch, makes=(make_evaluate_fn,)):
     kw = dict(inner_embed=16, num_heads=2, num_layers=2, context_len=8,
               history=8)
     jenv, env = jax_make_env(ENV), make_env(ENV)
@@ -173,8 +185,12 @@ def test_eval_matches_jax_fresh_network(monkeypatch):
     network = agent.build_network()
     network.load_state_dict(params_from_jax(params), strict=True)
     sr, ret, ln, steps = compare(jagent, jenv, params, agent, env, network,
-                                 6, monkeypatch)
+                                 6, monkeypatch, makes=makes)
     assert 1.0 <= ln <= 60.0 and 0.0 <= sr <= 1.0
+
+
+def test_eval_matches_jax_fresh_network(monkeypatch):
+    fresh_network_case(monkeypatch)
 
 
 @pytest.mark.skipif(not POLICY, reason="trained CarFlag DTQN policy absent")
@@ -218,6 +234,11 @@ def test_eval_matches_jax_trained_policies(model, env_name, width,
     """The JAX-trained policy through the bridge picks the JAX package's
     greedy action at every evaluation step, on the recurrent (DARQN),
     feedforward (DQN) and tabular-POMDP (DTQN on Hallway) paths."""
+    trained_policy_case(model, env_name, width, monkeypatch)
+
+
+def trained_policy_case(model, env_name, width, monkeypatch,
+                        makes=(make_evaluate_fn,)):
     path = r4_policy(model, env_name, width)
     assert path, f"{model} {env_name} policy absent from {R4}"
     with open(path[0], "rb") as f:
@@ -231,9 +252,31 @@ def test_eval_matches_jax_trained_policies(model, env_name, width,
     network = agent.build_network()
     network.load_state_dict(params_from_jax(params), strict=True)
     sr, ret, ln, steps = compare(jagent, jenv, params, agent, env, network,
-                                 6, monkeypatch)
+                                 6, monkeypatch, makes=makes)
     assert 1.0 <= ln <= env.max_episode_steps and 0.0 <= sr <= 1.0
     assert steps >= 2
+
+
+def blocked(agent, env, n):
+    """The blocked evaluation that the card replays as graphs, each step
+    written back."""
+    return loop.BlockedEvaluation(agent, env, n, graphed=False)
+
+
+# The compiled entry point (on the CPU, the plain body) and the form its
+# graphs take on the card.
+COMPILED = (make_evaluate, blocked)
+
+
+@pytest.mark.parametrize("case", ["fresh"] + [m for m, _, _ in TRAINED])
+def test_eval_matches_jax_through_make_evaluate(case, monkeypatch):
+    """The injected-draw cases above, through ``make_evaluate`` and the
+    blocked evaluation that it replays on the card."""
+    if case == "fresh":
+        fresh_network_case(monkeypatch, makes=COMPILED)
+    else:
+        trained_policy_case(*next(t for t in TRAINED if t[0] == case),
+                            monkeypatch, makes=COMPILED)
 
 
 def small_agent(env_name=ENV, max_steps=60):

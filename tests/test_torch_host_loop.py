@@ -23,7 +23,15 @@ real-MiniHack tests are gated on the import, as the JAX package's are.
   equal to the JAX ``evaluate_host``'s on the same env seeds, with the
   contexts' draws injected; SR > 0.8;
 - ``run_host_experiment`` end to end: the JAX package's three runner tests
-  ported, and one bf16 run.
+  ported, and one bf16 run;
+- the functions that the card replays as CUDA graphs (``compiled_host_fns``,
+  ``compiled_host_eval``), each step written back and fed from its static
+  buffers: bit-equal to the plain bodies over prepopulation, learning and
+  two evaluations (DTQN, DRQN, DTQN-bag), with no host read, tensor made
+  from Python data or data-sized output in a step; the JAX-trained
+  evaluation through them; each of the seven graphs captured once over a
+  run (a stand-in capture); on the CPU ``make_host_fns`` and
+  ``make_host_eval`` are the plain bodies and touch no ``torch.cuda``.
 """
 
 import glob
@@ -62,6 +70,7 @@ from dtqn_tpu_torch.train.host_loop import (
     step_to_device,
 )
 from dtqn_tpu_torch.utils import checkpoint as ckpt
+from dtqn_tpu_torch.utils import graphs
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -349,6 +358,17 @@ def test_evaluate_host_matches_jax_trained_policy(monkeypatch):
     """The JAX-trained ``MH-CueHost-v0`` policy (in_embed 32, context 8, 8
     heads) through the bridge takes the JAX package's greedy action at
     every evaluation step, on the same env seeds."""
+    trained_cue_case(monkeypatch, compiled=False)
+
+
+@pytest.mark.skipif(not CUE_POLICY, reason="JAX-trained CueHost policy absent")
+def test_compiled_evaluate_host_matches_jax_trained_policy(monkeypatch):
+    """The same through the functions that the card replays as graphs
+    (``compiled_host_eval``, each step written back)."""
+    trained_cue_case(monkeypatch, compiled=True)
+
+
+def trained_cue_case(monkeypatch, compiled):
     with open(CUE_POLICY[0], "rb") as f:
         params = serialization.msgpack_restore(f.read())
     kw = dict(model="DTQN", num_envs=32, inner_embed=32, num_heads=8,
@@ -374,13 +394,202 @@ def test_evaluate_host_matches_jax_trained_policy(monkeypatch):
     want = jax_host_loop.evaluate_host(jagent, params,
                                        factory(JaxCueHostEnv), n, key)
     steps = recording(monkeypatch, host_loop)
+    fns = host_loop.make_host_eval_bodies(agent, CueHostEnv(), n)
+    if compiled:
+        fns = host_loop.compiled_host_eval(agent, CueHostEnv(), n, fns,
+                                           graphed=False)
     got = evaluate_host(agent, network, factory(CueHostEnv), n,
-                        torch.Generator().manual_seed(0))
+                        torch.Generator().manual_seed(0), fns)
     assert len(steps) == len(jsteps) >= 1
     for a, b in zip(steps, jsteps):
         np.testing.assert_array_equal(a, b)
     assert [float(x) for x in got] == [float(x) for x in want]
     assert got[0] > 0.8
+
+
+# ------------------------------------------------ the compiled functions
+# On the card the host loop's device halves replay CUDA graphs over static
+# buffers (``compiled_host_fns``, ``compiled_host_eval``); here each step is
+# written back, fed from the static buffers that ``step_to_device`` and
+# ``to_device`` fill.
+MODELS = {"DTQN": {}, "DRQN": dict(model="DRQN"),
+          "DTQN-bag": dict(model="DTQN-bag", bag_size=3)}
+
+
+def host_run(kw, compiled, iters=(12, 4)):
+    """A state trained by ``iters`` (prepopulation, learning) iterations
+    of the host functions, plain or compiled, on 4 cue envs; then two
+    evaluations of 5 envs from one generator: (state, results, the
+    generator's end state, the functions)."""
+    vec = HostVecEnv([CueHostEnv(seed=i) for i in range(4)])
+    agent = Agent(AgentConfig(**{**SMALL, **kw}), vec.meta, device="cpu")
+    state = agent.init_state(3, vec.reset_all())
+    fns = host_loop.make_host_bodies(agent, EpsilonSchedule(1.0, 0.1, 300), 2)
+    eval_fns = host_loop.make_host_eval_bodies(agent, vec.meta, 5)
+    if compiled:
+        fns = host_loop.compiled_host_fns(agent, fns, graphed=False)
+        eval_fns = host_loop.compiled_host_eval(agent, vec.meta, 5, eval_fns,
+                                                graphed=False)
+    for _ in range(iters[0]):
+        host_loop.host_iteration(vec, state, fns.act_random,
+                                 fns.observe_only, fns.inputs)
+    for i in range(iters[1]):
+        # The first learning iteration passes new tensors, which the
+        # compiled functions copy into their buffers.
+        host_loop.host_iteration(vec, state, fns.act, fns.observe_and_learn,
+                                 fns.inputs if i else None)
+    generator = torch.Generator().manual_seed(4)
+    results = []
+    for _ in range(2):
+        seeds = itertools.count()
+        results.append(evaluate_host(
+            agent, state.network, lambda: CueHostEnv(seed=next(seeds)), 5,
+            generator, eval_fns))
+    return state, results, generator.get_state(), fns, eval_fns
+
+
+def checkpointed(state):
+    return {k: v.get_state() if isinstance(v, torch.Generator) else v
+            for k, v in ckpt._leaves(state)}
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_compiled_host_functions_equal_the_plain_ones(model):
+    """Written back and fed from static buffers, the host functions train
+    the state the plain ones train, bit for bit, each leaf staying in its
+    storage; their evaluation gives the same results and leaves the
+    generator in the same state."""
+    plain, want, gen_plain, *_ = host_run(MODELS[model], compiled=False)
+    state, got, gen, fns, _ = host_run(MODELS[model], compiled=True)
+    a, b = checkpointed(plain), checkpointed(state)
+    assert a.keys() == b.keys()
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    assert not differ, f"leaves differ: {differ}"
+    assert int(state.train_steps) == 8 and int(state.env_steps) == 16
+    assert [list(map(float, r)) for r in got] == [
+        list(map(float, r)) for r in want]
+    assert torch.equal(gen, gen_plain)
+    # The actions and the step land in the functions' static buffers.
+    assert fns.inputs.buffers["reset_obs"].data_ptr() != (
+        state.obs.data_ptr())
+    assert torch.equal(fns.inputs.buffers["reset_obs"], state.obs)
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_compiled_host_functions_read_nothing_back(model):
+    """After a warm-up, the host functions' steps (fed their own buffers,
+    as the loops feed them) read no device value, make no tensor from
+    Python data and size nothing by the data."""
+    from test_torch_graphs import FORBIDDEN, OpNames
+
+    state, _, _, fns, eval_fns = host_run(MODELS[model], compiled=True,
+                                          iters=(12, 1))
+    buffers = fns.inputs.buffers
+    step = [buffers[k] for k in STEP_KEYS]
+    ev = eval_fns.inputs.buffers
+    network = state.network
+    generator = torch.Generator().manual_seed(9)
+    with OpNames() as ops:
+        actions = fns.act_random(state)
+        fns.observe_only(state, actions, *step)
+        actions = fns.act(state)
+        fns.observe_and_learn(state, actions, *step)
+        context, bag, carry = eval_fns.eval_init(generator, ev["obs"])
+        actions, carry = eval_fns.greedy(network, context, bag, carry,
+                                         ev["obs"])
+        eval_fns.eval_observe(network, context, bag, ev["next_obs"], actions,
+                              ev["reward"], ev["terminated"], ev["live"])
+    assert ops.calls > 100
+    found = sorted(n for n in ops.names if n.startswith(FORBIDDEN))
+    assert not found, f"{model}: {found} in a host function"
+
+
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_compiled_host_evaluation_takes_copies_of_its_buffers(model):
+    """The compiled evaluation's functions called with copies of their
+    buffers act as with the buffers themselves."""
+    state, _, _, _, eval_fns = host_run(MODELS[model], compiled=True,
+                                        iters=(12, 1))
+    obs = eval_fns.inputs.buffers["obs"]
+    context, bag, carry = eval_fns.eval_init(torch.Generator().manual_seed(1),
+                                             obs.clone())
+    copies = [cloned(x) for x in (context, bag, carry)]
+    want, _ = eval_fns.greedy(state.network, context, bag, carry, obs)
+    want = want.clone()
+    got, _ = eval_fns.greedy(state.network, *copies, obs.clone())
+    assert torch.equal(got, want)
+
+
+def cloned(tree):
+    """A dataclass or named tuple of tensors (or None), each cloned."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(t.clone() for t in tree))
+    return type(tree)(**{k: v.clone() for k, v in vars(tree).items()})
+
+
+def stand_in_captures(monkeypatch):
+    """``GraphedStep.capture`` replaced by a stand-in that runs the step
+    (the warm-up) and binds a graph that replays nothing (the CPU cannot
+    capture); returns the captures by step name."""
+    from test_torch_graphs import StandInGraph
+
+    counts = {}
+
+    def capture(self, tree):
+        self.step(tree)
+        self.graph = graphs.CountedGraph(StandInGraph(), {})
+        self.bound = graphs.addresses(tree)
+        counts[self.name] = counts.get(self.name, 0) + 1
+
+    monkeypatch.setattr(graphs.GraphedStep, "capture", capture)
+    return counts
+
+
+def test_each_host_graph_is_captured_once(monkeypatch):
+    """Over iterations and evaluations of one state and network, each of
+    the seven graphs is captured once: nothing a call rebinds moves a
+    graph's leaves."""
+    counts = stand_in_captures(monkeypatch)
+    vec = HostVecEnv([CueHostEnv(seed=i) for i in range(4)])
+    agent = Agent(AgentConfig(**SMALL), vec.meta, device="cpu")
+    state = agent.init_state(3, vec.reset_all())
+    fns = host_loop.compiled_host_fns(
+        agent, host_loop.make_host_bodies(agent, EpsilonSchedule(), 1),
+        graphed=True)
+    eval_fns = host_loop.compiled_host_eval(
+        agent, vec.meta, 3, host_loop.make_host_eval_bodies(agent, vec.meta,
+                                                            3),
+        graphed=True)
+    for _ in range(3):
+        for act, update in ((fns.act_random, fns.observe_only),
+                            (fns.act, fns.observe_and_learn)):
+            host_loop.host_iteration(vec, state, act, update, fns.inputs)
+        evaluate_host(agent, state.network, CueHostEnv, 3,
+                      torch.Generator().manual_seed(0), eval_fns)
+    assert counts == dict.fromkeys(
+        ["host random act", "host observe", "host act",
+         "host observe and learn", "host evaluation reset",
+         "host greedy act", "host evaluation observe"], 1)
+
+
+def test_cpu_host_functions_are_the_plain_bodies(monkeypatch):
+    from test_torch_graphs import NoCuda
+
+    NoCuda(monkeypatch)
+    vec = HostVecEnv([CueHostEnv(seed=i) for i in range(4)])
+    agent = Agent(AgentConfig(**SMALL), vec.meta, device="cpu")
+    fns = make_host_fns(agent, EpsilonSchedule(1.0, 0.1, 300), 1)
+    eval_fns = host_loop.make_host_eval(agent, vec.meta, 3)
+    assert fns.inputs is None and eval_fns.inputs is None
+    state = agent.init_state(3, vec.reset_all())
+    for act, update in ((fns.act_random, fns.observe_only),
+                        (fns.act, fns.observe_and_learn)):
+        host_loop.host_iteration(vec, state, act, update)
+    evaluate_host(agent, state.network, CueHostEnv, 3,
+                  torch.Generator().manual_seed(0), eval_fns)
+    assert int(state.env_steps) == 4 and agent.graph_pool is None
 
 
 # ---------------------------------------------------------------- runner
