@@ -126,8 +126,9 @@ Phases (any failure exits non-zero and prints no result):
      25, DRQN on Memory-5 and ImageMaze in bf16 (device ms of an update, an
      act step and the evict forward beside phases 9, 11 and 12's; the
      LSTM's outputs float32, the CNN's bf16); the runner in bf16 with
-     --profile-dir (the trace holds one chunk's bf16 attention kernels),
-     cut and resumed bit-equal; ``run_sweep`` in bf16 at 2 seeds; Car Flag
+     --profile-dir (the trace holds one chunk's bf16 attention kernels,
+     the phases file its last replay by phase), cut and resumed
+     bit-equal; ``run_sweep`` in bf16 at 2 seeds; Car Flag
      with bag 10 and the flagless configuration at 2 stacked seeds in bf16
      (launches reckoned by shape and form: every bf16 launch of a driven
      path takes the tensor-core form); the bf16 kernels timed at every
@@ -190,7 +191,20 @@ Phases (any failure exits non-zero and prints no result):
      After each compared chunk, one evaluation of each state's network,
      eager and graphed, bit-equal (results, launches, generators); for
      the flagless paths the second one replays between two graphed
-     chunks, and the chunks after it stay bit-equal to eager ones.
+     chunks, and the chunks after it stay bit-equal to eager ones;
+ 23. tracing (``utils/profiling.py``): the flagless configuration and the
+     bag of 25, at one seed and five, each prepopulated, saved and loaded
+     twice: 20 iterations of one through a chunk captured with tracing
+     off, of the other through one captured with it on (the phases'
+     boundary events recorded into the graph): every leaf bit-equal; then
+     two iterations of each graph profiled, the second read (a session
+     drops records at its start): the same kernels by name and count
+     (copies and fills apart, as the benchmark counts), and the traced
+     graph's phases (``GraphedStep.phase_ms``, each above 0,
+     ``evict`` only with the bag) summing to within 3% of the replay's
+     device span (its first operation's start to its last one's end);
+     then the two chunks timed in turns (off, on, on, off: device ms an
+     iteration), and the leaves bit-equal still.
 
 Every phase on the card trains and evaluates through the compiled entry
 points (``train/loop.py``: ``make_prepopulate`` and ``make_train_chunk``,
@@ -814,6 +828,10 @@ class Probe:
             torch.cuda.synchronize()
             self.seconds[kind].append(time.perf_counter() - t0)
             return out
+        # A graphed chunk's phases stay readable through the wrapper
+        # (``--profile-dir`` writes them).
+        if hasattr(fn, "phase_ms"):
+            wrapper.phase_ms = fn.phase_ms
         return wrapper
 
     @contextlib.contextmanager
@@ -2591,8 +2609,18 @@ def bf16_runner_phase(seed, ca):
         check_csvs(cfg, [128, 256])
         check(all(math.isfinite(v) for v in final.values()),
               f"bf16 runner: final log not finite: {final}")
-        traces = os.listdir(cfg.profile_dir)
-        check(len(traces) == 1, f"--profile-dir wrote {traces}")
+        # One Chrome trace and, since tracing is on for the run, the traced
+        # chunk's last replay by phase.
+        listed = sorted(os.listdir(cfg.profile_dir))
+        traces = [n for n in listed if n.startswith("trace_")]
+        phases = [n for n in listed if n.startswith("phases_")]
+        check(len(traces) == len(phases) == 1 == len(listed) - 1,
+              f"--profile-dir wrote {listed}")
+        with open(os.path.join(cfg.profile_dir, phases[0])) as f:
+            read = json.load(f)
+        check(set(read["phases"]) >= {"act", "env", "replay_write", "sample",
+                                       "update"} and read["replay"] > 0,
+              f"--profile-dir's phases: {read}")
         kernels = trace_kernels(os.path.join(cfg.profile_dir, traces[0]))
         # bf16 attention kernels of either form; the tensor-core form's
         # names end their kernel part in _mma.
@@ -3907,6 +3935,171 @@ def graphs_phase(seed, ca):
             for name, env, kw, prepop, seeds in GRAPH_PATHS}
 
 
+# (name, env, AgentConfig fields over graphed_path's, prepopulation
+# iterations, seeds): the paths whose graphs phase 23 captures with and
+# without the phases' marks.
+TRACED_PATHS = (
+    ("flagless", "DiscreteCarFlag-v0",
+     dict(model="DTQN", inner_embed=64, bag_size=0), 200, None),
+    ("bag 25", GV_ENV, {}, 300, None),
+    ("flagless, 5 seeds", "DiscreteCarFlag-v0",
+     dict(model="DTQN", inner_embed=64, bag_size=0), 200,
+     list(range(SWEEP_SEEDS))),
+    ("bag 25, 5 seeds", GV_ENV, {}, 300, list(range(SWEEP_SEEDS))),
+)
+TRACED_ITERS = 20  # iterations each graph trains before the states compare
+PHASE_SPAN_RTOL = 0.03  # the phases' sum against the replay's device span
+
+
+def replay_kernels(step, state):
+    """Two calls of ``step`` (a one-iteration ``GraphedStep`` already
+    captured) under torch.profiler, and of the second replay (each device
+    operation placed by the correlation id of the graph launch that issued
+    it): ({kernel name: count}, {copy or fill: count}, the device span in
+    ms from its first operation's start to its last one's end).  A session
+    drops records, at its start most, so the first replay is not read.
+    Kernels leave out copies and fills, as the benchmark's count does
+    (``perfbench/trace.py``): a graph's memcpy node runs as a kernel
+    (``memcpy32_post``) or on a copy engine, which is the driver's
+    choice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state)
+        step(state)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    launches = sorted((ev.start_ns(), ev.correlation_id()) for ev in events
+                      if ev.name() == "cudaGraphLaunch")
+    check(len(launches) == 2, f"the profiler saw {len(launches)} graph "
+                              "launches of two replays")
+    second = launches[-1][1]
+    counts, copies, first, last = {}, {}, None, None
+    for ev in events:
+        if (ev.device_type() != DeviceType.CUDA or ev.is_user_annotation()
+                or second not in (ev.correlation_id(),
+                                  ev.linked_correlation_id())):
+            continue
+        first = ev.start_ns() if first is None else min(first, ev.start_ns())
+        last = ev.end_ns() if last is None else max(last, ev.end_ns())
+        into = copies if ev.name().startswith(
+            ("Memcpy", "Memset", "memcpy", "memset")) else counts
+        into[ev.name()] = into.get(ev.name(), 0) + 1
+    check(counts, "the profiler recorded no kernel of a replay")
+    return counts, copies, (last - first) * 1e-6
+
+
+def ms_per_iteration(chunk, state, iterations):
+    """Device ms an iteration of one call of ``chunk`` (events on the
+    stream before and after it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    chunk(state)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iterations
+
+
+def traced_path(seed, name, env_name, kw, prepop_iters, seeds):
+    """One saved state trained TRACED_ITERS iterations through a chunk
+    captured with tracing off and through one captured with it on, compared
+    leaf by leaf; then one iteration of each through one-iteration graphs,
+    profiled; then the chunks in turns (off, on, on, off), timed, and the
+    leaves compared again."""
+    from dtqn_tpu_torch.agents import Agent, AgentConfig
+    from dtqn_tpu_torch.envs import make_env
+    from dtqn_tpu_torch.train.loop import make_prepopulate, make_train_chunk
+    from dtqn_tpu_torch.utils import checkpoint as ckpt
+    from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+    from dtqn_tpu_torch.utils.profiling import tracing_on
+
+    updates, per_call = 64, 10
+    cfg = AgentConfig(**dict(dict(
+        model="DTQN-bag", num_envs=64, context_len=50, history=50,
+        inner_embed=128, num_heads=8, num_layers=2, batch_size=32,
+        buffer_size=500_000, target_update_frequency=10_000,
+        bag_size=GV_BAG), **kw))
+    what = f"tracing, {name}"
+    agent = Agent(cfg, make_env(env_name), device=DEVICE)
+
+    def fresh():
+        return (agent.init_sweep_state(seeds) if seeds
+                else agent.init_state(seed))
+
+    # Both states loaded from one checkpoint, so that they are alike in
+    # layout as well as in value.
+    saved = fresh()
+    make_prepopulate(agent, prepop_iters)(saved)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "saved")
+        ckpt.save_checkpoint(path, saved)
+        del saved
+        states = {kind: ckpt.load_checkpoint(path, fresh())[0]
+                  for kind in ("off", "on")}
+    eps = EpsilonSchedule(1.0, 0.1, 200_000)
+    result, kernels, chunks = {"config": kw, "env": env_name,
+                               "seeds": seeds}, {}, {}
+    for kind, state in states.items():
+        chunk = chunks[kind] = make_train_chunk(agent, eps, updates,
+                                                per_call)
+        step = make_train_chunk(agent, eps, updates, 1)
+        with tracing_on(kind == "on"):
+            for _ in range(TRACED_ITERS // per_call):
+                chunk(state)
+            step(state)  # captures the one-iteration graph
+        torch.cuda.synchronize()
+        check((chunk.phase_ms() is not None) == (kind == "on"),
+              f"{what}: the chunk captured with tracing {kind} read "
+              f"{chunk.phase_ms()}")
+        kernels[kind], copies, span_ms = replay_kernels(step, state)
+        result[kind] = {"kernels": sum(kernels[kind].values()),
+                        "copies_and_fills": copies,
+                        "replay_span_ms": span_ms,
+                        "boundary_events": len(step.graph.marks),
+                        "phases": step.phase_ms()}
+    differ = differing_leaves(states["off"], states["on"])
+    check(not differ, f"{what}: after {TRACED_ITERS + 3} iterations the "
+                      f"leaves of the traced graphs differ: {differ}")
+    turns = {"off": [], "on": []}
+    for kind in ("off", "on", "on", "off"):
+        turns[kind].append(ms_per_iteration(chunks[kind], states[kind],
+                                            per_call))
+    result["ms_per_iteration_in_turns"] = turns
+    differ = differing_leaves(states["off"], states["on"])
+    check(not differ, f"{what}: after the chunks in turns the leaves "
+                      f"differ: {differ}")
+    check(kernels["off"] == kernels["on"],
+          f"{what}: the traced graph's kernels differ: " + json.dumps({
+              k: [kernels["off"].get(k, 0), kernels["on"].get(k, 0)]
+              for k in set(kernels["off"]) | set(kernels["on"])
+              if kernels["off"].get(k) != kernels["on"].get(k)}))
+    read = result["on"]["phases"]
+    want = {"act", "env", "replay_write", "sample", "update", "other"} | (
+        {"evict"} if cfg.bag_size else set())
+    check(set(read["phases"]) == want and all(
+        read["phases"][k] > 0 for k in want - {"other"}),
+        f"{what}: phases {read}")
+    span_ms = result["on"]["replay_span_ms"]
+    gap = abs(sum(read["phases"].values()) - span_ms) / span_ms
+    check(gap <= PHASE_SPAN_RTOL,
+          f"{what}: the phases sum to {sum(read['phases'].values())} ms, "
+          f"the replay's kernels span {span_ms} ms")
+    result.update(leaves_bit_equal=True, kernels_equal=True,
+                  phase_sum_gap=gap)
+    log(f"{what}: {json.dumps(result)}")
+    return result
+
+
+def tracing_phase(seed):
+    """Phase 23: every path of TRACED_PATHS with and without the marks."""
+    return {name: traced_path(seed, name, env, kw, prepop, seeds)
+            for name, env, kw, prepop, seeds in TRACED_PATHS}
+
+
 def run(seed):
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
@@ -4012,6 +4205,8 @@ def run(seed):
     mark("host loop")
     graphed = graphs_phase(seed, ca)
     mark("graphs")
+    traced = tracing_phase(seed)
+    mark("tracing")
 
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
@@ -4107,7 +4302,8 @@ def run(seed):
                       "timings_d16": t_d16, "timings_bag": t_bag,
                       "timings_streamed": t_streamed,
                       "profile": prof, "bf16": bf16, "several_devices": dp,
-                      "graphs": graphed, "phase_seconds": phase_seconds,
+                      "graphs": graphed, "tracing": traced,
+                      "phase_seconds": phase_seconds,
                       "ptxas": usage}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

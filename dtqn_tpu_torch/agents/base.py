@@ -69,6 +69,7 @@ from dtqn_tpu_torch.models.dropout import DropoutDraws
 from dtqn_tpu_torch.models.stacked import StackedNetwork
 from dtqn_tpu_torch.utils.device import resolve_device
 from dtqn_tpu_torch.utils.metrics import TrainDiagnostics
+from dtqn_tpu_torch.utils.profiling import phase
 from dtqn_tpu_torch.utils.rng import ShardedGenerator, folded_draw
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam defaults
@@ -527,45 +528,54 @@ class Agent:
     # ----------------------------------------------------------- observing
     def observe(self, state: AgentState, action, next_obs, reward,
                 buffer_done) -> AgentState:
-        """Context append + bag insertion + replay store (dtqn.py:116-160)."""
-        state.context, ev_obs, ev_act, was_full = replay.add_transition(
-            state.context, next_obs, action, reward, buffer_done
-        )
+        """Context append + bag insertion + replay store (dtqn.py:116-160):
+        phases ``replay_write``, ``evict`` (with a bag), ``replay_write``."""
+        with phase("replay_write"):
+            state.context, ev_obs, ev_act, was_full = replay.add_transition(
+                state.context, next_obs, action, reward, buffer_done
+            )
         if self.use_bag:
-            # The evicted entry is the context's oldest: episode obs index
-            # t - L, where t is the transition count just incremented.
-            ev_idx = state.context.timestep - self.config.context_len
-            bag, accepted = replay.bag_add(
-                state.bag, ev_obs, ev_act, ev_idx, was_full
-            )
-            state.bag = self._bag_evict(
-                state.network, state.context, bag, ev_obs, ev_act, ev_idx,
-                was_full & ~accepted,
-            )
-        replay.store_step(state.buffer, next_obs, action, reward, buffer_done)
-        if self.store_act_bags:
-            replay.store_act_bag(state.buffer, state.bag.obs_idx,
-                                 state.bag.action)
+            with phase("evict"):
+                # The evicted entry is the context's oldest: episode obs
+                # index t - L, where t is the transition count just
+                # incremented.
+                ev_idx = state.context.timestep - self.config.context_len
+                bag, accepted = replay.bag_add(
+                    state.bag, ev_obs, ev_act, ev_idx, was_full
+                )
+                state.bag = self._bag_evict(
+                    state.network, state.context, bag, ev_obs, ev_act,
+                    ev_idx, was_full & ~accepted,
+                )
+        with phase("replay_write"):
+            replay.store_step(state.buffer, next_obs, action, reward,
+                              buffer_done)
+            if self.store_act_bags:
+                replay.store_act_bag(state.buffer, state.bag.obs_idx,
+                                     state.bag.action)
         return state
 
     def handle_resets(self, state: AgentState, done,
                       reset_obs) -> AgentState:
         """Flush finished episodes and start fresh contexts, bags and
-        carries (run.py:293-296 + context_reset dtqn.py:109-114)."""
-        replay.flush(state.buffer, done, self.mesh)
-        replay.store_first_obs(state.buffer, reset_obs, done,
-                               self.env.obs_mask)
-        state.context = replay.reset_context(
-            state.context, self.rank_generator(state.generator), reset_obs,
-            done, self.env.obs_mask, self.env.num_actions,
-        )
-        if self.use_bag:
-            state.bag = replay.reset_bag(state.bag, done, self.env.obs_mask)
-        if state.carry is not None:
-            state.carry = where_batch(
-                done, zero_carry(*state.carry.c.shape, self.device),
-                state.carry,
+        carries (run.py:293-296 + context_reset dtqn.py:109-114): phase
+        ``replay_write``."""
+        with phase("replay_write"):
+            replay.flush(state.buffer, done, self.mesh)
+            replay.store_first_obs(state.buffer, reset_obs, done,
+                                   self.env.obs_mask)
+            state.context = replay.reset_context(
+                state.context, self.rank_generator(state.generator),
+                reset_obs, done, self.env.obs_mask, self.env.num_actions,
             )
+            if self.use_bag:
+                state.bag = replay.reset_bag(state.bag, done,
+                                             self.env.obs_mask)
+            if state.carry is not None:
+                state.carry = where_batch(
+                    done, zero_carry(*state.carry.c.shape, self.device),
+                    state.carry,
+                )
         return state
 
     # ------------------------------------------------------------- learning
@@ -588,9 +598,12 @@ class Agent:
                              cfg.context_len, self.mesh)
 
     def learn(self, state: AgentState) -> AgentState:
-        """One gated DDQN gradient step (dtqn.py:162-269, dqn.py:142-206)."""
-        batch = self.sample_batch(state.buffer, state.generator)
-        return self.apply_update(state, batch)
+        """One gated DDQN gradient step (dtqn.py:162-269, dqn.py:142-206):
+        phases ``sample`` and ``update``."""
+        with phase("sample"):
+            batch = self.sample_batch(state.buffer, state.generator)
+        with phase("update"):
+            return self.apply_update(state, batch)
 
     def dropout_draws(self, state: AgentState, masks=None, window=None):
         """The masks of one train-mode forward: None without dropout (or

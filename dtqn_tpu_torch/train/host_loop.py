@@ -58,6 +58,7 @@ from dtqn_tpu_torch.utils.graphs import (
     write_back,
 )
 from dtqn_tpu_torch.utils.logging import get_logger, timestamp
+from dtqn_tpu_torch.utils.profiling import phase
 from dtqn_tpu_torch.utils.rng import seed_everything
 from dtqn_tpu_torch.utils.tree import leaves
 
@@ -151,12 +152,16 @@ def make_host_bodies(agent: Agent, eps: EpsilonSchedule,
     cfg = agent.config
 
     def act(state: AgentState) -> torch.Tensor:
-        actions, state.carry = agent.select_actions(state, state.epsilon)
+        with phase("act"):
+            actions, state.carry = agent.select_actions(state,
+                                                        state.epsilon)
         return actions
 
     def act_random(state: AgentState) -> torch.Tensor:
-        return torch.randint(0, agent.env.num_actions, (cfg.num_envs,),
-                             generator=state.generator, device=agent.device)
+        with phase("act"):
+            return torch.randint(0, agent.env.num_actions, (cfg.num_envs,),
+                                 generator=state.generator,
+                                 device=agent.device)
 
     def observe_only(state, actions, next_obs, reward, terminated, done,
                      reset_obs):
@@ -309,21 +314,28 @@ def make_host_eval_bodies(agent: Agent, meta: HostEnvironment,
                  if cfg.kind == "recurrent" else None)
         return context, bag, carry
 
+    def greedy(*args):
+        with phase("act"):
+            return agent.greedy_actions(*args)
+
     @torch.no_grad()
     def eval_observe(network, context, bag, next_obs, actions, reward,
                      terminated, live):
-        context, ev_obs, ev_act, was_full = replay.add_transition(
-            context, next_obs, actions, reward, terminated
-        )
+        with phase("replay_write"):
+            context, ev_obs, ev_act, was_full = replay.add_transition(
+                context, next_obs, actions, reward, terminated
+            )
         if agent.use_bag:
-            need = was_full & live
-            ev_idx = context.timestep - cfg.context_len
-            bag, accepted = replay.bag_add(bag, ev_obs, ev_act, ev_idx, need)
-            bag = agent._bag_evict(network, context, bag, ev_obs, ev_act,
-                                   ev_idx, need & ~accepted)
+            with phase("evict"):
+                need = was_full & live
+                ev_idx = context.timestep - cfg.context_len
+                bag, accepted = replay.bag_add(bag, ev_obs, ev_act, ev_idx,
+                                               need)
+                bag = agent._bag_evict(network, context, bag, ev_obs,
+                                       ev_act, ev_idx, need & ~accepted)
         return context, bag
 
-    return HostEvalFns(eval_init, agent.greedy_actions, eval_observe)
+    return HostEvalFns(eval_init, greedy, eval_observe)
 
 
 @dataclasses.dataclass

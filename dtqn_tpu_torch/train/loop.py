@@ -48,6 +48,7 @@ from dtqn_tpu_torch.utils.graphs import (
     own_generators,
     write_back,
 )
+from dtqn_tpu_torch.utils.profiling import phase
 from dtqn_tpu_torch.utils.rng import folded_draw, seed_count
 
 # Evaluation freezes finished episodes and could run all max_episode_steps
@@ -69,22 +70,28 @@ def env_step(
     (run.py:356-377 + 293-296), in place.
 
     ``count_steps=False`` leaves ``env_steps`` untouched: prepopulation
-    stores experience without consuming training budget.
+    stores experience without consuming training budget.  Its phases
+    (``utils/profiling.py``): ``act``, ``env``, then ``observe``'s and
+    ``handle_resets``'.
     """
     cfg, env = agent.config, agent.env
     generator = agent.rank_generator(state.generator)
-    if random_only:
-        # Prepopulation uses uniformly random actions (run.py:380-405) and
-        # leaves the act-time carry as it is.
-        actions = folded_draw(
-            generator, state.obs.shape[0], lambda g, n: torch.randint(
-                0, env.num_actions, (n,), generator=g, device=agent.device))
-    else:
-        actions, state.carry = agent.select_actions(state, state.epsilon)
+    with phase("act"):
+        if random_only:
+            # Prepopulation uses uniformly random actions (run.py:380-405)
+            # and leaves the act-time carry as it is.
+            actions = folded_draw(
+                generator, state.obs.shape[0], lambda g, n: torch.randint(
+                    0, env.num_actions, (n,), generator=g,
+                    device=agent.device))
+        else:
+            actions, state.carry = agent.select_actions(state,
+                                                        state.epsilon)
 
-    obs, state.env_state, ts = per_seed(
-        env.step_vec, generator, state.env_state, actions
-    )
+    with phase("env"):
+        obs, state.env_state, ts = per_seed(
+            env.step_vec, generator, state.env_state, actions
+        )
     state.obs = obs
     # TimeLimit truncation is not stored as done (run.py:371-374); ts.obs
     # is the TRUE next observation (before the auto-reset).
@@ -226,31 +233,35 @@ def make_eval_steps(agent: Agent, eval_env: Environment, n: int):
 
     @torch.no_grad()
     def one_step(c: EvalCarry) -> None:
-        actions, carry_t = agent.greedy_actions(c.network, c.context, c.bag,
-                                                c.carry, c.obs)
-        obs_t, env_state_t, ts = per_seed(eval_env.step, c.generator,
-                                          c.env_state, actions)
+        with phase("act"):
+            actions, carry_t = agent.greedy_actions(
+                c.network, c.context, c.bag, c.carry, c.obs)
+        with phase("env"):
+            obs_t, env_state_t, ts = per_seed(eval_env.step, c.generator,
+                                              c.env_state, actions)
         live = ~c.finished
         c.ep_reward = c.ep_reward + ts.reward * live
         done_now = live & ts.done
         # success = is_success flag or positive return (run.py:232)
         succ = ts.info["is_success"] | (c.ep_reward > 0)
-        context_t, ev_obs, ev_act, was_full = replay.add_transition(
-            c.context, ts.obs, actions, ts.reward, ts.terminated
-        )
+        with phase("replay_write"):
+            context_t, ev_obs, ev_act, was_full = replay.add_transition(
+                c.context, ts.obs, actions, ts.reward, ts.terminated
+            )
         if agent.use_bag:
             # The evaluation's bag keeps the add/evict policy
             # (dtqn.py:116-157).
-            need = was_full & live
-            ev_idx = context_t.timestep - cfg.context_len
-            bag_t, accepted = replay.bag_add(
-                c.bag, ev_obs, ev_act, ev_idx, need
-            )
-            bag_t = agent._bag_evict(
-                c.network, context_t, bag_t, ev_obs, ev_act, ev_idx,
-                need & ~accepted,
-            )
-            c.bag = where_batch(live, bag_t, c.bag)
+            with phase("evict"):
+                need = was_full & live
+                ev_idx = context_t.timestep - cfg.context_len
+                bag_t, accepted = replay.bag_add(
+                    c.bag, ev_obs, ev_act, ev_idx, need
+                )
+                bag_t = agent._bag_evict(
+                    c.network, context_t, bag_t, ev_obs, ev_act, ev_idx,
+                    need & ~accepted,
+                )
+                c.bag = where_batch(live, bag_t, c.bag)
         # Finished episodes stay frozen; live ones advance.
         c.context = where_batch(live, context_t, c.context)
         c.env_state = where_batch(live, env_state_t, c.env_state)

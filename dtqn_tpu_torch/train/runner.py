@@ -62,7 +62,7 @@ from dtqn_tpu_torch.train.loop import (
 from dtqn_tpu_torch.utils import checkpoint as ckpt
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 from dtqn_tpu_torch.utils.logging import get_logger, timestamp
-from dtqn_tpu_torch.utils.profiling import trace_chunks
+from dtqn_tpu_torch.utils.profiling import trace_chunks, tracing_on
 from dtqn_tpu_torch.utils.rng import seed_everything
 
 
@@ -165,8 +165,15 @@ def run_experiment(config: ExperimentConfig) -> dict:
 
     Runs on ``config.device``: the card by default (raising when there is
     none), the CPU only when the config says ``cpu``.  With
-    ``--dp-devices N`` rank r runs on ``cuda:(r % device_count)``.
+    ``--dp-devices N`` rank r runs on ``cuda:(r % device_count)``.  With
+    ``--profile-dir`` tracing is on for the run (``utils/profiling.py``):
+    every graph it captures records the phases' boundaries.
     """
+    with tracing_on(bool(config.profile_dir)):
+        return _run(config)
+
+
+def _run(config: ExperimentConfig) -> dict:
     # Enjoy mode only evaluates: one process does it.
     ranks = 1 if config.render else config.dp_devices
     if (ranks > 1 and not dist.is_initialized()
@@ -311,7 +318,7 @@ def run_experiment(config: ExperimentConfig) -> dict:
         profile_now = (config.profile_dir and not profiled
                        and int(state.env_steps) > 0)
         with trace_chunks(config.profile_dir if profile_now else None,
-                          device):
+                          device, train_chunk):
             state = train_chunk(state)
         profiled = profiled or bool(profile_now)
         step = int(state.env_steps)

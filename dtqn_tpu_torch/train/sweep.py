@@ -41,7 +41,7 @@ from dtqn_tpu_torch.train.runner import build_envs
 from dtqn_tpu_torch.utils import checkpoint as ckpt
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 from dtqn_tpu_torch.utils.logging import CSVLogger, timestamp
-from dtqn_tpu_torch.utils.profiling import trace_chunks
+from dtqn_tpu_torch.utils.profiling import trace_chunks, tracing_on
 from dtqn_tpu_torch.utils.rng import seed_everything
 
 
@@ -59,7 +59,13 @@ def _save_policies(seed_cfgs, state) -> None:
 def run_sweep(config: ExperimentConfig, seeds: Sequence[int]) -> dict:
     """Trains all ``seeds`` at once on ``config.device`` (the card unless
     the config says ``cpu``); returns {seed: final metrics}, or
-    {"completed": True, "step": ...} for a sweep that had finished."""
+    {"completed": True, "step": ...} for a sweep that had finished.  With
+    ``--profile-dir`` tracing is on for the sweep, as in the runner."""
+    with tracing_on(bool(config.profile_dir)):
+        return _sweep(config, seeds)
+
+
+def _sweep(config: ExperimentConfig, seeds: Sequence[int]) -> dict:
     start_time = time.time()
     if config.dp_devices > 1:
         # The JAX sweep runs on one device and ignores the flag.
@@ -126,7 +132,7 @@ def run_sweep(config: ExperimentConfig, seeds: Sequence[int]) -> dict:
         profile_now = (config.profile_dir and not profiled
                        and int(state.env_steps[0]) > 0)
         with trace_chunks(config.profile_dir if profile_now else None,
-                          device):
+                          device, chunk):
             state = chunk(state)
         profiled = profiled or bool(profile_now)
         step = int(state.env_steps[0])

@@ -44,7 +44,11 @@ code advances (``ops.cuda_attention.launch_counts``: one per kernel launch)
 would count a capture, which launches nothing, and no replay.
 ``counting_capture`` records what each dict of ``TRACKED_COUNTERS`` gained
 during a capture and takes it back; ``CountedGraph.replay`` adds it on every
-replay, so the counts stay those of the kernels that ran.
+replay, so the counts stay those of the kernels that ran.  For the same
+reason a step's phases (``utils/profiling.py``) are seen inside a replay
+only through the boundary events that a capture made while tracing records
+into the graph: the graph keeps them (``CountedGraph.marks``), and
+``GraphedStep.phase_ms`` reads its last replay's.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from torch import nn
 
 from dtqn_tpu_torch.models.stacked import StackedNetwork
 from dtqn_tpu_torch.ops.cuda_attention import launch_counts
+from dtqn_tpu_torch.utils import profiling
 from dtqn_tpu_torch.utils.tree import fields, leaves
 
 # Dicts of counts, by name, that a replay advances by what they gained
@@ -93,11 +98,15 @@ def counting_capture() -> Iterator[Gains]:
 class CountedGraph:
     """A captured graph and what the tracked counters gained during its
     capture, added again on every replay to the counter registered under
-    each name then."""
+    each name then; and the phases' boundary events that the capture
+    recorded (``profiling.recording_phases``; none while not tracing),
+    which live as long as the graph that records them."""
 
-    def __init__(self, graph, gains: Gains):
+    def __init__(self, graph, gains: Gains,
+                 marks: Optional[profiling.Marks] = None):
         self.graph = graph
         self.gains = gains
+        self.marks = marks or []
 
     def replay(self) -> None:
         self.graph.replay()
@@ -273,6 +282,7 @@ class GraphedStep:
         self.bound: Optional[Tuple] = None
         self.captures = 0
         self.warm_up_s = self.capture_s = None
+        self.replayed = False  # since the last capture
 
     def __call__(self, state):
         todo = self.times
@@ -281,7 +291,18 @@ class GraphedStep:
             todo -= 1
         for _ in range(todo):
             self.graph.replay()
+        self.replayed = self.replayed or todo > 0
         return state
+
+    def phase_ms(self) -> Optional[dict]:
+        """Device ms by phase of the last replay, and its span from the
+        first boundary to the last (``profiling.phase_ms``), once it has
+        ended; None for a graph captured while not tracing, or not replayed
+        since its capture."""
+        if self.graph is None or not self.graph.marks or not self.replayed:
+            return None
+        self.graph.marks[-1][1].synchronize()
+        return profiling.phase_ms(self.graph.marks)
 
     def capture(self, state) -> None:
         """Runs the step once for real, then captures it into a graph bound
@@ -313,12 +334,14 @@ class GraphedStep:
             with counting_capture() as gains:
                 with torch.cuda.graph(graph, pool=shared_pool(self.owner),
                                       stream=side):
-                    self.step(state)
+                    with profiling.recording_phases() as marks:
+                        self.step(state)
             torch.cuda.synchronize(device)
         except RuntimeError as e:
             raise RuntimeError(
                 f"capturing {self.name} as a CUDA graph failed: {e}") from e
         self.capture_s = time.perf_counter() - t0
-        self.graph = CountedGraph(graph, gains)
+        self.graph = CountedGraph(graph, gains, marks)
         self.bound = addresses(state)
         self.captures += 1
+        self.replayed = False

@@ -41,6 +41,7 @@ from dtqn_tpu_torch.utils import checkpoint as ckpt
 from dtqn_tpu_torch.utils import logging as port_logging
 from dtqn_tpu_torch.utils.checkpoint import _leaves
 from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
+from dtqn_tpu_torch.utils.profiling import tracing, tracing_on
 from dtqn_tpu_torch.utils.rng import seed_everything
 
 RESULT_HEAD = ["Hours", "Step", "{e}/SuccessRate", "{e}/EpisodeLength",
@@ -517,8 +518,8 @@ def test_not_ported_flags_raise(kw, item, tmp_path, monkeypatch):
                         updates_per_iter=1, max_episode_steps=10, **kw)
     calls = []
     real = runner.trace_chunks
-    monkeypatch.setattr(runner, "trace_chunks", lambda d, dev: calls.append(
-        d) or real(d, dev))
+    monkeypatch.setattr(runner, "trace_chunks", lambda d, *rest: calls.append(
+        d) or real(d, *rest))
     out = run_experiment(cfg)
     assert out["losses/Grad_Norm"] > 0.0 and all(
         np.isfinite(v) for v in out.values())
@@ -537,32 +538,32 @@ def test_not_ported_flags_raise(kw, item, tmp_path, monkeypatch):
     if traces:
         with open(os.path.join("prof", traces[0])) as f:
             events = json.load(f)["traceEvents"]
-        # One chunk: its env steps and updates (host operations on the CPU).
+        # One chunk: its env steps and updates (host operations on the CPU),
+        # in the phases' spans: --profile-dir switches tracing on for the
+        # run, and back off after it.
         names = {e.get("name", "") for e in events}
         assert any("aten::" in n for n in names)
+        assert {"dtqn.act", "dtqn.env", "dtqn.sample", "dtqn.update"} <= names
+        assert not tracing()
 
 
 def test_profiling_helpers(tmp_path):
     """``trace_chunks`` writes one Chrome trace holding what ran inside it,
-    ``annotate``'s span included, and nothing without a directory;
-    ``device_memory_summary`` reports each card (none here)."""
-    from dtqn_tpu_torch.utils.profiling import (
-        annotate,
-        device_memory_summary,
-        trace_chunks,
-    )
+    a ``phase``'s span included while tracing, and nothing without a
+    directory; a chunk with no phases' marks (a CPU body) adds no phases
+    file."""
+    from dtqn_tpu_torch.utils.profiling import phase, trace_chunks
 
     with trace_chunks(None, "cpu"):
         torch.ones(3).sum()
     out = tmp_path / "prof"
-    with trace_chunks(str(out), "cpu"):
-        with annotate("dtqn_span"):
+    with trace_chunks(str(out), "cpu", chunk=lambda s: s):
+        with tracing_on(), phase("update"):
             torch.ones(3).sum()
     (trace,) = os.listdir(out)
     with open(out / trace) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "dtqn_span" in names and "aten::sum" in names
-    assert device_memory_summary() == {}
+    assert "dtqn.update" in names and "aten::sum" in names
 
 
 # DTQN's variants, the image maze and several domains: each trains and
