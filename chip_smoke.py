@@ -204,7 +204,22 @@ Phases (any failure exits non-zero and prints no result):
      ``evict`` only with the bag) summing to within 3% of the replay's
      device span (its first operation's start to its last one's end);
      then the two chunks timed in turns (off, on, on, off: device ms an
-     iteration), and the leaves bit-equal still.
+     iteration), and the leaves bit-equal still;
+ 24. the optimizer kernels (``ops/cuda_optimizer.py``, the step after the
+     gradient) against the plain PyTorch chain on the card at the
+     benchmark networks' parameter vectors, [107779], [5, 107779],
+     [509142] and [5, 509142]: the norm below and above the clip, a seed
+     gated off, a non-finite gradient and a target swap (train_steps
+     9 999 -> 10 000), at 5 seeds one a seed, at one each in a call: the
+     norm within 1e-6 of ``torch.linalg.vector_norm``'s, parameters,
+     moments, target, counters and gate bit-equal to the chain fed the
+     kernels' norm, the gated and non-finite seeds' state unchanged, each
+     call 2 launches; a graph replay bit-equal to an eager call, counting
+     2 launches; the device ms of the pair and of the chain beside the
+     bytes' bound.  (Every training path of the phases before counts the
+     two kernels' launches from zero, one of each an update, and every
+     evaluation none.)  Alone: ``python3 -c 'import chip_smoke as c;
+     c.optimizer_phase(0)'``.
 
 Every phase on the card trains and evaluates through the compiled entry
 points (``train/loop.py``: ``make_prepopulate`` and ``make_train_chunk``,
@@ -590,7 +605,7 @@ def main_path(seed, ca):
         updates_per_iter=updates, iters_per_chunk=1,
     )
 
-    ca.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     state = agent.init_state(seed)
     prepopulate(state)
@@ -604,7 +619,8 @@ def main_path(seed, ca):
     train_iter(state)
     torch.cuda.synchronize()
     t_iter = time.perf_counter() - t0
-    launches = dict(ca.launch_counts)
+    launches = launch_counts()
+    optimizer_launches(2 * updates, "main path")
 
     train_steps = int(state.train_steps)
     nonfinite = int(state.nonfinite_grads)
@@ -929,13 +945,47 @@ def check_csvs(cfg, steps, cap=None):
     return tables
 
 
+def reset_launch_counts():
+    """Zeroes the launch counts of both kernel libraries: the attention
+    pair's (``ops/cuda_attention.py``) and the optimizer pair's
+    (``ops/cuda_optimizer.py``)."""
+    from dtqn_tpu_torch.ops import cuda_attention as ca
+    from dtqn_tpu_torch.ops import cuda_optimizer as co
+
+    ca.reset_launch_counts()
+    co.reset_launch_counts()
+
+
+def launch_counts():
+    """Both libraries' launches since ``reset_launch_counts``, by kernel."""
+    from dtqn_tpu_torch.ops import cuda_attention as ca
+    from dtqn_tpu_torch.ops import cuda_optimizer as co
+
+    return dict(ca.launch_counts, **co.launch_counts)
+
+
+def optimizer_launches(updates, what):
+    """The optimizer kernels' launches since ``reset_launch_counts``,
+    checked to be one of each an update: every model, stacked or not, in
+    float32 or bf16, graphed or eager, runs the step after the gradient
+    once an update, and acting, the prepopulation and evaluation never."""
+    from dtqn_tpu_torch.ops import cuda_optimizer as co
+
+    counts = dict(co.launch_counts)
+    check(counts == {"adam_sumsq": updates, "adam_apply": updates},
+          f"{what}: the optimizer kernels launched {counts}, expected "
+          f"{updates} of each (one an update)")
+    return counts
+
+
 def check_launches(ca, probe, cfg, iters, what, prepopulated=True):
     """Every forward launches one attention_fwd per layer, and one more for
     the bag: one forward per greedy call (an act step or an evaluation
     step), with a bag one evict forward after each and after each step of
     the prepopulation, and three per update; every update launches one
     attention_bwd per layer and for the bag.  With dropout the update's
-    forwards are train-mode ones, in stock ops: an update launches none."""
+    forwards are train-mode ones, in stock ops: an update launches none.
+    Every update, with dropout too, launches each optimizer kernel once."""
     updates = iters * cfg.resolved_updates_per_iter * (cfg.dropout <= 0.0)
     greedy_calls = probe.greedy_calls["calls"]
     eval_steps = greedy_calls - iters
@@ -958,6 +1008,8 @@ def check_launches(ca, probe, cfg, iters, what, prepopulated=True):
           f"{expect_bwd}")
     check(sum(launches.values()) == expect_fwd + expect_bwd,
           f"{what}: launches of the other dtype's instances: {launches}")
+    launches.update(optimizer_launches(
+        iters * cfg.resolved_updates_per_iter, what))
     return launches, eval_steps
 
 
@@ -997,7 +1049,7 @@ def runner_phase(seed, ca):
     iters = cfg.num_steps // cfg.num_envs
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
             Probe().attached() as probe:
-        ca.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         final = run_experiment(cfg)
         torch.cuda.synchronize()
@@ -1052,7 +1104,7 @@ def resume_phase(seed, ca, whole_weights, make_cfg=runner_config,
         iters = cfg.resolved_iters_per_chunk
         cut_at, final = iters * cfg.num_envs, cfg.num_steps
         with Probe().attached() as cut:
-            ca.reset_launch_counts()
+            reset_launch_counts()
             run_experiment(cfg)
             launches_cut, _ = check_launches(ca, cut, cfg, iters,
                                              "run to the time limit")
@@ -1066,7 +1118,7 @@ def resume_phase(seed, ca, whole_weights, make_cfg=runner_config,
 
         cfg = make_cfg(seed)
         with Probe().attached() as resumed:
-            ca.reset_launch_counts()
+            reset_launch_counts()
             run_experiment(cfg)
             launches_resumed, _ = check_launches(
                 ca, resumed, cfg, iters, "resumed run", prepopulated=False)
@@ -1124,7 +1176,7 @@ def discrete_phase(seed, ca):
         check(lc.head_dim_pad == 16
               and (lc.head_dim_pad, lc.keys_per_lane) in ca.INSTANCES,
               f"{kind} instance for head width 16: {lc}")
-    ca.reset_launch_counts()
+    reset_launch_counts()
     state = agent.init_state(seed)
     make_prepopulate(agent, 150)(state)
     flushed = int(state.buffer.flushed_total)
@@ -1137,7 +1189,8 @@ def discrete_phase(seed, ca):
             float(x) for x in make_evaluate(agent, env, 10)(
                 state.network,
                 torch.Generator(device=DEVICE).manual_seed(seed)))
-    launches = dict(ca.launch_counts)
+    launches = launch_counts()
+    optimizer_launches(updates, "discrete")
     check(int(state.train_steps) == updates,
           f"train_steps {int(state.train_steps)}")
     check(int(state.nonfinite_grads) == 0, "non-finite gradient steps")
@@ -1262,7 +1315,11 @@ def check_mma(ledger, what):
                                 f"tensor-core form: {show_ledger(lanes)}")
 
 
-def check_ledger(ca, ledger, expected, what):
+def check_ledger(ca, ledger, expected, what, updates):
+    """The attention launches by shape (``ledger``) against ``expected``,
+    and the launch counts against both: the attention pair's against the
+    shapes', the optimizer pair's against the stretch's ``updates``.
+    Returns the launches by shape and the optimizer's by kernel."""
     check(ledger == expected,
           f"{what}: launches by shape {show_ledger(ledger)}, reckoned "
           f"{show_ledger(expected)}")
@@ -1274,7 +1331,7 @@ def check_ledger(ca, ledger, expected, what):
         check(ca.launch_counts[name] == total,
               f"{what}: {name} counted {ca.launch_counts[name]} launches, "
               f"reckoned {total}")
-    return show_ledger(ledger)
+    return dict(show_ledger(ledger), **optimizer_launches(updates, what))
 
 
 def seed_blocks(state):
@@ -1418,7 +1475,7 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
     result = {"config": kw, "env": env_name, "seeds": seeds}
 
     with launch_ledger(ca) as ledger:
-        ca.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         state = (agent.init_sweep_state(seeds) if seeds
                  else agent.init_state(seed))
@@ -1429,23 +1486,23 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
         result["launches_prepopulation"] = check_ledger(
             ca, ledger,
             reckoned_launches(folded, 0, 0, evict_steps=prepop_iters),
-            f"{what}, prepopulation")
+            f"{what}, prepopulation", 0)
     flushed = state.buffer.flushed_total.reshape(-1).tolist()
     check(min(flushed) > cfg.batch_size,
           f"{what}: prepopulation flushed only {flushed}")
 
     with launch_ledger(ca) as ledger:
-        ca.reset_launch_counts()
+        reset_launch_counts()
         for _ in range(iters):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             train_iter(state)
             torch.cuda.synchronize()
             t_iter = time.perf_counter() - t0
-        result["launches"] = dict(ca.launch_counts)
+        result["launches"] = launch_counts()
         result["launches_by_shape"] = check_ledger(
             ca, ledger, reckoned_launches(folded, iters, iters * updates),
-            f"{what}, {iters} train iterations")
+            f"{what}, {iters} train iterations", iters * updates)
     applied = state.train_steps.reshape(-1).tolist()
     check(applied == [iters * updates] * n, f"{what}: train_steps {applied}")
     check(int(state.nonfinite_grads.sum()) == 0,
@@ -1472,7 +1529,7 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
         gens = [torch.Generator(device=DEVICE).manual_seed(s + 1)
                 for s in (seeds or [seed])]
         with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
-            ca.reset_launch_counts()
+            reset_launch_counts()
             t0 = time.perf_counter()
             out = make_evaluate(agent, env, 10)(
                 state.network, gens if seeds else gens[0])
@@ -1482,7 +1539,7 @@ def drive(seed, ca, env_name, prepop_iters, iters, evaluate=False,
             eval_cfg = dataclasses.replace(cfg, num_envs=10 * n)
             result["launches_evaluation"] = check_ledger(
                 ca, ledger, reckoned_launches(eval_cfg, steps, 0),
-                f"{what}, evaluation")
+                f"{what}, evaluation", 0)
         cap = env.max_episode_steps
         check(1 <= steps <= cap and all(
             0.0 <= a <= 1.0 and 1.0 <= b <= cap and abs(c) <= cap
@@ -1562,7 +1619,7 @@ def bag_phase(seed, ca):
     iters = cfg.num_steps // cfg.num_envs
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
             Probe().attached() as probe:
-        ca.reset_launch_counts()
+        reset_launch_counts()
         final = run_experiment(cfg)
         launches, eval_steps = check_launches(ca, probe, cfg, iters,
                                               "bag-store runner")
@@ -1655,7 +1712,7 @@ def baselines_phase(seed, ca):
     iters = cfg.num_steps // cfg.num_envs
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
             Probe().attached() as probe:
-        ca.reset_launch_counts()
+        reset_launch_counts()
         final = run_experiment(cfg)
         launches, eval_steps = check_launches(ca, probe, cfg, iters,
                                               "DRQN runner")
@@ -1695,21 +1752,21 @@ def evaluation_turns(ca, agent, env, network, seed, seeds, what):
         gens = [torch.Generator(device=DEVICE).manual_seed(s + 1)
                 for s in (seeds or [seed])]
         with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
-            ca.reset_launch_counts()
+            reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = evaluators[kind](network, gens if seeds else gens[0])
             out = [x.reshape(-1).tolist() for x in out]
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            seen = (out, calls["calls"], dict(ca.launch_counts), dict(ledger))
+            seen = (out, calls["calls"], launch_counts(), dict(ledger))
         return seconds, seen, [g.get_state() for g in gens]
 
     first_s, reference, reference_gens = one("graphed")
     out, steps, launches, ledger = reference
     check_ledger(ca, ledger, reckoned_launches(
         dataclasses.replace(agent.config, num_envs=10 * n), steps, 0),
-        f"{what}, graphed evaluation")
+        f"{what}, graphed evaluation", 0)
     times = {"eager": [], "graphed": []}
     for kind in EAGER_GRAPHED_TURNS:
         seconds, seen, gens = one(kind)
@@ -1963,7 +2020,7 @@ def image_phase(seed, ca):
     iters = cfg.num_steps // cfg.num_envs
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
             Probe().attached() as probe:
-        ca.reset_launch_counts()
+        reset_launch_counts()
         final = run_experiment(cfg)
         launches, eval_steps = check_launches(ca, probe, cfg, iters,
                                               "image runner")
@@ -2070,7 +2127,7 @@ def multi_phase(seed, ca):
     evals = build_envs(ExperimentConfig(envs=list(FOUR_ROOMS)))[1]
     for i, env in enumerate(evals):
         with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
-            ca.reset_launch_counts()
+            reset_launch_counts()
             sr, ret, length = (
                 float(x) for x in make_evaluate(agent, env, 10)(
                     state.network,
@@ -2078,7 +2135,7 @@ def multi_phase(seed, ca):
             steps = calls["calls"]
             launches = check_ledger(
                 ca, ledger, reckoned_launches(eval_cfg, steps, 0),
-                f"four rooms, evaluation on {env.name}")
+                f"four rooms, evaluation on {env.name}", 0)
         cap = env.max_episode_steps
         check(0.0 <= sr <= 1.0 and 1.0 <= length <= cap
               and 1 <= steps <= cap and abs(ret) <= 5.0 + 0.05 * cap,
@@ -2141,7 +2198,7 @@ def update_kernels_in_turns(ca, runs, turns=TURNS):
     seen = {n: [] for n in runs}
     for n in turns:
         agent, state = runs[n]
-        ca.reset_launch_counts()
+        reset_launch_counts()
         with leaves_kept(state):
             _, by_name = device_events(lambda: agent.learn(state))
         seen[n].append((sum(k for k, _ in by_name.values()),
@@ -2238,7 +2295,7 @@ def sweep_runner_phase(seed, ca):
     cut_at = cfg.resolved_iters_per_chunk * cfg.num_envs
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
             counted_greedy_calls() as calls:
-        ca.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         final = run_sweep(cfg, seeds)
         torch.cuda.synchronize()
@@ -2600,7 +2657,7 @@ def bf16_runner_phase(seed, ca):
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
             Probe().attached() as probe, launch_ledger(ca) as ledger:
         cfg = bf16_runner_config(seed, profile_dir=os.path.join(tmp, "prof"))
-        ca.reset_launch_counts()
+        reset_launch_counts()
         final = run_experiment(cfg)
         launches, eval_steps = check_launches(ca, probe, cfg, iters,
                                               "bf16 runner")
@@ -2656,7 +2713,7 @@ def bf16_runner_phase(seed, ca):
     seeds = [seed, seed + 1]
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
             launch_ledger(ca) as ledger:
-        ca.reset_launch_counts()
+        reset_launch_counts()
         cfg = bf16_runner_config(seed, num_steps=128, eval_frequency=64,
                                  prepop_steps=64 * 210)
         final = run_sweep(cfg, seeds)
@@ -2664,7 +2721,9 @@ def bf16_runner_phase(seed, ca):
         check_mma(ledger, "bf16 sweep")
         check(all(math.isfinite(v) for s in seeds for v in final[s].values()),
               f"bf16 sweep: final log not finite: {final}")
-        launches = dict(ca.launch_counts)
+        launches = launch_counts()
+        optimizer_launches(cfg.num_steps // cfg.num_envs
+                           * cfg.resolved_updates_per_iter, "bf16 sweep")
         check(launches["attention_fwd"] == launches["attention_bwd"] == 0
               and launches["attention_bwd_bf16"] > 0,
               f"bf16 sweep launches {launches}")
@@ -2894,7 +2953,7 @@ def dp_rank(mesh, path, turns):
             check_replicated(state, mesh)
             return dp_tensors(unshard_state(state, mesh))
 
-        ca.reset_launch_counts()
+        reset_launch_counts()
         with launch_ledger(ca) as ledger:
             turn = dp_turn(agent, state, train_iter, mesh, gathered)
             launched = dict(ledger)
@@ -2902,11 +2961,11 @@ def dp_rank(mesh, path, turns):
             del turn["learner"], turn["state"]  # rank 0's are the same
         share = dataclasses.replace(cfg, num_envs=cfg.num_envs // mesh.size,
                                     batch_size=cfg.batch_size // mesh.size)
-        reckoned = reckoned_launches(
-            share, DP_ITERS, DP_ITERS * cfg.num_envs + DP_UPDATES * (
-                2 if mesh.device.type == "cuda" else 1))
-        turn["launches"] = check_ledger(ca, launched, reckoned,
-                                        f"phase 20, rank {mesh.rank}")
+        on_card = mesh.device.type == "cuda"
+        updates = DP_ITERS * cfg.num_envs + DP_UPDATES * (2 if on_card else 1)
+        turn["launches"] = check_ledger(
+            ca, launched, reckoned_launches(share, DP_ITERS, updates),
+            f"phase 20, rank {mesh.rank}", updates if on_card else 0)
         out["turns"].append(turn)
     return out
 
@@ -3290,7 +3349,7 @@ def host_cue_phase(seed, ca):
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp), \
             launch_ledger(ca) as ledger, counted_greedy_calls() as calls, \
             patched(hl, "evaluate_host", clocked_evaluate):
-        ca.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         final = hl.run_host_experiment(
             cfg, env_factory=lambda name: CueHostEnv())
@@ -3300,8 +3359,9 @@ def host_cue_phase(seed, ca):
         by_shape = check_ledger(
             ca, ledger,
             host_reckoned(acfg, iters, iters * cfg.resolved_updates_per_iter,
-                          eval_steps), "host loop, cue task")
-        launches = dict(ca.launch_counts)
+                          eval_steps), "host loop, cue task",
+            iters * cfg.resolved_updates_per_iter)
+        launches = launch_counts()
         nets = {d: ckpt.load_policy(cfg.policy_path(), Agent(
             acfg, CueHostEnv(), device=d).build_network().to(d))
             for d in (DEVICE, "cpu")}
@@ -3375,7 +3435,7 @@ def host_drive(seed, ca, bf16=False):
     result = {}
 
     with launch_ledger(ca) as ledger:
-        ca.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         state = agent.init_state(seed, vec.reset_all())
         for _ in range(GLYPH_PREPOP_ITERS):
@@ -3393,7 +3453,7 @@ def host_drive(seed, ca, bf16=False):
 
     if bf16:
         with launch_ledger(ca) as ledger:
-            ca.reset_launch_counts()
+            reset_launch_counts()
             for _ in range(2):  # the first warms up (captures)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -3403,11 +3463,11 @@ def host_drive(seed, ca, bf16=False):
             t_iter = time.perf_counter() - t0
             result.update(iteration_s=t_iter,
                           env_steps_per_s=cfg.num_envs / t_iter,
-                          launches=dict(ca.launch_counts),
+                          launches=launch_counts(),
                           launches_by_shape=check_ledger(
                               ca, ledger, reckoned_launches(acfg, 2,
                                                             2 * updates),
-                              f"{what}, 2 iterations"))
+                              f"{what}, 2 iterations", 2 * updates))
             check_mma(ledger, what)
         check(int(state.train_steps) == 2 * updates,
               f"{what}: train_steps {int(state.train_steps)}")
@@ -3441,11 +3501,11 @@ def host_drive(seed, ca, bf16=False):
         seen = {}
         for kind in runs:
             with launch_ledger(ca) as ledger:
-                ca.reset_launch_counts()
+                reset_launch_counts()
                 iterate(kind)
-                seen[kind] = (dict(ca.launch_counts), check_ledger(
+                seen[kind] = (launch_counts(), check_ledger(
                     ca, ledger, reckoned_launches(acfg, 1, updates),
-                    f"{what}, {kind} iteration {i + 1}"))
+                    f"{what}, {kind} iteration {i + 1}", updates))
         same(f"iteration {i + 1}")
         check(seen["eager"] == seen["graphed"],
               f"{what}, iteration {i + 1}: launches eager "
@@ -3526,7 +3586,7 @@ def host_drive(seed, ca, bf16=False):
     evaluations = {}
     for kind in ("eager", "graphed", "graphed"):
         with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
-            ca.reset_launch_counts()
+            reset_launch_counts()
             gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
             seeds = iter(range(seed, seed + 10))
             torch.cuda.synchronize()
@@ -3538,7 +3598,7 @@ def host_drive(seed, ca, bf16=False):
             steps = calls["calls"]
             launches = check_ledger(ca, ledger,
                                     host_reckoned(acfg, 0, 0, steps),
-                                    f"{what}, {kind} evaluation")
+                                    f"{what}, {kind} evaluation", 0)
         evaluations.setdefault(kind, []).append(
             {"seconds": seconds, "steps": steps, "result": out,
              "launches": launches, "generator": gen.get_state()})
@@ -3604,7 +3664,7 @@ def host_runner_phase(seed, ca):
     result = {}
     with tempfile.TemporaryDirectory() as tmp, in_directory(tmp):
         with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
-            ca.reset_launch_counts()
+            reset_launch_counts()
             t0 = time.perf_counter()
             final = hl.run_host_experiment(cfg, env_factory=factory)
             torch.cuda.synchronize()
@@ -3614,7 +3674,8 @@ def host_runner_phase(seed, ca):
                 ca, ledger,
                 host_reckoned(cfg.agent_config(), iters,
                               iters * cfg.resolved_updates_per_iter,
-                              eval_steps), "host loop runner")
+                              eval_steps), "host loop runner",
+                iters * cfg.resolved_updates_per_iter)
         check_csvs(cfg, [64, 128], cap=GLYPH_CAP)
         check(all(math.isfinite(v) for v in final.values()),
               f"host loop runner: final log not finite: {final}")
@@ -3818,9 +3879,11 @@ def graphed_path(seed, ca, name, env_name, kw, prepop_iters, seeds):
         seen = {}
         for kind, (st, chunk) in chunks.items():
             with launch_ledger(ca) as ledger:
-                ca.reset_launch_counts()
-                seen[kind] = (timed_call(chunk, st), dict(ca.launch_counts),
+                reset_launch_counts()
+                seen[kind] = (timed_call(chunk, st), launch_counts(),
                               dict(ledger))
+                optimizer_launches(GRAPH_ITERS * updates,
+                                   f"{what}, {kind} chunk {r + 1}")
         differ = differing_leaves(eager, graphed)
         check(not differ, f"{what}, chunk {r + 1}: the graphed chunk's "
                           f"leaves differ from the eager one's: {differ}")
@@ -3835,6 +3898,7 @@ def graphed_path(seed, ca, name, env_name, kw, prepop_iters, seeds):
                        "graphed_s": seen["graphed"][0][1],
                        "launches": {k: v for k, v in seen["graphed"][1].items()
                                     if v},
+                       "updates": GRAPH_ITERS * updates,
                        "evaluation": evaluations_equal(
                            ca, evaluators, seeds or seed,
                            f"{what}, after chunk {r + 1}")})
@@ -3877,15 +3941,16 @@ def evaluations_equal(ca, evaluators, seed, what):
         gens = [torch.Generator(device=DEVICE).manual_seed(s + 7)
                 for s in (seed if isinstance(seed, list) else [seed])]
         with launch_ledger(ca) as ledger, counted_greedy_calls() as calls:
-            ca.reset_launch_counts()
+            reset_launch_counts()
             t0 = time.perf_counter()
             out = evaluate(state.network,
                            gens if isinstance(seed, list) else gens[0])
             out = [x.reshape(-1).tolist() for x in out]
             seconds = time.perf_counter() - t0
-            seen[kind] = ((out, calls["calls"], dict(ca.launch_counts),
+            seen[kind] = ((out, calls["calls"], launch_counts(),
                            dict(ledger)), [g.get_state() for g in gens],
                           seconds)
+            optimizer_launches(0, f"{what}, {kind} evaluation")
     (a, gens_a, _), (b, gens_b, _) = seen["eager"], seen["graphed"]
     check(a == b and all(torch.equal(x, y) for x, y in zip(gens_a, gens_b)),
           f"{what}: the graphed evaluation {b[:3]} differs from the eager "
@@ -4100,6 +4165,239 @@ def tracing_phase(seed):
             for name, env, kw, prepop, seeds in TRACED_PATHS}
 
 
+# (name, gradient scale, ok, a non-finite gradient, train_steps) of phase
+# 24's cases: at 5 seeds one a seed, at one seed each in a call of its
+# own.  A gradient's norm is about its scale times sqrt(P): 0.33 / 0.71
+# at 1e-3, 3.3 / 7.1 at 1e-2 (P = 107 779 / 509 142).
+OPTIMIZER_CASES = (
+    ("below", 1e-3, True, False, 12),
+    ("above", 1e-2, True, False, 12),
+    ("gated", 1e-2, False, False, 12),
+    ("nonfinite", 1e-2, True, True, 12),
+    ("swap", 1e-2, True, False, 9_999),
+)
+# The flat parameter vectors of the benchmark's two networks (Car Flag
+# DTQN, the gridverse DTQN-bag), at one seed and five.
+OPTIMIZER_SHAPES = ((107_779,), (5, 107_779), (509_142,), (5, 509_142))
+OPTIMIZER_TARGET_EVERY = 10_000
+OPTIMIZER_NORM_RTOL = 1e-6  # the kernels' norm against vector_norm's
+
+
+@dataclasses.dataclass
+class OptimizerState:
+    """The fields of an ``AgentState`` that the step after the gradient
+    reads and writes."""
+
+    params: torch.Tensor
+    target_params: torch.Tensor
+    opt_state: object
+    train_steps: torch.Tensor
+    nonfinite_grads: torch.Tensor
+
+    @property
+    def seed_shape(self):
+        return self.train_steps.shape
+
+    def tensors(self):
+        opt = self.opt_state
+        return {"params": self.params, "target": self.target_params,
+                "mu": opt.mu, "nu": opt.nu, "count": opt.count,
+                "train_steps": self.train_steps,
+                "nonfinite_grads": self.nonfinite_grads}
+
+    def clone(self):
+        opt = self.opt_state
+        return OptimizerState(
+            self.params.clone(), self.target_params.clone(),
+            type(opt)(opt.mu.clone(), opt.nu.clone(), opt.count.clone()),
+            self.train_steps.clone(), self.nonfinite_grads.clone())
+
+
+def optimizer_inputs(seed, shape, cases):
+    """A state, its gradients and ``ok`` on the card for ``cases`` (one
+    a row), drawn from ``seed``."""
+    from dtqn_tpu_torch.agents.base import AdamState
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    seeds = shape[:-1]
+
+    def draw(scale):
+        return scale * torch.randn(shape, generator=gen, device=DEVICE)
+
+    def per_row(values, dtype):
+        return torch.tensor(values, dtype=dtype, device=DEVICE).reshape(
+            seeds)
+
+    grads = draw(1.0) * per_row([c[1] for c in cases],
+                                torch.float32)[..., None]
+    for i, case in enumerate(cases):
+        if case[3]:
+            grads.view(-1, shape[-1])[i, 1234] = float("nan")
+    params = draw(0.02)
+    state = OptimizerState(
+        params, params + draw(1e-3),
+        AdamState(draw(1e-3), draw(1e-3) ** 2,
+                  per_row([41] * len(cases), torch.int32)),
+        per_row([c[4] for c in cases], torch.int32),
+        per_row([3] * len(cases), torch.int32))
+    return state, grads, per_row([c[2] for c in cases], torch.bool)
+
+
+def fused_step(state, grads, ok):
+    """The kernels on ``state`` as ``optimizer_step`` runs them: (gnorm,
+    apply), the counters rebound."""
+    from dtqn_tpu_torch.agents import base
+    from dtqn_tpu_torch.ops import cuda_optimizer as co
+
+    opt = state.opt_state
+    gnorm, apply, opt.count, state.train_steps, state.nonfinite_grads = (
+        co.clip_adam_apply(
+            state.params, grads, opt.mu, opt.nu, opt.count, ok,
+            state.train_steps, state.nonfinite_grads, state.target_params,
+            3e-4, 1.0, OPTIMIZER_TARGET_EVERY, base.ADAM_B1, base.ADAM_B2,
+            base.ADAM_EPS))
+    return gnorm, apply
+
+
+def chain_step(state, grads, ok, gnorm=None):
+    """The plain chain on the card, fed ``gnorm`` or its own norm."""
+    from dtqn_tpu_torch.agents import base
+
+    if gnorm is None:
+        gnorm = torch.linalg.vector_norm(
+            grads, dim=-1 if state.seed_shape else None)
+    return gnorm, base.gated_adam_step(state, grads, gnorm, ok, 3e-4, 1.0,
+                                       OPTIMIZER_TARGET_EVERY)
+
+
+def bits_differ(a, b):
+    """The names of two dicts' tensors that are not bit for bit equal."""
+    def raw(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    return [k for k in a if not torch.equal(raw(a[k]), raw(b[k]))]
+
+
+def optimizer_case(seed, shape, cases):
+    """One call of the kernels against the chain fed their norm, and against
+    the state it started from; returns the norm's relative gap."""
+    from dtqn_tpu_torch.ops import cuda_optimizer as co
+
+    what = f"optimizer {list(shape)} {[c[0] for c in cases]}"
+    start, grads, ok = optimizer_inputs(seed, shape, cases)
+    fused, chain = start.clone(), start.clone()
+    before = dict(co.launch_counts)
+    gnorm, apply = fused_step(fused, grads, ok)
+    check({k: co.launch_counts[k] - before[k] for k in before}
+          == {"adam_sumsq": 1, "adam_apply": 1},
+          f"{what}: launch counts {co.launch_counts} from {before}")
+    want = torch.linalg.vector_norm(grads, dim=-1 if len(shape) > 1
+                                    else None).reshape(-1)
+    got = gnorm.reshape(-1)
+    gap = 0.0
+    for i, case in enumerate(cases):
+        if case[3]:
+            check(not torch.isfinite(got[i]),
+                  f"{what}: a non-finite gradient's norm read {got[i]}")
+            continue
+        gap = max(gap, abs(float(got[i]) - float(want[i])) / float(want[i]))
+        check((float(got[i]) < 1.0) == (case[0] == "below"),
+              f"{what}: {case[0]}'s norm is {float(got[i])}")
+    check(gap <= OPTIMIZER_NORM_RTOL,
+          f"{what}: the norm is {gap:.3g} off vector_norm's")
+    _, want_apply = chain_step(chain, grads, ok, gnorm)
+    differ = bits_differ(fused.tensors(), chain.tensors())
+    check(not differ and torch.equal(apply, want_apply),
+          f"{what}: the kernels and the chain fed their norm differ in "
+          f"{differ}, apply {apply.tolist()} / {want_apply.tolist()}")
+    rows = {k: t.reshape(len(cases), -1) for k, t in fused.tensors().items()}
+    old = {k: t.reshape(len(cases), -1) for k, t in start.tensors().items()}
+    for i, case in enumerate(cases):
+        name = case[0]
+        moved = [k for k in ("params", "mu", "nu", "count")
+                 if not torch.equal(rows[k][i], old[k][i])]
+        check(len(moved) == (0 if name in ("gated", "nonfinite") else 4),
+              f"{what}: {name} changed {moved}")
+        check(torch.equal(rows["target"][i], rows["params"][i]
+                          if name == "swap" else old["target"][i]),
+              f"{what}: {name}'s target")
+        check(int(rows["train_steps"][i]) == int(old["train_steps"][i]) + (
+            name not in ("gated", "nonfinite")), f"{what}: {name}'s steps")
+        check(int(rows["nonfinite_grads"][i]) == 3 + (name == "nonfinite"),
+              f"{what}: {name}'s non-finite count")
+    return gap
+
+
+def optimizer_graphed(seed, shape):
+    """The kernels captured in a CUDA graph and replayed once, against one
+    eager call from the same state: bit-equal, 2 launches counted."""
+    from dtqn_tpu_torch.ops import cuda_optimizer as co
+    from dtqn_tpu_torch.utils import graphs
+
+    what = f"optimizer graphed {list(shape)}"
+    cases = OPTIMIZER_CASES if len(shape) > 1 else OPTIMIZER_CASES[1:2]
+    start, grads, ok = optimizer_inputs(seed, shape, cases)
+    eager, graphed = start.clone(), start.clone()
+    eager_out = fused_step(eager, grads, ok)
+    graph = torch.cuda.CUDAGraph()
+    with graphs.counting_capture() as gains:
+        with torch.cuda.graph(graph):
+            graphed_out = fused_step(graphed, grads, ok)
+    counted = graphs.CountedGraph(graph, gains)
+    before = dict(co.launch_counts)
+    counted.replay()
+    torch.cuda.synchronize()
+    check({k: co.launch_counts[k] - before[k] for k in before}
+          == {"adam_sumsq": 1, "adam_apply": 1},
+          f"{what}: a replay counted {co.launch_counts} from {before}")
+    differ = bits_differ(dict(eager.tensors(), gnorm=eager_out[0],
+                              apply=eager_out[1]),
+                         dict(graphed.tensors(), gnorm=graphed_out[0],
+                              apply=graphed_out[1]))
+    check(not differ, f"{what}: a replay and an eager call differ in "
+                      f"{differ}")
+
+
+def optimizer_times(seed, shape):
+    """Device ms of one step at ``shape`` (every seed legal, clipped), the
+    kernels and the chain (``graph_ms``: each call captured, the vectors
+    warm in L2 after the first), beside the bytes' bound."""
+    cases = (OPTIMIZER_CASES[1],) * (shape[0] if len(shape) > 1 else 1)
+    times = {}
+    for kind, step in (("kernels", fused_step), ("chain", chain_step)):
+        state, grads, ok = optimizer_inputs(seed, shape, cases)
+        times[kind + "_ms"] = graph_ms(lambda: step(state, grads, ok),
+                                       calls=20, replays=10)
+    # g, p, mu and nu read, p, mu and nu written once.
+    elems = math.prod(shape)
+    times["bound_ms"] = 1e3 * 7 * 4 * elems / HBM_BYTES_PER_S
+    return times
+
+
+def optimizer_phase(seed):
+    """Phase 24: the step after the gradient, the kernels against the plain
+    chain on the card."""
+    from dtqn_tpu_torch.ops import cuda_optimizer as co
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    co.build(verbose=True)
+    with open(os.path.splitext(co._lib._name)[0] + ".log") as f:
+        result = {"ptxas": [line for line in f.read().splitlines()
+                            if "registers" in line or "spill" in line]}
+    for shape in OPTIMIZER_SHAPES:
+        if len(shape) > 1:
+            gaps = [optimizer_case(seed, shape, OPTIMIZER_CASES)]
+        else:
+            gaps = [optimizer_case(seed + i, shape, (case,))
+                    for i, case in enumerate(OPTIMIZER_CASES)]
+        optimizer_graphed(seed, shape)
+        result[str(list(shape))] = dict(
+            norm_gap=max(gaps), **optimizer_times(seed, shape))
+        log(f"optimizer {list(shape)}: {json.dumps(result[str(list(shape))])}")
+    log(f"optimizer: {json.dumps(result)}")
+    return result
+
+
 def run(seed):
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false")
@@ -4207,6 +4505,8 @@ def run(seed):
     mark("graphs")
     traced = tracing_phase(seed)
     mark("tracing")
+    optimizer = optimizer_phase(seed)
+    mark("optimizer")
 
     kernels = []
     for name in ("attention_fwd", "attention_bwd"):
@@ -4290,6 +4590,44 @@ def run(seed):
             "shape": shape_bf16,
             "shapes": {shape: t[name] for shape, t in bf16["timings"].items()},
         })
+
+    def adam(launches):
+        """The optimizer pair's launches of a path's counts."""
+        return {k: launches[k] for k in ("adam_sumsq", "adam_apply")}
+
+    graphed_round = graphed["flagless"]["rounds"][-1]
+    kernels.append({
+        "name": "adam_grad_sumsq + adam_clip_apply",
+        "dtype": "float32",
+        "route": "cuda",
+        "source": "dtqn_tpu_torch/csrc/optimizer.cu",
+        "replaces": None,
+        "launches": adam(main["launches"]),
+        "launches_bag_path": adam(bag["full_width"]["launches"]),
+        "launches_pomdp_path": {
+            env: adam(pomdp[env]["launches"]) for env in (HALLWAY, HEAVENHELL)},
+        "launches_image_path": adam(image["launches"]),
+        "launches_variant_paths": {
+            v: adam(variants[v]["launches"]) for v, _ in VARIANTS},
+        "launches_four_rooms_path": adam(multi["launches"]),
+        "launches_sweep_path": adam(sweep["flagless"]["launches"]),
+        "launches_per_rank_2_rank_path": [
+            adam(rank["launches"]) for rank in dp["turns"][1]],
+        "launches_graphed_per_update": {
+            k: n / graphed_round["updates"]
+            for k, n in adam(graphed_round["launches"]).items()},
+        "launches_graphed_evaluation": adam(
+            evaluation["turns"]["launches"]),
+        "launches_host_loop_cue_path": adam(host["cue"]["launches"]),
+        "launches_host_loop_glyph_path": adam(host["glyph"]["launches"]),
+        "launches_bf16_path": adam(bf16["flagless"]["launches"]),
+        "launches_bf16_bag_path": adam(bf16["bag"]["launches"]),
+        "launches_bf16_sweep_path": adam(bf16["sweep_drive"]["launches"]),
+        "launches_bf16_host_loop_glyph_path": adam(
+            host["glyph_bf16"]["launches"]),
+        "shapes": {shape: t for shape, t in optimizer.items()
+                   if shape.startswith("[")},
+    })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main_path": main, "runner": runner, "resume": resume,
                       "discrete": discrete, "evaluation": evaluation,
@@ -4303,6 +4641,7 @@ def run(seed):
                       "timings_streamed": t_streamed,
                       "profile": prof, "bf16": bf16, "several_devices": dp,
                       "graphs": graphed, "tracing": traced,
+                      "optimizer": optimizer,
                       "phase_seconds": phase_seconds,
                       "ptxas": usage}), flush=True)
     print(card, flush=True)

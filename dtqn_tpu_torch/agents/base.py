@@ -67,6 +67,7 @@ from dtqn_tpu_torch.models import (
 )
 from dtqn_tpu_torch.models.dropout import DropoutDraws
 from dtqn_tpu_torch.models.stacked import StackedNetwork
+from dtqn_tpu_torch.ops import cuda_optimizer
 from dtqn_tpu_torch.utils.device import resolve_device
 from dtqn_tpu_torch.utils.metrics import TrainDiagnostics
 from dtqn_tpu_torch.utils.profiling import phase
@@ -214,6 +215,57 @@ def clip_adam_update(
     opt.mu.copy_(torch.where(gate, mu, opt.mu))
     opt.nu.copy_(torch.where(gate, nu, opt.nu))
     opt.count = torch.where(apply, count, opt.count)
+
+
+def gated_adam_step(state: AgentState, flat_grads: torch.Tensor,
+                    gnorm: torch.Tensor, ok: torch.Tensor,
+                    learning_rate: float, max_norm: float,
+                    target_update_frequency: int) -> torch.Tensor:
+    """The plain chain from the global norm on: the clip and Adam where the
+    step is legal (``ok``) and its norm finite, the step counters, the hard
+    target swap every ``target_update_frequency`` applied steps
+    (dqn.py:205-210) and the count of non-finite gradients.  Returns the
+    gate, ``apply``."""
+    seeds = state.seed_shape
+    finite = torch.isfinite(gnorm)
+    apply = ok & finite  # apply only when sampling was legal
+    clip_adam_update(
+        state.params, flat_grads, gnorm, state.opt_state, apply,
+        learning_rate, max_norm,
+    )
+    state.train_steps = state.train_steps + apply.to(torch.int32)
+    swap = apply & (state.train_steps % target_update_frequency == 0)
+    state.target_params.copy_(torch.where(
+        swap[..., None] if seeds else swap, state.params,
+        state.target_params))
+    state.nonfinite_grads = state.nonfinite_grads + (
+        ok & ~finite
+    ).to(torch.int32)
+    return apply
+
+
+def optimizer_step(state: AgentState, flat_grads: torch.Tensor,
+                   ok: torch.Tensor, learning_rate: float, max_norm: float,
+                   target_update_frequency: int):
+    """The step after the gradient (``flat_grads``, [P] or [S, P]):
+    (gnorm, apply).  A CPU tensor takes the plain chain
+    (``torch.linalg.vector_norm``, ``gated_adam_step``); a CUDA tensor the
+    two kernels of ``ops/cuda_optimizer.py``, which round every element
+    as the chain does and sum the norm in another order."""
+    if flat_grads.device.type == "cpu":
+        gnorm = torch.linalg.vector_norm(
+            flat_grads, dim=-1 if state.seed_shape else None)
+        return gnorm, gated_adam_step(
+            state, flat_grads, gnorm, ok, learning_rate, max_norm,
+            target_update_frequency)
+    opt = state.opt_state
+    gnorm, apply, opt.count, state.train_steps, state.nonfinite_grads = (
+        cuda_optimizer.clip_adam_apply(
+            state.params, flat_grads, opt.mu, opt.nu, opt.count, ok,
+            state.train_steps, state.nonfinite_grads, state.target_params,
+            learning_rate, max_norm, target_update_frequency,
+            ADAM_B1, ADAM_B2, ADAM_EPS))
+    return gnorm, apply
 
 
 class Agent:
@@ -702,28 +754,11 @@ class Agent:
             self.mesh.all_reduce(flat_grads)
 
         with torch.no_grad():
-            gnorm = torch.linalg.vector_norm(flat_grads,
-                                             dim=-1 if seeds else None)
-            finite = torch.isfinite(gnorm)
-            apply = ok & finite  # apply only when sampling was legal
-            clip_adam_update(
-                state.params, flat_grads, gnorm, state.opt_state, apply,
-                cfg.learning_rate, cfg.grad_norm_clip,
-            )
-            state.train_steps = state.train_steps + apply.to(torch.int32)
-            # Hard target swap every target_update_frequency applied steps
-            # (dqn.py:205-210).
-            swap = apply & (
-                state.train_steps % cfg.target_update_frequency == 0
-            )
-            state.target_params.copy_(torch.where(
-                swap[..., None] if seeds else swap, state.params,
-                state.target_params))
+            gnorm, apply = optimizer_step(
+                state, flat_grads, ok, cfg.learning_rate, cfg.grad_norm_clip,
+                cfg.target_update_frequency)
             state.diagnostics.update(
                 apply, td=td.detach(), gnorm=gnorm, q=q_h.detach(),
                 targets=t_h, mesh=self.mesh,
             )
-            state.nonfinite_grads = state.nonfinite_grads + (
-                ok & ~finite
-            ).to(torch.int32)
         return state

@@ -8,7 +8,8 @@ Replaces ``dtqn_tpu/ops/pallas_attention.py``: ``_fwd`` / ``_fwd_kernel``
 The kernels live in ``dtqn_tpu_torch/csrc/attention.cu``.  They are built
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 with a plain C interface at first use, under ``dtqn_tpu_torch/_build/``
-keyed by a hash of the source and the flags, and loaded with ctypes.
+keyed by a hash of the source and the flags, and loaded with ctypes
+(``ops/nvcc.py``).
 
 What bounds them on an H100: at the main path's shapes (B = 32..64,
 L = 50, E = 64 or 128) a call moves 1-2 MB, under a microsecond at
@@ -63,16 +64,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
 import re
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+
+from dtqn_tpu_torch.ops import nvcc
 
 MASK_VALUE = -1e30  # pallas_attention.py:55
 MAX_HEAD_DIM = 64
@@ -102,12 +100,8 @@ BWD_MAX_WARPS, BWD_ROWS_PER_WARP = 8, 4
 # (one block per (batch, head) at Lq <= 64), head rows padded by 4 floats.
 STAGED_WARPS, STAGED_FWD_ROWS, STAGED_ROW_PAD = 8, 64, 4
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "attention.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_SOURCE = nvcc.CSRC_DIR / "attention.cu"
+_BUILD_DIR = nvcc.BUILD_DIR
 
 KINDS = ("attention_fwd", "attention_bwd")
 # Launches of each kernel since the last reset, the bfloat16 instances
@@ -352,28 +346,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    source = _SOURCE.read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
-    lib_path = _BUILD_DIR / f"attention-{digest.hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        nvcc = _find_nvcc()
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed on {_SOURCE}:\n{proc.stdout}\n{proc.stderr}"
-            )
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib_path)  # atomic: concurrent builds agree
-    lib = ctypes.CDLL(str(lib_path))
+    lib = nvcc.build_library(_SOURCE, _BUILD_DIR, verbose)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.dtqn_attention_fwd.argtypes = (
         [ptr] * 4 + [i32] * 7 + [f32] + [i32] * 5 + [ptr])
@@ -425,23 +398,6 @@ def ptxas_usage(log: Optional[str] = None) -> List[dict]:
     return sorted(usage.values(), key=lambda u: u["kernel"])
 
 
-def _find_nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME): the attention kernels are built "
-        "from dtqn_tpu_torch/csrc at first use on the GPU"
-    )
-
-
-def _raise_on_error(lib, code: int, what: str) -> None:
-    if code != 0:
-        msg = lib.dtqn_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {code}: {msg}")
-
-
 # ----------------------------------------------------------------- wrappers
 def launch_fwd(q, k, v, num_heads: int, causal: bool,
                cfg: LaunchConfig) -> torch.Tensor:
@@ -457,7 +413,7 @@ def launch_fwd(q, k, v, num_heads: int, causal: bool,
         DTYPES.index(q.dtype), b, lq, lk, h, d, int(causal), _scale(d), *cfg,
         stream,
     )
-    _raise_on_error(lib, code, "attention_fwd")
+    nvcc.raise_on_error(lib, code, "attention_fwd")
     return out
 
 
@@ -476,7 +432,7 @@ def launch_bwd(q, k, v, dout, num_heads: int, causal: bool,
         DTYPES.index(q.dtype), b, lq, lk, h, d, int(causal), _scale(d), *cfg,
         stream,
     )
-    _raise_on_error(lib, code, "attention_bwd")
+    nvcc.raise_on_error(lib, code, "attention_bwd")
     return dq, dk, dv
 
 

@@ -40,8 +40,9 @@ and copied back after them (``copy_states``), so that the caller's
 generator ends where the eager call leaves it.
 
 Python code runs only while a graph is captured, so counters that Python
-code advances (``ops.cuda_attention.launch_counts``: one per kernel launch)
-would count a capture, which launches nothing, and no replay.
+code advances (``launch_counts`` of ``ops.cuda_attention`` and
+``ops.cuda_optimizer``: one per kernel launch) would count a capture, which
+launches nothing, and no replay.
 ``counting_capture`` records what each dict of ``TRACKED_COUNTERS`` gained
 during a capture and takes it back; ``CountedGraph.replay`` adds it on every
 replay, so the counts stay those of the kernels that ran.  For the same
@@ -62,7 +63,7 @@ import torch
 from torch import nn
 
 from dtqn_tpu_torch.models.stacked import StackedNetwork
-from dtqn_tpu_torch.ops.cuda_attention import launch_counts
+from dtqn_tpu_torch.ops import cuda_attention, cuda_optimizer
 from dtqn_tpu_torch.utils import profiling
 from dtqn_tpu_torch.utils.tree import fields, leaves
 
@@ -70,7 +71,10 @@ from dtqn_tpu_torch.utils.tree import fields, leaves
 # while its graph was captured.  The name is looked up at each replay: a
 # caller that counts more (a ledger of launches by shape) may register a
 # fresh dict under its name for each stretch it counts.
-TRACKED_COUNTERS: Dict[str, Dict[Any, int]] = {"launch_counts": launch_counts}
+TRACKED_COUNTERS: Dict[str, Dict[Any, int]] = {
+    "launch_counts": cuda_attention.launch_counts,
+    "optimizer_launch_counts": cuda_optimizer.launch_counts,
+}
 
 Step = Callable[[Any], Any]
 Gains = Dict[str, Dict[Any, int]]

@@ -168,11 +168,11 @@ def test_evaluate_runs_where_the_agent_is(monkeypatch):
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """A CUDA tensor launches the kernel or raises: with no nvcc the build
     raises instead of running the plain version."""
-    from dtqn_tpu_torch.ops import cuda_attention
+    from dtqn_tpu_torch.ops import cuda_attention, nvcc
 
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(cuda_attention, "_lib", None)
-    monkeypatch.setattr(cuda_attention.shutil, "which", lambda _: None)
+    monkeypatch.setattr(nvcc.shutil, "which", lambda _: None)
     monkeypatch.setattr(cuda_attention, "_BUILD_DIR",
                         cuda_attention._BUILD_DIR / "absent")
     monkeypatch.setattr(cuda_attention, "_check_cuda", lambda *a: None)
