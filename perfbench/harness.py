@@ -41,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -49,8 +50,8 @@ from perfbench import compare, flops
 from perfbench.program import Program
 from perfbench.reference.envs import make_env as make_ref_env
 from perfbench.reference.learner import ReferenceRun
-from perfbench.reference.model import Precision, param_spec
-from perfbench.registry import Benchmark, Cell
+from perfbench.reference.precision import Precision
+from perfbench.registry import Benchmark, Cell, family
 from perfbench.trace import Trace, traced
 
 WEIGHT_STREAM = 0x5EED  # the weights' generator: seed * 2**16 + this
@@ -61,12 +62,15 @@ def run_seeds(seed: int, count: int) -> List[int]:
     return [seed + i for i in range(count)]
 
 
-def make_weights(cfg: dict, env, seeds: int, seed: int,
-                 device) -> Dict[str, torch.Tensor]:
-    """Initial weights, name -> [S, *shape]: N(0, 0.02) for every weight
-    matrix and embedding, zero biases and positions, LayerNorm scales 1
-    (the published model's init), drawn on ``device`` in one call."""
-    spec = param_spec(cfg, env)
+def make_weights(cfg: dict, env, seeds: int, seed: int, device,
+                 model: Optional[ModuleType] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """Initial weights, name -> [S, *shape], as the reference ``model``'s
+    ``param_spec`` lists them (by default the module ``cfg`` names, from
+    the benchmark's own root): N(0, 0.02), zeros or ones, as it says for
+    each, drawn on ``device`` in one call."""
+    model = model or family(cfg).reference
+    spec = model.param_spec(cfg, env)
     sizes = [(name, shape, init, _numel(shape)) for name, shape, init in spec]
     gen = torch.Generator(device=device).manual_seed(
         seed * 2**16 + WEIGHT_STREAM)
@@ -98,8 +102,7 @@ class LayerContext:
     peak_flops: float
     bytes_per_s: float
     applications: List[flops.Application]
-    heads: int
-    head_dim: int
+    work: ModuleType  # the configuration's work counts
 
     def matching(self, group: str) -> List[tuple]:
         """The traced kernels whose names match a pattern of ``group``."""
@@ -193,16 +196,17 @@ def run_cell(bench: Benchmark, cell: Cell, seed: int, seconds: float,
     the late stage."""
     device = torch.device(device)
     cfg, traffic = cell.config, cell.traffic
+    model = cell.family.reference
     seeds = run_seeds(seed, traffic["seeds"])
     ref_env = make_ref_env(cfg["env"])
     prog = Program(cfg, traffic, seeds, device)
-    spec = [(n, s) for n, s, _ in param_spec(cfg, ref_env)]
+    spec = [(n, s) for n, s, _ in model.param_spec(cfg, ref_env)]
     if sorted(spec) != sorted((n, s) for n, _, s in prog.layout()):
         raise RuntimeError("the program's parameters differ from the "
                            "reference's: " + repr(sorted(
                                set(spec) ^ {(n, s) for n, _, s in
                                             prog.layout()})))
-    weights = make_weights(cfg, ref_env, len(seeds), seed, device)
+    weights = make_weights(cfg, ref_env, len(seeds), seed, device, model)
     prog.set_weights(weights)
     if plant is not None:
         plant(prog)
@@ -278,12 +282,11 @@ def run_cell(bench: Benchmark, cell: Cell, seed: int, seconds: float,
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     stages = Stages(start, replayed, before, generator_states, late)
-    values, notes = against_reference(cfg, traffic, seeds, weights, device,
-                                       stages)
+    values, notes = against_reference(cell, seeds, weights, device, stages)
     log(f"reference: {time.perf_counter() - t_ref:.3f} s")
     correct = compare.judge(values, cell.limits) and failed == 0
-    checks = {k: {"value": values[k], "limit": cell.limits.get(k)}
-              for k in sorted(values)}
+    checks, more_notes = compare.checks(values, cell.limits)
+    notes += more_notes
     out = {}
     for fault in controls:
         out[fault] = control_checks(cell, seeds, weights, device, stages,
@@ -317,23 +320,19 @@ def traced_metrics(bench: Benchmark, cell: Cell, prog: Program, info: dict,
     log(f"kernels traced in one iteration: {len(one.kernels())}, in a second: "
         f"{len(again.kernels())}, in a chunk of {iters}: "
         f"{len(whole.kernels())}")
-    ref_env = make_ref_env(cfg["env"])
-    seeds = traffic["seeds"]
-    shp = flops.shapes(cfg, ref_env.obs_shape[0],
-                       ref_env.obs_dtype == torch.int32, ref_env.num_actions)
+    work = cell.family.work
+    sizes = (make_ref_env(cfg["env"]), traffic["seeds"], envs,
+             cfg["batch_size"], updates_per_iter)
     peak = flops.peaks(info["kind"] if on_card else "H100")
     ctx = LayerContext(
         trace=one, chunk_trace=whole, patterns=bench.patterns,
         iters_traced=1, updates_traced=updates_per_iter,
         iters_window=iters_window, window_s=window_s,
-        flops_per_iter=flops.iteration_flops(
-            shp, seeds, envs, cfg["batch_size"], updates_per_iter),
+        flops_per_iter=work.iteration_flops(cfg, *sizes),
         peak_flops=peak[cfg["precision"]],
         bytes_per_s=peak["hbm_bytes_per_s"],
-        applications=flops.attention_applications(
-            shp, seeds, envs, cfg["batch_size"], updates_per_iter),
-        heads=cfg["num_heads"],
-        head_dim=cfg["inner_embed"] // cfg["num_heads"])
+        applications=work.attention_applications(cfg, *sizes),
+        work=work)
     metrics = {}
     for m in cell.per_layer:
         value = bench.reader(m["name"])(ctx)
@@ -364,14 +363,16 @@ class Stages:
     late: Dict[str, torch.Tensor]
 
 
-def against_reference(cfg: dict, traffic: dict, seeds: List[int],
+def against_reference(cell: Cell, seeds: List[int],
                       weights: Dict[str, torch.Tensor], device,
                       stages: Stages):
     """The float32 reference's readings of a run's three stages: (values,
     notes: where the exact part differs, and the worst leaves)."""
-    updates = traffic["updates_per_env_step"] * cfg["num_envs"]
+    cfg = cell.config
+    updates = cell.traffic["updates_per_env_step"] * cfg["num_envs"]
     with Precision(tf32=False) as prec:
-        run = ReferenceRun(cfg, seeds, weights, device, prec)
+        run = ReferenceRun(cfg, cell.family.reference, seeds, weights,
+                           device, prec)
         # Over the start no compared number reads a bag's contents (the
         # first iteration acts at epsilon 1, and updates draw their bags
         # from the replay): the evict is checked over the replay, from the
@@ -398,7 +399,7 @@ def against_reference(cfg: dict, traffic: dict, seeds: List[int],
     return values, notes + more_notes
 
 
-def reference_stages(cfg: dict, traffic: dict, seeds: List[int],
+def reference_stages(cell: Cell, seeds: List[int],
                      weights: Dict[str, torch.Tensor], device, tf32: bool,
                      before: Dict[str, torch.Tensor],
                      generator_states: List[torch.Tensor],
@@ -408,9 +409,11 @@ def reference_stages(cfg: dict, traffic: dict, seeds: List[int],
     with a planted fault: ``half_batch``, or no evict where not
     ``evicts``): its state after the first and second iteration from the
     seed, and after the late stage from ``before``."""
-    updates = traffic["updates_per_env_step"] * cfg["num_envs"]
+    cfg = cell.config
+    updates = cell.traffic["updates_per_env_step"] * cfg["num_envs"]
     with Precision(tf32) as prec:
-        run = ReferenceRun(cfg, seeds, weights, device, prec, half_batch)
+        run = ReferenceRun(cfg, cell.family.reference, seeds, weights,
+                           device, prec, half_batch)
         run.evicts = evicts
         run.prepopulate()
         run.iteration(updates)
@@ -428,16 +431,13 @@ def control_checks(cell: Cell, seeds: List[int],
                    fault: str) -> dict:
     """The readings of the reference put in the program's place with
     ``fault``, judged against the cell's limits."""
-    cfg, traffic = cell.config, cell.traffic
     t0 = time.perf_counter()
-    put = reference_stages(cfg, traffic, seeds, weights, device,
-                           fault == "tf32", stages.before,
-                           stages.generator_states,
+    put = reference_stages(cell, seeds, weights, device, fault == "tf32",
+                           stages.before, stages.generator_states,
                            half_batch=fault == "half_batch",
                            evicts=fault != "evict_skipped")
-    values, notes = against_reference(cfg, traffic, seeds, weights, device,
-                                       put)
+    values, notes = against_reference(cell, seeds, weights, device, put)
+    checks, more_notes = compare.checks(values, cell.limits)
     return {"correct": compare.judge(values, cell.limits),
-            "seconds": time.perf_counter() - t0, "notes": notes[:8],
-            "checks": {k: {"value": v, "limit": cell.limits.get(k)}
-                       for k, v in sorted(values.items())}}
+            "seconds": time.perf_counter() - t0,
+            "notes": notes[:8] + more_notes, "checks": checks}

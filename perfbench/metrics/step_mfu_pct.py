@@ -1,7 +1,7 @@
 """The whole step's share of the card's peak in the configuration's
 precision: the model FLOPs of the measured window's iterations
-(``perfbench.flops``, from shapes, no recomputation) over the window's
-wall time times the peak, in percent."""
+(the configuration's work counts, from shapes, no recomputation) over
+the window's wall time times the peak, in percent."""
 
 
 def read(ctx):

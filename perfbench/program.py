@@ -4,6 +4,10 @@
 ``make_prepopulate`` and ``make_train_chunk``), and what the comparison
 reads of its state.  Nothing else of the program is used: not how a chunk
 is built inside (its graphs, its unit), only the iterations a call runs.
+
+``AgentConfig`` takes the configuration's training and model keys, and
+every field of its optional ``"network"`` object as it stands (the fields
+of a network that the common keys do not name).
 """
 
 from __future__ import annotations
@@ -27,9 +31,13 @@ class Program:
             make_train_chunk
         from dtqn_tpu_torch.utils.epsilon import EpsilonSchedule
 
-        self.seeds = list(seeds)
-        self.env = make_env(cfg["env"])
-        self.agent = Agent(AgentConfig(
+        network = cfg.get("network", {})
+        unknown = sorted(set(network) - {f.name for f in
+                                         dataclasses.fields(AgentConfig)})
+        if unknown:
+            raise ValueError(f"the configuration's \"network\" sets "
+                             f"{unknown}, which AgentConfig has no field for")
+        config = AgentConfig(
             model=cfg["model"],
             num_envs=cfg["num_envs"],
             learning_rate=cfg["lr"],
@@ -46,7 +54,11 @@ class Program:
             num_heads=cfg["num_heads"],
             num_layers=cfg["num_layers"],
             bag_size=cfg["bag_size"],
-        ), self.env, device=device)
+            **network,
+        )
+        self.seeds = list(seeds)
+        self.env = make_env(cfg["env"])
+        self.agent = Agent(config, self.env, device=device)
         self.state = (self.agent.init_sweep_state(self.seeds)
                       if len(self.seeds) > 1
                       else self.agent.init_state(self.seeds[0]))

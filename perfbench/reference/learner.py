@@ -1,5 +1,8 @@
-"""Plain DDQN training of DTQN (kevslinger/DTQN ``dtqn/agents/dqn.py``,
-``dtqn/agents/dtqn.py``, ``run.py``) for S seeds at once, float32.
+"""Plain DDQN training of a Q-network (kevslinger/DTQN
+``dtqn/agents/dqn.py``, ``dtqn/agents/dtqn.py``, ``run.py``) for S seeds
+at once, float32.  The network is the configuration's own: ``Net`` and
+``param_spec`` of the reference module its ``"reference"`` names; the
+learner, the envs, the replay and the bag are shared.
 
 A run of ``cfg`` from ``seeds`` and the given initial weights: the envs
 start, the replay is filled by ``prepop_steps`` env steps of uniformly
@@ -25,6 +28,7 @@ its state is what ``observables`` reads.
 
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, List
 
 import torch
@@ -32,18 +36,20 @@ import torch
 from perfbench.reference import replay as rp
 from perfbench.reference.envs import make_env, per_seed_cat, select, \
     step_autoreset
-from perfbench.reference.model import Net, Precision, param_spec
+from perfbench.reference.precision import Precision
 
 ADAM = (0.9, 0.999, 1e-8)
 
 
 class ReferenceRun:
-    def __init__(self, cfg: dict, seeds: List[int],
+    def __init__(self, cfg: dict, model: ModuleType, seeds: List[int],
                  weights: Dict[str, torch.Tensor], device,
                  prec: Precision, half_batch: bool = False):
-        """``weights``: name -> [S, *shape], as ``param_spec`` names them.
-        ``half_batch`` (a planted fault, for the checks of the comparison)
-        trains on the first half of each batch, the mean taken over it."""
+        """``model``: the configuration's reference module (``Net``,
+        ``param_spec``).  ``weights``: name -> [S, *shape], as
+        ``param_spec`` names them.  ``half_batch`` (a planted fault, for
+        the checks of the comparison) trains on the first half of each
+        batch, the mean taken over it."""
         if cfg.get("action_dim", 0):
             raise ValueError("the plain reference has no action embedding")
         self.cfg = cfg
@@ -52,12 +58,12 @@ class ReferenceRun:
         self.gens = [torch.Generator(device=self.device).manual_seed(s)
                      for s in seeds]
         self.s, self.e = len(seeds), cfg["num_envs"]
-        self.net = Net(cfg, self.env, prec)
+        self.net = model.Net(cfg, self.env, prec)
         self.half_batch = half_batch
         # Whether a full bag scores its candidates (``evict``); else it
         # keeps its contents, and only its fill is tracked.
         self.evicts = True
-        self.names = [name for name, _, _ in param_spec(cfg, self.env)]
+        self.names = [name for name, _, _ in model.param_spec(cfg, self.env)]
         env, e, dev = self.env, self.e, self.device
         self.obs, self.env_state = env.reset(self.gens, e, dev)
         self.ctx = rp.new_context(self.gens, e, cfg["context_len"], env,

@@ -14,6 +14,9 @@ with one Q per action.  No action embedding (``action_dim`` 0).
 
 Every matrix product goes through ``Precision.mm``: float32 (the
 configurations' precision), or the control's TF32.
+
+A configuration names this file as its ``"reference"``: the harness and
+the shared learner take ``param_spec``, ``Net`` and ``TINY`` from it.
 """
 
 from __future__ import annotations
@@ -23,57 +26,17 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from perfbench.reference.precision import Precision
+
 LN_EPS = 1e-6
 
-
-class Precision:
-    """The products' precision while the context is open: float32 (the
-    configurations' precision), or with ``tf32`` the control's TF32: on a
-    card the tensor cores' TF32, on the CPU the operands rounded to TF32's
-    10 mantissa bits first."""
-
-    def __init__(self, tf32: bool = False):
-        self.tf32 = tf32
-
-    def __enter__(self):
-        self.saved = (torch.backends.cuda.matmul.allow_tf32,
-                      torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = self.tf32
-        torch.backends.cudnn.allow_tf32 = self.tf32
-        return self
-
-    def __exit__(self, *exc):
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = self.saved
-
-    def mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """a [..., m, k] @ b [..., k, n], batch dims alike."""
-        if self.tf32 and a.device.type == "cpu":
-            return _TF32Matmul.apply(a, b)
-        return torch.matmul(a, b)
-
-
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 rounded to 10 mantissa bits, to nearest."""
-    bits = x.detach().contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-class _TF32Matmul(torch.autograd.Function):
-    """A product, and its gradients' products, of operands rounded to
-    TF32."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return torch.matmul(_tf32(a), _tf32(b))
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = _tf32(g)
-        return (torch.matmul(g, _tf32(b).transpose(-1, -2)),
-                torch.matmul(_tf32(a).transpose(-1, -2), g))
+# A CPU test's size: the most each key takes (a configuration's smaller
+# value stays, so a cell without a bag keeps none).  Every width cut, the
+# same code paths; epsilon anneals and the target swaps within a few
+# iterations, so that the late stage has greedy actions and a swap.
+TINY = dict(inner_embed=16, num_heads=2, num_layers=1, context_len=8,
+            history=8, batch_size=4, buffer_size=4000, num_envs=4,
+            prepop_steps=1700, eps_duration=40, target_update=12, bag_size=3)
 
 
 def param_spec(cfg: dict, env) -> List[Tuple[str, Tuple[int, ...], str]]:

@@ -1,4 +1,4 @@
-"""The benchmark of ``dtqn_tpu_torch``: graphed DTQN training throughput.
+"""The benchmark of ``dtqn_tpu_torch``: graphed Q-learning throughput.
 
     python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>

@@ -29,33 +29,30 @@ def card():
     return torch.device("cuda")
 
 
-# Epsilon anneals and the target swaps within a few iterations, so that
-# the late stage has greedy actions and a swap to compare.
-TINY = dict(inner_embed=16, num_heads=2, num_layers=1, context_len=8,
-            history=8, batch_size=4, buffer_size=4000, num_envs=4,
-            prepop_steps=1700, eps_duration=40, target_update=12)
-
-
 # At the tiny size on the CPU the program runs the plain versions of its
 # kernels, and agrees with the reference to about 3e-7 (its sums in
 # another order); the cells' limits are set for the card at full size.
+# Here every number a cell reads is compared, also one its card limits
+# leave uncompared (null): a few updates at the tiny size hold no chaos.
 TINY_LIMITS = dict(start_mismatch=0, replay_mismatch=0, start_loss_gap=1e-5,
                    start_gnorm_gap=1e-5, loss_gap=1e-5, gnorm_gap=1e-5,
                    moment_gap=1e-5, param_change_gap=1e-5, late_mismatch=0,
-                   late_loss_gap=1e-5, late_gnorm_gap=1e-5, target_gap=1e-4)
+                   late_loss_gap=1e-5, late_gnorm_gap=1e-5, target_gap=1e-4,
+                   evict_regret=1e-7)
 
 
-def tiny_cell(name: str, seeds: int = 1):
-    """``name``'s cell at a size a CPU test holds: every width cut, the
-    same code paths (a bag of 3 where the cell has one), the CPU's
-    limits."""
+def tiny_cell(name: str, seeds: int = 1, bench=None):
+    """``name``'s cell (of ``bench``, by default the repository's) at a
+    size a CPU test holds: each key of its network family's ``TINY`` at
+    most that size, the same code paths, the CPU's limits for the numbers
+    the cell compares."""
     from perfbench.registry import Benchmark
 
-    cell = Benchmark().cell(name)
-    cell.config.update(TINY, bag_size=min(cell.config["bag_size"], 3))
-    cell.limits = dict(TINY_LIMITS)
-    if cell.config["bag_size"]:
-        cell.limits["evict_regret"] = 1e-7
+    cell = (bench or Benchmark()).cell(name)
+    cfg = cell.config
+    cfg.update({k: min(cfg[k], v)
+                for k, v in cell.family.reference.TINY.items()})
+    cell.limits = {k: TINY_LIMITS[k] for k in cell.limits}
     cell.traffic.update(seeds=seeds, iters_per_chunk=2)
     return cell
 

@@ -1,15 +1,18 @@
-"""Discovery by name, where adding a configuration, a cell, a traffic mix,
-a per-layer metric or a kernel-name pattern is adding a file; the
-benchmark file's shape; the result line's schema; the window arithmetic on
-a fake clock."""
+"""Discovery by name, where adding a configuration, a network family, a
+cell, a traffic mix, a per-layer metric or a kernel-name pattern is adding
+a file; the benchmark file's shape; the result line's schema; the window
+arithmetic on a fake clock."""
 
 import json
 import re
 import shutil
+from pathlib import Path
 
 import pytest
 
 from perfbench import harness
+from perfbench.program import Program
+from perfbench.reference.envs import make_env
 from perfbench.registry import ROOT, Benchmark
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -74,6 +77,99 @@ def test_new_files_are_found_by_name(copy):
     assert any(p.search("void (anonymous namespace)::attention_fwd_kernel"
                         "<float, 8, 2>(float const*)")
                for p in bench.patterns("attention"))
+
+
+# The harness's own modules: none may name a network family.
+HARNESS = ["harness.py", "program.py", "compare.py", "control.py", "run.py",
+           "trace.py", "registry.py", "flops.py", "reference/learner.py",
+           "reference/envs.py", "reference/replay.py",
+           "reference/precision.py"]
+
+
+def family_names(spec: dict) -> set:
+    """Each configuration's network and work modules, as a path and as an
+    import would name them."""
+    out = set()
+    for c in spec["configs"]:
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        for key in ("reference", "work"):
+            stem = cfg[key].removesuffix(".py")
+            out |= {stem, stem.replace("/", "."),
+                    "import " + stem.rsplit("/", 1)[-1]}
+    return out
+
+
+def test_harness_names_no_family():
+    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+    names = family_names(spec)
+    sources = [ROOT / "perfbench" / m for m in HARNESS]
+    sources += sorted((ROOT / "perfbench" / "metrics").glob("*.py"))
+    for path in sources:
+        text = path.read_text()
+        assert not [n for n in names if n in text], path
+        if path.parent.name != "reference":
+            assert "DTQN" not in text, path
+
+
+def test_a_second_network_family_is_files_alone(copy, tiny):
+    """A configuration whose network and counts are copies of DTQN's under
+    a new name, with a ``"network"`` field set to AgentConfig's own value:
+    found, run and judged from its files alone, reading what
+    ``carflag_dtqn.s1`` reads."""
+    d = copy / "perfbench"
+    (d / "reference" / "twin_net.py").write_text(
+        (d / "reference" / "model.py").read_text())
+    (d / "work" / "twin_net.py").write_text(
+        (d / "work" / "dtqn.py").read_text())
+    cfg = json.loads((d / "configs" / "carflag_dtqn.json").read_text())
+    cfg.update(reference="perfbench/reference/twin_net.py",
+               work="perfbench/work/twin_net.py", network={"gate": "res"})
+    (d / "configs" / "carflag_twin_net.json").write_text(json.dumps(cfg))
+    shutil.copy(d / "limits" / "carflag_dtqn.s1.json",
+                d / "limits" / "carflag_twin_net.s1.json")
+    spec = json.loads((copy / "BENCHMARK.json").read_text())
+    spec["configs"].append({"name": "carflag_twin_net",
+                            "source": "https://example.org/x",
+                            "file": "perfbench/configs/carflag_twin_net.json",
+                            "reduced": [], "why": "a test"})
+    spec["workloads"].append({"name": "carflag_twin_net.s1",
+                              "config": "carflag_twin_net", "traffic": "s1",
+                              "chips": 1, "why": "a test"})
+    (copy / "BENCHMARK.json").write_text(json.dumps(spec))
+    bench = Benchmark(copy)
+    twin = tiny("carflag_twin_net.s1", bench=bench)
+    assert Path(twin.family.reference.__file__) == \
+        (d / "reference" / "twin_net.py").resolve()
+    assert Path(twin.family.work.__file__) == \
+        (d / "work" / "twin_net.py").resolve()
+    assert twin.config["network"] == {"gate": "res"}
+    seed = 2**31 + 29
+    res = harness.run_cell(bench, twin, seed, 0.0, False, "cpu", 0.0)
+    base = harness.run_cell(Benchmark(), tiny("carflag_dtqn.s1"), seed, 0.0,
+                            False, "cpu", 0.0)
+    assert res.correct, res.checks
+    assert res.checks == base.checks
+    assert (res.attempted, res.failed) == (base.attempted, base.failed)
+    # The counts the per-layer readers take, at the cell's full size.
+    full, dtqn = Benchmark(copy).cell("carflag_twin_net.s1"), \
+        Benchmark().cell("carflag_dtqn.s1")
+    env = make_env(cfg["env"])
+    for count in ("iteration_flops", "attention_applications"):
+        assert getattr(full.family.work, count)(
+            full.config, env, 1, 64, 32, 64) == getattr(
+            dtqn.family.work, count)(dtqn.config, env, 1, 64, 32, 64)
+    for m in HARNESS:
+        assert "twin_net" not in (ROOT / "perfbench" / m).read_text(), m
+
+
+def test_unknown_network_field_raises_before_anything_is_built(tiny):
+    cell = tiny("carflag_dtqn.s1")
+    # An env no registry has: building anything before the check would
+    # raise another error.
+    cfg = dict(cell.config, env="no-such-env",
+               network={"gate": "res", "flux_capacitor": 1})
+    with pytest.raises(ValueError, match="flux_capacitor"):
+        Program(cfg, cell.traffic, [1], "cpu")
 
 
 def test_benchmark_file_shape():
